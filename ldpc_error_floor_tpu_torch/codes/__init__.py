@@ -1,0 +1,11 @@
+from ldpc_error_floor_tpu_torch.codes.protograph import Code, load_proto_matrix
+from ldpc_error_floor_tpu_torch.codes.graph import TannerGraph
+from ldpc_error_floor_tpu_torch.codes.library import available_codes, get_code
+
+__all__ = [
+    "Code",
+    "TannerGraph",
+    "load_proto_matrix",
+    "available_codes",
+    "get_code",
+]

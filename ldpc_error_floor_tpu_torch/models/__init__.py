@@ -1,0 +1,24 @@
+from ldpc_error_floor_tpu_torch.models.nms import (
+    DecoderConfig,
+    DecodeResult,
+    NMSDecoder,
+    SP,
+    MS,
+    QMS,
+    MS_RAW,
+)
+from ldpc_error_floor_tpu_torch.models.weights import (
+    Params,
+    WeightSpec,
+    init_weights,
+    stack_weights,
+    load_params,
+    params_from_blocks,
+    params_from_numpy,
+)
+
+__all__ = [
+    "DecoderConfig", "DecodeResult", "NMSDecoder", "SP", "MS", "QMS", "MS_RAW",
+    "Params", "WeightSpec", "init_weights", "stack_weights", "load_params",
+    "params_from_blocks", "params_from_numpy",
+]

@@ -1,0 +1,98 @@
+"""Neural min-sum (NMS) decoder (port of `ldpc_error_floor_tpu/models/nms.py`).
+
+`NMSDecoder.apply(params, llr, collect='stats')` decodes ``llr [N*z, B]``
+(p1/p0 channel LLRs, batch last) for `spec.n_iters` iterations and returns
+the final clipped APP plus per-iteration frame-wrong flags and bit-error
+counts against the all-zero codeword.  The work goes to
+`ops.fused_decoder.FusedNMSKernel`: the hand-written CUDA kernel for a
+tensor on the card, its plain PyTorch version for a tensor on the CPU.
+
+Sign conventions (as in the JAX package): positive LLR means bit 1; a bit is
+wrong when ``APP >= 0``; the check-node sign is
+``out_sign = -prod_extrinsic(where(v2c > 0, -1, +1))``; zero V->C messages
+are nudged to 1e-4 before the extrinsic min and squashed back after.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import torch
+
+from ldpc_error_floor_tpu_torch.codes.graph import TannerGraph
+from ldpc_error_floor_tpu_torch.codes.protograph import Code
+from ldpc_error_floor_tpu_torch.models.weights import Params, WeightSpec, stack_weights
+from ldpc_error_floor_tpu_torch.utils import resolve_device
+
+# decoding types, matching the reference's `decoding_type` codes
+SP = 0   # sum-product (tanh/atanh)
+MS = 1   # min-sum with zero-message epsilon handling
+QMS = 2  # quantized min-sum
+MS_RAW = 3  # min-sum without the zero-message epsilon nudge
+
+
+@dataclass(frozen=True)
+class DecoderConfig:
+    """Static decoder configuration."""
+
+    decoding_type: int = QMS
+    q_bit: int = 5
+    clip_llr: float = 20.0
+    neural_mode: str = "scale"  # 'scale': multiplicative CN/UCN weights;
+    #   'offset': wmag = relu(mag - beta) (neural offset min-sum)
+    target_node: int = 0  # >0: count errors over the first `target_node`
+    #                        proto columns only (systematic option)
+
+    def __post_init__(self):
+        if self.decoding_type not in (SP, MS, QMS, MS_RAW):
+            raise ValueError(f"bad decoding_type {self.decoding_type}")
+        if self.neural_mode not in ("scale", "offset"):
+            raise ValueError(f"bad neural_mode {self.neural_mode!r}")
+
+
+class DecodeResult(NamedTuple):
+    app_last: torch.Tensor                 # [N*z, B] final-iteration APP LLRs
+    err_flags: Optional[torch.Tensor]      # [T, B] bool — frame wrong at iter t
+    bit_errors: Optional[torch.Tensor]     # [T, B] int32 — bit errors at iter t
+
+    @property
+    def uncor_mask(self) -> torch.Tensor:
+        """[B] bool — wrong at *every* iteration (the genie-FER failure flag)."""
+        return torch.all(self.err_flags, dim=0)
+
+
+class NMSDecoder:
+    """Weighted/neural min-sum decoder over a lifted QC-LDPC Tanner graph."""
+
+    def __init__(self, code: Code, cfg: DecoderConfig, spec: WeightSpec,
+                 graph: Optional[TannerGraph] = None, device="cuda"):
+        from ldpc_error_floor_tpu_torch.ops.fused_decoder import FusedNMSKernel
+        self.code = code
+        self.cfg = cfg
+        self.spec = spec
+        self.graph = graph if graph is not None else TannerGraph(code)
+        self.device = resolve_device(device)
+        self.N, self.M, self.z = code.N, code.M, code.z
+        self.target = cfg.target_node if cfg.target_node > 0 else self.N
+        self.kernel = FusedNMSKernel(self.graph, cfg, spec)
+
+    def apply(self, params: Params, llr: torch.Tensor,
+              collect: str = "stats") -> DecodeResult:
+        """Run `spec.n_iters` decoding iterations on ``llr [N*z, B]``.
+
+        collect: 'stats' (final APP + per-iteration error flags and
+        bit-error counts) or 'app_last' (final APP only).
+        """
+        if collect not in ("stats", "app_last"):
+            raise NotImplementedError(
+                f"collect={collect!r} is not ported yet (ROADMAP queue A)")
+        if llr.device.type != self.device.type:
+            raise ValueError(f"llr on {llr.device}, decoder on {self.device}")
+        app, err, nerr = self.kernel.decode_stats(
+            stack_weights(self.spec, params), llr)
+        if collect == "app_last":
+            return DecodeResult(app, None, None)
+        return DecodeResult(app, err, nerr)
+
+    decode = apply
