@@ -1,7 +1,9 @@
 """BPSK + AWGN channel sampling on the device (port of
 `ldpc_error_floor_tpu/channel/awgn.py`).
 
-* all-zero codeword; BPSK maps bit 0 -> -1;
+* all-zero codeword (`sample`) or explicit codeword bits
+  (`sample_codewords`, paired with `codes.encoder.Encoder`); BPSK maps
+  bit b -> (-1)^(1-b), so bit 0 -> -1;
 * LLR = 2y/sigma^2 in the p1/p0 convention (positive LLR asserts bit 1);
 * optional channel-LLR quantization for QMS;
 * punctured bits get LLR 0 (0.001 for sum-product), shortened bits get
@@ -58,6 +60,17 @@ class AWGNChannel:
                             generator=generator, dtype=torch.float32,
                             device=self.device)
         y = -1.0 + noise * sigma_lanes[None, :]          # all-zero word, BPSK -1
+        return self._llr(y, sigma_lanes)
+
+    def sample_codewords(self, generator: torch.Generator,
+                         sigma_lanes: torch.Tensor,
+                         bits: torch.Tensor) -> torch.Tensor:
+        """Channel LLRs [N*z, B] for codeword bits [N*z, B] in {0, 1}."""
+        noise = torch.randn((self.code.n_full, sigma_lanes.shape[0]),
+                            generator=generator, dtype=torch.float32,
+                            device=self.device)
+        s = 2.0 * bits.float() - 1.0                      # bit b -> (-1)^(1-b)
+        y = s + noise * sigma_lanes[None, :]
         return self._llr(y, sigma_lanes)
 
     def _llr(self, y: torch.Tensor, sigma_lanes: torch.Tensor) -> torch.Tensor:

@@ -1,3 +1,7 @@
+from ldpc_error_floor_tpu_torch.io.uncor_files import (
+    append_uncor_file,
+    read_uncor_file,
+)
 from ldpc_error_floor_tpu_torch.io.weight_files import (
     available_weight_sets,
     bundled_weight_path,
@@ -8,6 +12,8 @@ from ldpc_error_floor_tpu_torch.io.weight_files import (
 )
 
 __all__ = [
+    "append_uncor_file",
+    "read_uncor_file",
     "available_weight_sets",
     "bundled_weight_path",
     "read_weight_file",

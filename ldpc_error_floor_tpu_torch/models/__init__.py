@@ -1,11 +1,16 @@
 from ldpc_error_floor_tpu_torch.models.nms import (
     DecoderConfig,
     DecodeResult,
+    DeployResult,
     NMSDecoder,
     SP,
     MS,
     QMS,
     MS_RAW,
+)
+from ldpc_error_floor_tpu_torch.models.boosted import (
+    BoostedDecoder,
+    compose_boosted_params,
 )
 from ldpc_error_floor_tpu_torch.models.weights import (
     Params,
@@ -18,7 +23,8 @@ from ldpc_error_floor_tpu_torch.models.weights import (
 )
 
 __all__ = [
-    "DecoderConfig", "DecodeResult", "NMSDecoder", "SP", "MS", "QMS", "MS_RAW",
+    "DecoderConfig", "DecodeResult", "DeployResult", "NMSDecoder", "SP", "MS", "QMS", "MS_RAW",
     "Params", "WeightSpec", "init_weights", "stack_weights", "load_params",
-    "params_from_blocks", "params_from_numpy",
+    "params_from_blocks", "params_from_numpy", "BoostedDecoder",
+    "compose_boosted_params",
 ]

@@ -3,9 +3,12 @@
 `NMSDecoder.apply(params, llr, collect='stats')` decodes ``llr [N*z, B]``
 (p1/p0 channel LLRs, batch last) for `spec.n_iters` iterations and returns
 the final clipped APP plus per-iteration frame-wrong flags and bit-error
-counts against the all-zero codeword.  The work goes to
-`ops.fused_decoder.FusedNMSKernel`: the hand-written CUDA kernel for a
-tensor on the card, its plain PyTorch version for a tensor on the CPU.
+counts against the all-zero codeword (with ``DecoderConfig.early_stop``,
+the genie early stop).  ``collect='deploy'`` stops each word at its first
+iteration whose hard decisions satisfy every check (`DeployResult`).  The
+work goes to `ops.fused_decoder.FusedNMSKernel`: the hand-written CUDA
+kernel for a tensor on the card, its plain PyTorch version for a tensor on
+the CPU.
 
 Sign conventions (as in the JAX package): positive LLR means bit 1; a bit is
 wrong when ``APP >= 0``; the check-node sign is
@@ -43,6 +46,10 @@ class DecoderConfig:
     #   'offset': wmag = relu(mag - beta) (neural offset min-sum)
     target_node: int = 0  # >0: count errors over the first `target_node`
     #                        proto columns only (systematic option)
+    early_stop: bool = False  # genie early stop of collect='stats': a block
+    #   of G words stops once each has decoded correctly at least once.  The
+    #   genie-failure mask is exact; the rows after a block's stop read 0,
+    #   so FER_last refers to the stop iteration (ops/fused_decoder.py)
 
     def __post_init__(self):
         if self.decoding_type not in (SP, MS, QMS, MS_RAW):
@@ -62,6 +69,23 @@ class DecodeResult(NamedTuple):
         return torch.all(self.err_flags, dim=0)
 
 
+class DeployResult(NamedTuple):
+    """Per-word results of a syndrome-stopped ("deploy") decode, each frozen
+    at the word's first iteration whose hard decisions satisfy H*x == 0 (or
+    at iteration T-1 with `detected_fail` set if none did)."""
+
+    app: torch.Tensor            # [N*z, B] APP LLRs at the stop iteration
+    wrong: torch.Tensor          # [B] bool — word wrong at its stop iteration
+    bit_errors: torch.Tensor     # [B] int32 — bit errors at its stop iteration
+    iters: torch.Tensor          # [B] int32 — iterations executed
+    detected_fail: torch.Tensor  # [B] bool — syndrome never satisfied
+
+    @property
+    def undetected(self) -> torch.Tensor:
+        """[B] bool — converged to a *wrong* codeword (CRC territory)."""
+        return self.wrong & ~self.detected_fail
+
+
 class NMSDecoder:
     """Weighted/neural min-sum decoder over a lifted QC-LDPC Tanner graph."""
 
@@ -78,19 +102,22 @@ class NMSDecoder:
         self.kernel = FusedNMSKernel(self.graph, cfg, spec)
 
     def apply(self, params: Params, llr: torch.Tensor,
-              collect: str = "stats") -> DecodeResult:
+              collect: str = "stats"):
         """Run `spec.n_iters` decoding iterations on ``llr [N*z, B]``.
 
         collect: 'stats' (final APP + per-iteration error flags and
-        bit-error counts) or 'app_last' (final APP only).
+        bit-error counts), 'app_last' (final APP only) or 'deploy'
+        (syndrome stop per word; returns a `DeployResult`).
         """
-        if collect not in ("stats", "app_last"):
+        if collect not in ("stats", "app_last", "deploy"):
             raise NotImplementedError(
-                f"collect={collect!r} is not ported yet (ROADMAP queue A)")
+                f"collect={collect!r} is not ported yet (ROADMAP queue)")
         if llr.device.type != self.device.type:
             raise ValueError(f"llr on {llr.device}, decoder on {self.device}")
-        app, err, nerr = self.kernel.decode_stats(
-            stack_weights(self.spec, params), llr)
+        stacked = stack_weights(self.spec, params)
+        if collect == "deploy":
+            return DeployResult(*self.kernel.decode_deploy(stacked, llr))
+        app, err, nerr = self.kernel.decode_stats(stacked, llr)
         if collect == "app_last":
             return DecodeResult(app, None, None)
         return DecodeResult(app, err, nerr)

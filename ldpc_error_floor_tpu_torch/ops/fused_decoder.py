@@ -1,23 +1,29 @@
-"""Fused stats-mode NMS decode: the CUDA kernel, its wrapper and its plain
-PyTorch version.
+"""Fused NMS decode: the CUDA kernel, its wrapper and its plain PyTorch
+versions.
 
 `FusedNMSKernel` replaces `ldpc_error_floor_tpu/ops/pallas_decoder.py::
-FusedNMSKernel` in ``mode='stats'`` with a fixed T.  `decode_stats(stacked,
-llr)` takes ``llr [N*z, B]`` float32 and per-iteration weights ``[T, dim]``
-and returns ``(app_last [N*z, B] float32, err_flags [T, B] bool,
-bit_errors [T, B] int32)`` against the all-zero codeword:
+FusedNMSKernel` in all its modes, for every decoding type (SP, MS, QMS,
+MS_RAW).  It takes ``llr [N*z, B]`` float32 and per-iteration weights
+``[T, dim]`` and decodes against the all-zero codeword:
 
-* a tensor on the card goes to `csrc/fused_nms_stats.cu` (built with nvcc
-  at first use, bound with ctypes); a failed build or launch raises;
-* a tensor on the CPU goes to `decode_stats_plain`, the port of the scan
-  body of `ldpc_error_floor_tpu/models/nms.py` that the kernel is held to.
+* `decode_stats` returns ``(app_last [N*z, B] float32, err_flags [T, B]
+  bool, bit_errors [T, B] int32)``: a fixed T, or with
+  ``DecoderConfig.early_stop`` the genie early stop (a block of G words
+  stops once each of them has decoded at least once; the rows of skipped
+  iterations read 0 and the APP is that of the block's last iteration);
+* `decode_deploy` returns ``(app [N*z, B], wrong [B] bool, bit_errors [B]
+  int32, iters [B] int32, detected_fail [B] bool)``, each word frozen at
+  its first iteration whose hard decisions satisfy H*x = 0.
 
-The kernel covers MS, QMS and MS_RAW.  Its SP branch is still to be ported
-(ROADMAP, B1-SP); the plain version covers SP.
+A tensor on the card goes to `csrc/fused_nms_stats.cu` (built with nvcc at
+first use, bound with ctypes); a failed build or launch raises.  A tensor on
+the CPU goes to `decode_stats_plain` / `decode_deploy_plain`, ports of the
+scan body of `ldpc_error_floor_tpu/models/nms.py` that the kernel is held to.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -25,7 +31,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,8 +55,18 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
                "-Xptxas", "-v")
 _SMEM_LIMIT = 232_448  # dynamic shared memory one H100 block may use
+_MAX_DEG_SP = 64  # kMaxDegSP of the .cu: the largest check degree SP takes
+
+# the kernel's modes, in the .cu's numbering, by the name its launches count under
+FIXED, EARLY_STOP, DEPLOY = 0, 1, 2
+_MODE_NAMES = ("fused_nms_stats", "fused_nms_early_stop", "fused_nms_deploy")
 
 Stacked = Dict[str, Optional[torch.Tensor]]
+
+
+def kernel_name(mode: int, sp: bool) -> str:
+    """The name a launch in `mode` counts under (``_sp``: the SP branch)."""
+    return _MODE_NAMES[mode] + ("_sp" if sp else "")
 
 
 # ----- build and bind ----------------------------------------------------------
@@ -86,22 +102,27 @@ def load_library() -> Tuple[ctypes.CDLL, str]:
         os.replace(tmp, lib_path)
         log = res.stderr
     lib = ctypes.CDLL(str(lib_path))
-    fn = lib.fused_nms_stats_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
-                   + [ctypes.c_float] * 3 + [ctypes.c_int] * 6
+    fn = lib.fused_nms_launch
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
+                   + [ctypes.c_float] * 3 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, log
 
 
-def _smem_bytes(N: int, z: int, E: int, G: int, ucn: bool) -> int:
+def _smem_bytes(N: int, z: int, E: int, G: int, ucn: bool,
+                deploy: bool = False) -> int:
     """Dynamic shared memory of one block of G words, as the kernel lays it
     out: C->V float [E*z][G], bit totals float [N*z][G], error counts int
-    [2][G], then UCN bits uint8 [N*z][G].  The launch reserves this."""
-    return (E * z + N * z) * G * 4 + 2 * G * 4 + (N * z * G if ucn else 0)
+    [2][G], in deploy mode two more int [G] (frozen flag, last unsatisfied
+    step), then parity bits uint8 [N*z][G] (with UCN or in deploy mode).
+    The launch reserves this."""
+    return ((E * z + N * z) * G * 4 + (4 if deploy else 2) * G * 4
+            + (N * z * G if ucn or deploy else 0))
 
 
-def launch_shape(graph: TannerGraph, ucn: bool) -> Tuple[int, int]:
+def launch_shape(graph: TannerGraph, ucn: bool,
+                 deploy: bool = False) -> Tuple[int, int]:
     """(G codewords per block, threads per block): the most words whose
     state fits one block's shared memory (at most 32, a power of two), and a
     thread count that is a multiple of G and of the warp, preferring one
@@ -109,7 +130,7 @@ def launch_shape(graph: TannerGraph, ucn: bool) -> Tuple[int, int]:
     code = graph.code
     N, M, z, E = code.N, code.M, code.z, graph.E
     G = next((g for g in (32, 16, 8, 4, 2, 1)
-              if _smem_bytes(N, z, E, g, ucn) <= _SMEM_LIMIT), None)
+              if _smem_bytes(N, z, E, g, ucn, deploy) <= _SMEM_LIMIT), None)
     if G is None:
         raise ValueError(f"{code.name}: one codeword's decoder state exceeds "
                          "a block's shared memory")
@@ -134,10 +155,10 @@ def _graph_table(graph: TannerGraph) -> np.ndarray:
                           ).astype(np.int32)
 
 
-# ----- plain PyTorch version -----------------------------------------------------
+# ----- plain PyTorch versions ------------------------------------------------------
 
 class PlainTables:
-    """Gather maps of the plain version on one device."""
+    """Gather maps of the plain versions on one device."""
 
     def __init__(self, graph: TannerGraph, device: torch.device):
         as_long = functools.partial(torch.as_tensor, dtype=torch.long,
@@ -175,18 +196,26 @@ def _extrinsic_prod(x: torch.Tensor) -> torch.Tensor:
     return f * b
 
 
-def decode_stats_plain(graph: TannerGraph, tables: PlainTables,
-                       cfg: DecoderConfig, spec: WeightSpec, stacked: Stacked,
-                       llr: torch.Tensor):
+def _parity_ok(tables: PlainTables, graph: TannerGraph,
+               bits_pad: torch.Tensor) -> torch.Tensor:
+    """[M, z, B] bool: lifted check satisfied by ``bits_pad [N*z + 1, B]``
+    (float 0/1 decisions with a zero sentinel row)."""
+    code = graph.code
+    B = bits_pad.shape[-1]
+    pm = 1.0 - 2.0 * bits_pad[tables.cn_vn].reshape(code.M, graph.Dc, code.z, B)
+    return torch.prod(pm, dim=1) > 0
+
+
+def plain_iterations(graph: TannerGraph, tables: PlainTables,
+                     cfg: DecoderConfig, spec: WeightSpec, stacked: Stacked,
+                     llr: torch.Tensor) -> Iterator[torch.Tensor]:
     """The decode as a Python loop over T: the scan body of
     `ldpc_error_floor_tpu/models/nms.py` (steps 1-8) on gathers with a zero
-    sentinel row.  Returns (app_last, err_flags, bit_errors)."""
+    sentinel row.  Yields each iteration's clipped APP [N*z, B]."""
     code = graph.code
     N, M, z, Dv, Dc = code.N, code.M, code.z, graph.Dv, graph.Dc
     B = llr.shape[-1]
-    T = spec.n_iters
     qms = cfg.decoding_type == QMS
-    target = cfg.target_node if cfg.target_node > 0 else N
     cn_mode, ucn_mode, vn_mode = spec.sharing
     ucn = spec.ucn_enabled
     dev = llr.device
@@ -209,9 +238,7 @@ def decode_stats_plain(graph: TannerGraph, tables: PlainTables,
     zero_row = torch.zeros((1, B), dtype=torch.float32, device=dev)
     y = torch.zeros((N, Dv, z, B), dtype=torch.float32, device=dev)
     prev_bits = None
-    err = torch.empty((T, B), dtype=torch.bool, device=dev)
-    nerr = torch.empty((T, B), dtype=torch.int32, device=dev)
-    for t in range(T):
+    for t in range(spec.n_iters):
         # (1) weighted (and quantized) channel input
         llr_w = llr3
         if vn_mode > 0:
@@ -225,8 +252,7 @@ def decode_stats_plain(graph: TannerGraph, tables: PlainTables,
             bits_src = ((llr_w.reshape(N * z, B) >= 0).float() if t == 0
                         else prev_bits)
             bits_pad = torch.cat([bits_src, zero_row], dim=0)
-            pm = 1.0 - 2.0 * bits_pad[tables.cn_vn].reshape(M, Dc, z, B)
-            u = (torch.prod(pm, dim=1) < 0).float()[:, None]
+            u = (~_parity_ok(tables, graph, bits_pad)).float()[:, None]
 
         # (3) VN update: extrinsic sum of C->V plus channel
         s_prev = _slot_sum(y)
@@ -270,22 +296,93 @@ def decode_stats_plain(graph: TannerGraph, tables: PlainTables,
         c2v_flat = torch.cat([c2v.reshape(M * Dc * z, B), zero_row], dim=0)
         y = c2v_flat[tables.vn_in].reshape(N, Dv, z, B)
 
-        # (8) APP, hard decisions and stats against the all-zero word
+        # (8) APP and hard decisions
         app = torch.clamp(llr_app + _slot_sum(y), -cfg.clip_llr, cfg.clip_llr)
         app_flat = app.reshape(N * z, B)
         prev_bits = (app_flat >= 0.0).float()
-        wrong = app_flat[: target * z] >= 0.0
-        nerr[t] = wrong.sum(dim=0, dtype=torch.int32)
-        err[t] = wrong.any(dim=0)
-    return app_flat, err, nerr
+        yield app_flat
+
+
+def _group_any(x: torch.Tensor, group: int) -> torch.Tensor:
+    """[B] bool: whether any word of x's group (G consecutive words, the
+    last group ragged) is set."""
+    B = x.shape[0]
+    pad = (-B) % group
+    xp = torch.cat([x, x.new_zeros(pad)]) if pad else x
+    return xp.view(-1, group).any(dim=1).repeat_interleave(group)[:B]
+
+
+def decode_stats_plain(graph: TannerGraph, tables: PlainTables,
+                       cfg: DecoderConfig, spec: WeightSpec, stacked: Stacked,
+                       llr: torch.Tensor, early_stop: bool = False,
+                       group: int = 1):
+    """Stats against the all-zero word: (app_last, err_flags [T, B],
+    bit_errors [T, B]).  `early_stop` emulates the kernel's genie stop per
+    `group` of consecutive words: a group stops after the first iteration
+    by which each of its words has decoded at least once; its later rows
+    read 0 and its APP is that of its stop iteration."""
+    z = graph.code.z
+    target = cfg.target_node if cfg.target_node > 0 else graph.code.N
+    T, B, dev = spec.n_iters, llr.shape[-1], llr.device
+    err = torch.zeros((T, B), dtype=torch.bool, device=dev)
+    nerr = torch.zeros((T, B), dtype=torch.int32, device=dev)
+    app_out = None
+    running = torch.ones(B, dtype=torch.bool, device=dev)
+    still_wrong = torch.ones(B, dtype=torch.bool, device=dev)
+    for t, app in enumerate(plain_iterations(graph, tables, cfg, spec,
+                                             stacked, llr)):
+        wrong = app[: target * z] >= 0.0
+        nerr_t = wrong.sum(dim=0, dtype=torch.int32)
+        err_t = wrong.any(dim=0)
+        if not early_stop:
+            err[t], nerr[t], app_out = err_t, nerr_t, app
+            continue
+        err[t] = err_t & running
+        nerr[t] = torch.where(running, nerr_t, 0)
+        app_out = app if app_out is None else torch.where(running, app, app_out)
+        still_wrong &= err_t
+        running &= _group_any(still_wrong, group)
+        if not running.any():
+            break
+    return app_out, err, nerr
+
+
+def decode_deploy_plain(graph: TannerGraph, tables: PlainTables,
+                        cfg: DecoderConfig, spec: WeightSpec, stacked: Stacked,
+                        llr: torch.Tensor):
+    """Syndrome stop (the scan twin at `ldpc_error_floor_tpu/models/nms.py`
+    `collect='deploy'`), freezing in the loop: (app, wrong, bit_errors,
+    iters, detected_fail), each word's frozen at its first iteration whose
+    hard decisions satisfy every check (else at T-1, with detected_fail)."""
+    z = graph.code.z
+    target = cfg.target_node if cfg.target_node > 0 else graph.code.N
+    B, dev = llr.shape[-1], llr.device
+    run = torch.ones(B, dtype=torch.bool, device=dev)
+    wrong = torch.zeros(B, dtype=torch.bool, device=dev)
+    nerr = torch.zeros(B, dtype=torch.int32, device=dev)
+    iters = torch.zeros(B, dtype=torch.int32, device=dev)
+    zero_row = torch.zeros((1, B), dtype=torch.float32, device=dev)
+    app_out = None
+    for app in plain_iterations(graph, tables, cfg, spec, stacked, llr):
+        w = app[: target * z] >= 0.0
+        app_out = app if app_out is None else torch.where(run, app, app_out)
+        wrong = torch.where(run, w.any(dim=0), wrong)
+        nerr = torch.where(run, w.sum(dim=0, dtype=torch.int32), nerr)
+        iters += run.int()
+        bits_pad = torch.cat([(app >= 0.0).float(), zero_row], dim=0)
+        run &= ~_parity_ok(tables, graph, bits_pad).all(dim=1).all(dim=0)
+        if not run.any():
+            break
+    return app_out, wrong, nerr, iters, run
 
 
 # ----- the wrapper -------------------------------------------------------------------
 
 class FusedNMSKernel:
-    """Stats-mode fused decode for one (graph, config, spec).
+    """The fused decode for one (graph, config, spec).
 
-    `launches` counts the CUDA kernel launches made by this wrapper.
+    `launches` counts the CUDA kernel launches made by this wrapper, by
+    kernel name (`kernel_name`).
     """
 
     def __init__(self, graph: TannerGraph, cfg: DecoderConfig, spec: WeightSpec):
@@ -296,26 +393,58 @@ class FusedNMSKernel:
         self.N, self.M, self.z, self.E = code.N, code.M, code.z, graph.E
         self.T = spec.n_iters
         self.target = cfg.target_node if cfg.target_node > 0 else self.N
-        self.launches = 0
+        self.launches: collections.Counter = collections.Counter()
         self._plain_tables: Dict[torch.device, PlainTables] = {}
         self._graph_tabs: Dict[torch.device, torch.Tensor] = {}
 
+    @property
+    def group(self) -> int:
+        """G, the words of one block of the stats kernels: the granularity
+        of the genie early stop."""
+        return launch_shape(self.graph, self.spec.ucn_enabled)[0]
+
     def decode_stats(self, stacked: Stacked, llr: torch.Tensor):
-        """llr: [N*z, B] float32.  The CUDA kernel for a tensor on the card,
-        the plain version for a tensor on the CPU."""
+        """llr: [N*z, B] float32.  The CUDA kernel (fixed T, or the genie
+        early stop under ``cfg.early_stop``) for a tensor on the card, the
+        plain version for a tensor on the CPU."""
         if llr.device.type == "cpu":
             return self.decode_stats_plain(stacked, llr)
         if llr.device.type != "cuda":
             raise ValueError(f"unsupported device {llr.device}")
-        return self._launch(stacked, llr)
+        return self._launch(stacked, llr,
+                            EARLY_STOP if self.cfg.early_stop else FIXED)
 
-    def decode_stats_plain(self, stacked: Stacked, llr: torch.Tensor):
-        """The plain PyTorch version on any device (the kernel's reference)."""
-        tabs = self._plain_tables.get(llr.device)
+    def decode_deploy(self, stacked: Stacked, llr: torch.Tensor):
+        """llr: [N*z, B] float32.  The syndrome-stop kernel for a tensor on
+        the card, the plain version for a tensor on the CPU."""
+        if llr.device.type == "cpu":
+            return self.decode_deploy_plain(stacked, llr)
+        if llr.device.type != "cuda":
+            raise ValueError(f"unsupported device {llr.device}")
+        return self._launch(stacked, llr, DEPLOY)
+
+    def _tables(self, device) -> PlainTables:
+        tabs = self._plain_tables.get(device)
         if tabs is None:
-            tabs = self._plain_tables[llr.device] = PlainTables(self.graph, llr.device)
-        return decode_stats_plain(self.graph, tabs, self.cfg, self.spec,
-                                  stacked, llr)
+            tabs = self._plain_tables[device] = PlainTables(self.graph, device)
+        return tabs
+
+    def decode_stats_plain(self, stacked: Stacked, llr: torch.Tensor,
+                           early_stop: Optional[bool] = None,
+                           group: Optional[int] = None):
+        """The plain PyTorch version on any device (the kernel's reference).
+        `early_stop` defaults to the config's, `group` to the kernel's G."""
+        if early_stop is None:
+            early_stop = self.cfg.early_stop
+        return decode_stats_plain(self.graph, self._tables(llr.device),
+                                  self.cfg, self.spec, stacked, llr,
+                                  early_stop=early_stop,
+                                  group=self.group if group is None else group)
+
+    def decode_deploy_plain(self, stacked: Stacked, llr: torch.Tensor):
+        """The plain PyTorch version of `decode_deploy` on any device."""
+        return decode_deploy_plain(self.graph, self._tables(llr.device),
+                                   self.cfg, self.spec, stacked, llr)
 
     def _weights(self, stacked: Stacked, kind: str, device) -> Tuple[Optional[torch.Tensor], int]:
         if self.spec.mode(kind) == 0:
@@ -328,11 +457,13 @@ class FusedNMSKernel:
                              f"[{self.T}, {dim}] tensor on {device}")
         return w, dim
 
-    def _launch(self, stacked: Stacked, llr: torch.Tensor):
+    def _launch(self, stacked: Stacked, llr: torch.Tensor, mode: int):
         cfg, spec = self.cfg, self.spec
-        if cfg.decoding_type == SP:
-            raise NotImplementedError("the CUDA kernel has no SP branch yet "
-                                      "(ROADMAP item B1-SP)")
+        sp = cfg.decoding_type == SP
+        if sp and self.graph.Dc > _MAX_DEG_SP:
+            raise ValueError(f"the SP kernel takes check degrees up to "
+                             f"{_MAX_DEG_SP}; {self.graph.code.name} has "
+                             f"{self.graph.Dc}")
         Nz = self.N * self.z
         if (llr.dtype != torch.float32 or llr.dim() != 2 or llr.shape[0] != Nz
                 or not llr.is_contiguous()):
@@ -346,27 +477,36 @@ class FusedNMSKernel:
         if tab is None:
             tab = self._graph_tabs[dev] = torch.as_tensor(
                 _graph_table(self.graph), device=dev)
+        deploy = mode == DEPLOY
+        rows = () if deploy else (self.T,)
         app = torch.empty((Nz, B), dtype=torch.float32, device=dev)
-        err = torch.empty((self.T, B), dtype=torch.bool, device=dev)
-        nerr = torch.empty((self.T, B), dtype=torch.int32, device=dev)
+        err = torch.empty(rows + (B,), dtype=torch.bool, device=dev)
+        nerr = torch.empty(rows + (B,), dtype=torch.int32, device=dev)
+        outs = (app, err, nerr)
+        if deploy:
+            outs += (torch.empty(B, dtype=torch.int32, device=dev),
+                     torch.empty(B, dtype=torch.bool, device=dev))
         if B == 0:
-            return app, err, nerr
+            return outs
         lib, _ = load_library()
-        G, threads = launch_shape(self.graph, spec.ucn_enabled)
-        smem = _smem_bytes(self.N, self.z, self.E, G, spec.ucn_enabled)
+        G, threads = launch_shape(self.graph, spec.ucn_enabled, deploy)
+        smem = _smem_bytes(self.N, self.z, self.E, G, spec.ucn_enabled, deploy)
         qms = cfg.decoding_type == QMS
         qstep, qclip = qms_grid(cfg.q_bit) if qms else (1.0, cfg.clip_llr)
         ptr = lambda x: None if x is None else x.data_ptr()
+        iters, fail = outs[3:] if deploy else (None, None)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.fused_nms_stats_launch(
+            rc = lib.fused_nms_launch(
                 ptr(llr), ptr(w_cn), ptr(w_ucn), ptr(w_vn), ptr(tab),
-                ptr(app), ptr(err), ptr(nerr),
+                ptr(app), ptr(err), ptr(nerr), ptr(iters), ptr(fail),
                 self.N, self.M, self.z, self.E, self.T, B, G, threads, smem,
                 self.target, cfg.decoding_type, qstep, qclip, cfg.clip_llr,
                 spec.sharing[0], int(spec.ucn_enabled), spec.sharing[2],
-                int(cfg.neural_mode == "offset"), dim_cn, dim_vn, stream)
+                int(cfg.neural_mode == "offset"), dim_cn, dim_vn, mode,
+                int(sp), stream)
         if rc != 0:
-            raise RuntimeError(f"fused_nms_stats launch failed: CUDA error {rc}")
-        self.launches += 1
-        return app, err, nerr
+            raise RuntimeError(f"fused_nms_launch ({kernel_name(mode, sp)}) "
+                               f"failed: CUDA error {rc}")
+        self.launches[kernel_name(mode, sp)] += 1
+        return outs

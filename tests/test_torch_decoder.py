@@ -99,7 +99,7 @@ def _decode_both(case):
     dec_t = NMSDecoder(code, cfg, spec, graph=TannerGraph(code), device="cpu")
     res = dec_t.apply(params_from_numpy(params, device="cpu"),
                       torch.from_numpy(llr), collect="stats")
-    assert dec_t.kernel.launches == 0  # CPU tensors take the plain version
+    assert not dec_t.kernel.launches  # CPU tensors take the plain version
     return ref, res
 
 
@@ -160,14 +160,25 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     load_library.cache_clear()
 
 
-def test_kernel_has_no_sp_branch_yet():
+def test_kernel_has_no_sp_branch_yet(monkeypatch, tmp_path):
+    """The kernel has an SP branch now: an SP launch passes the wrapper's
+    checks and goes on to build the kernel (which needs nvcc)."""
+    from ldpc_error_floor_tpu_torch.ops import fused_decoder
+    monkeypatch.setattr(fused_decoder, "_BUILD_DIR", tmp_path)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
+    load_library.cache_clear()
     code = get_code(WMAN)
     graph = TannerGraph(code)
     spec = WeightSpec(sharing=(0, 0, 0), n_iters=2)
     kern = FusedNMSKernel(graph, DecoderConfig(decoding_type=0), spec)
-    with pytest.raises(NotImplementedError, match="B1-SP"):
-        kern._launch({"cn": None, "ucn": None, "vn": None},
-                     torch.zeros((code.n_full, 4)))
+    for mode in (fused_decoder.FIXED, fused_decoder.EARLY_STOP,
+                 fused_decoder.DEPLOY):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            kern._launch({"cn": None, "ucn": None, "vn": None},
+                         torch.zeros((code.n_full, 4)), mode)
+    load_library.cache_clear()
+    assert not kern.launches
 
 
 @pytest.mark.parametrize("name", available_codes())
@@ -177,10 +188,12 @@ def test_launch_shape_and_graph_table(name):
     code = get_code(name)
     graph = TannerGraph(code)
     for ucn in (False, True):
-        G, threads = launch_shape(graph, ucn)
-        assert G in (1, 2, 4, 8, 16, 32) and threads % 32 == 0
-        assert threads % G == 0 and threads <= 1024
-        assert _smem_bytes(code.N, code.z, graph.E, G, ucn) <= _SMEM_LIMIT
+        for deploy in (False, True):
+            G, threads = launch_shape(graph, ucn, deploy)
+            assert G in (1, 2, 4, 8, 16, 32) and threads % 32 == 0
+            assert threads % G == 0 and threads <= 1024
+            assert _smem_bytes(code.N, code.z, graph.E, G, ucn,
+                               deploy) <= _SMEM_LIMIT
     N, M, E = code.N, code.M, graph.E
     tab = _graph_table(graph)
     assert tab.dtype == np.int32 and tab.shape == (N + 1 + M + 1 + 3 * E,)

@@ -1,4 +1,4 @@
-"""The CUDA decode kernel against its plain PyTorch version on the card.
+"""The CUDA decode kernel against its plain PyTorch versions on the card.
 
 These tests need a CUDA card and skip without one.  They import nothing of
 JAX, so they run on a machine without it; `tests/conftest.py` imports JAX,
@@ -7,7 +7,13 @@ so on the card run them without it:
     python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
 
 Tolerances: QMS counters integer-equal and APPs bit-equal (==); MS and
-MS_RAW counters integer-equal and APPs within atol 1e-4 / rtol 1e-5.
+MS_RAW counters integer-equal and APPs within atol 1e-4 / rtol 1e-5.  The
+genie early stop is held to the plain version grouped as the kernel groups
+words (G per block), and its genie-failure mask to the fixed-T kernel's
+exactly.  The syndrome stop's per-word outputs are integer-equal to its
+plain version.  SP (tanhf/atanhf are not PyTorch's, and the plain version's
+cumprod may associate differently on the card): APPs within atol 1e-3 /
+rtol 1e-4, counters equal on at least 99.9% of words.
 """
 
 import pytest
@@ -22,6 +28,8 @@ torch.set_num_threads(1)
 
 WMAN = "wman_N0576_R34_z24"
 G5 = "5G_LDPC_R0.50_n_dec640_n512_k256_z32_s257_320"
+WIFI = "802_11n_N648_R56_z27"
+MACKAY = "MACKAY_N96_K48"
 
 # (code, sharing, decoding_type, neural_mode, target_node)
 CASES = [
@@ -29,9 +37,17 @@ CASES = [
     (WMAN, (2, 2, 2), 1, "scale", 0),
     (WMAN, (1, 0, 0), 3, "scale", 0),
     (WMAN, (4, 4, 5), 2, "offset", 0),
-    ("MACKAY_N96_K48", (3, 3, 3), 2, "scale", 0),
+    (MACKAY, (3, 3, 3), 2, "scale", 0),
     (G5, (2, 2, 2), 2, "scale", 10),
-    ("802_11n_N648_R56_z27", (3, 0, 3), 2, "scale", 0),
+    (WIFI, (3, 0, 3), 2, "scale", 0),
+]
+
+# (code, sharing, decoding_type, SNR dB): at these SNRs some blocks stop
+# early and some words fail
+STOP_CASES = [
+    (WMAN, (3, 3, 3), 2, 3.5),
+    (MACKAY, (3, 0, 3), 1, 3.5),
+    (WIFI, (3, 0, 3), 2, 4.0),
 ]
 
 
@@ -41,34 +57,108 @@ def _cuda():
     return torch.device("cuda")
 
 
+def _setup(dev, code_name, sharing, dec, snr, T=6, B=1000, mode="scale",
+           target=0, early_stop=False, seed=3):
+    code = get_code(code_name)
+    graph = TannerGraph(code)
+    temporal = any(s in (4, 5) for s in sharing)
+    spec = WeightSpec(sharing=sharing, n_iters=T, fixed_iter=2 if temporal else 0)
+    cfg = DecoderConfig(decoding_type=dec, neural_mode=mode, target_node=target,
+                        early_stop=early_stop)
+    kern = FusedNMSKernel(graph, cfg, spec)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lo = 0.0 if mode == "offset" else 0.7
+    stacked = {k: None if spec.dim(k, graph) == 0 else
+               (lo + 0.6 * torch.rand((T, spec.dim(k, graph)), generator=gen,
+                                      device=dev)).contiguous()
+               for k in ("cn", "ucn", "vn")}
+    sig = torch.full((B,), float(code.snr_sigmas([snr])[0]), device=dev)
+    llr = AWGNChannel(code, decoding_type=dec, device=dev).sample(gen, sig)
+    return kern, stacked, llr
+
+
+def _assert_app(app, app_p, dec):
+    if dec == 2:
+        assert bool((app == app_p).all())
+    else:
+        torch.testing.assert_close(app, app_p, rtol=1e-5, atol=1e-4)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0][:6]}_{c[1]}_{c[2]}_{c[3]}")
 def test_kernel_matches_plain_on_card(case):
     dev = _cuda()
     code_name, sharing, dec, mode, target = case
-    code = get_code(code_name)
-    graph = TannerGraph(code)
-    temporal = any(s in (4, 5) for s in sharing)
-    spec = WeightSpec(sharing=sharing, n_iters=6, fixed_iter=2 if temporal else 0)
-    cfg = DecoderConfig(decoding_type=dec, neural_mode=mode, target_node=target)
-    kern = FusedNMSKernel(graph, cfg, spec)
-    gen = torch.Generator(device=dev).manual_seed(3)
-    lo = 0.0 if mode == "offset" else 0.7
-    stacked = {k: None if spec.dim(k, graph) == 0 else
-               (lo + 0.6 * torch.rand((6, spec.dim(k, graph)), generator=gen,
-                                      device=dev)).contiguous()
-               for k in ("cn", "ucn", "vn")}
-    sig = torch.full((1000,), float(code.snr_sigmas([2.5])[0]), device=dev)
-    llr = AWGNChannel(code, decoding_type=dec, device=dev).sample(gen, sig)
+    kern, stacked, llr = _setup(dev, code_name, sharing, dec, 2.5, mode=mode,
+                                target=target)
     app, err, nerr = kern.decode_stats(stacked, llr)
     app_p, err_p, nerr_p = kern.decode_stats_plain(stacked, llr)
     torch.cuda.synchronize()
-    assert kern.launches == 1
+    assert kern.launches == {"fused_nms_stats": 1}
     assert torch.equal(err, err_p) and torch.equal(nerr, nerr_p)
-    if dec == 2:
-        assert bool((app == app_p).all())
-    else:
-        torch.testing.assert_close(app, app_p, rtol=1e-5, atol=1e-4)
+    _assert_app(app, app_p, dec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", STOP_CASES, ids=lambda c: f"{c[0][:6]}_{c[1]}_{c[2]}")
+def test_early_stop_matches_grouped_plain_on_card(case):
+    dev = _cuda()
+    code_name, sharing, dec, snr = case
+    kern, stacked, llr = _setup(dev, code_name, sharing, dec, snr, T=8,
+                                early_stop=True)
+    app, err, nerr = kern.decode_stats(stacked, llr)
+    app_p, err_p, nerr_p = kern.decode_stats_plain(stacked, llr)
+    fixed = FusedNMSKernel(kern.graph, DecoderConfig(decoding_type=dec), kern.spec)
+    app_f, err_f, _ = fixed.decode_stats(stacked, llr)
+    torch.cuda.synchronize()
+    assert kern.launches == {"fused_nms_early_stop": 1}
+    assert torch.equal(err, err_p) and torch.equal(nerr, nerr_p)
+    _assert_app(app, app_p, dec)
+    uncor = err.all(dim=0)
+    assert torch.equal(uncor, err_f.all(dim=0))
+    assert 0 < int(uncor.sum()) < uncor.numel()
+    assert bool((app != app_f).any())  # some blocks did stop early
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", STOP_CASES, ids=lambda c: f"{c[0][:6]}_{c[1]}_{c[2]}")
+def test_deploy_matches_plain_on_card(case):
+    dev = _cuda()
+    code_name, sharing, dec, snr = case
+    T = 8
+    kern, stacked, llr = _setup(dev, code_name, sharing, dec, snr, T=T)
+    out = kern.decode_deploy(stacked, llr)
+    ref = kern.decode_deploy_plain(stacked, llr)
+    _, err, nerr = kern.decode_stats(stacked, llr)
+    torch.cuda.synchronize()
+    assert kern.launches == {"fused_nms_deploy": 1, "fused_nms_stats": 1}
+    app, wrong, nerr_d, iters, fail = out
+    for x, y in zip(out[1:], ref[1:]):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    _assert_app(app, ref[0], dec)
+    assert 1 <= int(iters.min()) and int(iters.max()) <= T
+    assert int(iters.min()) < T and bool(fail.any())
+    # against the stats kernel on the same LLRs
+    idx = (iters.long() - 1)[None]
+    assert torch.equal(wrong, err.gather(0, idx)[0])
+    assert torch.equal(nerr_d, nerr.gather(0, idx)[0])
+    assert not bool((err.all(dim=0) & ~wrong).any())  # genie failures ⊆ wrong
+    assert not bool((fail & ~wrong).any())            # detected_fail ⇒ wrong
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code_name,sharing", [(WMAN, (3, 0, 3)), (MACKAY, (2, 2, 2)),
+                                               (WIFI, (0, 0, 0))])
+def test_sp_matches_plain_on_card(code_name, sharing):
+    dev = _cuda()
+    kern, stacked, llr = _setup(dev, code_name, sharing, 0, 2.5, T=5, B=4000)
+    app, err, nerr = kern.decode_stats(stacked, llr)
+    app_p, err_p, nerr_p = kern.decode_stats_plain(stacked, llr)
+    torch.cuda.synchronize()
+    assert kern.launches == {"fused_nms_stats_sp": 1}
+    torch.testing.assert_close(app, app_p, rtol=1e-4, atol=1e-3)
+    words_off = ((err != err_p) | (nerr != nerr_p)).any(dim=0).sum().item()
+    assert words_off <= 0.001 * llr.shape[1]
 
 
 @pytest.mark.cuda
@@ -78,14 +168,13 @@ def test_kernel_rejects_sp_and_bad_inputs_on_card():
     graph = TannerGraph(code)
     spec = WeightSpec(sharing=(3, 0, 3), n_iters=2)
     llr = torch.zeros((code.n_full, 8), device=dev)
-    sp = FusedNMSKernel(graph, DecoderConfig(decoding_type=0), spec)
     w = {"cn": torch.ones((2, 1), device=dev), "ucn": None,
          "vn": torch.ones((2, 1), device=dev)}
-    with pytest.raises(NotImplementedError, match="B1-SP"):
-        sp.decode_stats(w, llr)
     kern = FusedNMSKernel(graph, DecoderConfig(), spec)
     with pytest.raises(ValueError, match="llr"):
         kern.decode_stats(w, llr[:, ::2])
+    with pytest.raises(ValueError, match="llr"):
+        kern.decode_deploy(w, llr.double())
     with pytest.raises(ValueError, match="cn weights"):
         kern.decode_stats({**w, "cn": torch.ones((3, 1), device=dev)}, llr)
-    assert kern.launches == 0
+    assert not kern.launches
