@@ -10,7 +10,9 @@ exits non-zero:
 
 1. device: `nvidia-smi` name and power limit, torch's device name;
 2. build: nvcc of csrc/fused_nms_stats.cu (every mode of the decode kernel
-   in one library), timed, with ptxas' register and shared-memory report;
+   in one library) and of csrc/fused_nms_train.cu (the training pair B4/B5;
+   both include the one decode loop, csrc/fused_nms_kernel.cuh), both
+   started together, timed, with ptxas' register and shared-memory report;
 3. each kernel against its plain PyTorch version on the card, same LLRs:
    - fixed T (B1): QMS counters integer-equal and APPs bit-equal; MS
      counters equal and APPs within atol 1e-4 / rtol 1e-5;
@@ -24,6 +26,22 @@ exits non-zero:
    - SP (B1-SP): APPs within atol 1e-3 / rtol 1e-4, counters equal on at
      least 99.9% of words (the count of words that differ is printed);
    the main path's configurations run at its batch of 65536;
+   - training forward (B4) against the plain forward at B=4096 (the plain
+     autograd graph limits B): wman (3,0,3) QMS T=20 with the APP window
+     t0=19 and t0=0, wman (3,3,3) T=30 t0=29 with base20's rows 0-19, MS
+     (2,2,2), 'offset', per-edge (1,1,0), 5G systematic; QMS APPs bit-equal,
+     MS within atol 1e-5;
+   - training backward (B5) against autograd through the plain version on
+     the same cases: each kind's gradient within rtol 1e-4 and atol
+     1e-5 x max|g| (the worst error is printed), two launches bit-identical;
+     three Adam steps through the kernels against three through the plain
+     version, weights within atol 1e-5;
+   - at the training batch, 32768, on the base and the post block (in phase
+     7, from the timed launches): B4's streaming APPs bit-equal to the plain
+     version's and to B4's no_grad launch (APPs alone, as the evaluator
+     runs it), the soft-FER loss within rtol 1e-6, and B5's gradients within
+     rtol 1e-4 and atol 1e-5 x max|g| of the plain gradients, summed over
+     chunks of 4096 words, each scaled by 4096 / 32768;
 4. end to end, each path driven through `FERSimulator.run_point` with the
    launch counts set to 0 just before and read just after (wman_N0576_R34_z24,
    QMS q_bit 5, sharing (3,3,3), 4.0 dB, seed 0, 2^20 frames in batches of
@@ -42,10 +60,25 @@ exits non-zero:
    collects 256 words into a temporary Uncor file; the fixed-T kernel finds
    every one wrong at every iteration, boosted30 rescues at least 25%, and
    the file holds as many rows as words were returned;
-6. timing with CUDA events at batch 65536 unless noted: each kernel and its
+6. training end to end through `run_training` (launch counts from the run):
+   - base block: `base_config_wman` (sharing (3,0,3), T=20, soft FER,
+     eta 0) at batch 32768, 20 steps per epoch, 2 epochs, learning rate
+     1e-2, 65536 valid frames per SNR; the valid FER_last summed over the
+     five SNRs falls from epoch 0 (all-ones weights) to epoch 2 by at
+     least 5%; the weight and perf-log files appear;
+   - post block: ~4096 words harvested at 4.2 dB with base20 and the early
+     stop, split 2048/1024/1024, base20 written as the frozen prefix
+     `{prefix}_Opt_Weight_End20.txt`; `post_config_wman` (sharing (3,3,3),
+     [20, 30), sampling_type 1) at batch 512, 3 epochs; rows 0-19 of every
+     kind bit-equal to base20 afterwards, rows 20-29 moved, the training
+     loss falls;
+7. timing with CUDA events at batch 65536 unless noted: each kernel and its
    plain version, the early stop at 4.0 and 5.0 dB against the fixed-T
-   kernel on the same LLRs, SP at 16384 too, run_point frames/s;
-7. the `kernels` line, then the card's nvidia-smi line, then the result.
+   kernel on the same LLRs, SP at 16384 too, run_point frames/s; B4 and B5
+   at batch 32768 on the base and post blocks against the plain version on
+   the same inputs (in chunks of 4096), one whole train step (sampling,
+   B4, loss, B5, Adam) and trained codewords/s, the plain step at 4096;
+8. the `kernels` line, then the card's nvidia-smi line, then the result.
 
 It imports neither JAX nor the JAX package.
 """
@@ -65,6 +98,9 @@ MAIN_B = 65536
 T_MAIN = 20
 T_BOOST = 30
 MAX_FRAMES = 2 ** 20
+TRAIN_B = 32768          # the base block's training batch
+TRAIN_CHECK_B = 4096     # kernel-vs-plain checks of B4/B5 (autograd memory)
+FER_DROP = 0.05          # the base block's valid FER_last must fall by this
 PR1_FER_GENIE = 211 / 2 ** 20  # 2.0122528e-4: base20, fixed T, seed 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_SIMPLE_OPS_PER_S = 33.5e12  # 67 TFLOP/s f32 counts an FMA as 2; adds,
@@ -141,6 +177,68 @@ def bound(graph, spec, B: int, word_iters=None, out_bytes_per_word=None,
     return out
 
 
+def train_bound(graph, spec, B: int, t0: int, backward: bool) -> dict:
+    """Least time for B4 (forward) or B5 (backward) on B words: device bytes
+    over 3.35 TB/s against simple f32 operations over 33.5 T/s.  Bytes,
+    each once: B4 reads the LLRs and weights and writes the pre-clip V->C
+    stream [T, E*z], the check residuals [T, R*M*z] (R = 3, 4 with UCN) and
+    the APP window [T-t0, N*z]; B5 reads the LLRs, weights, both streams,
+    the pre-clip APPs and their cotangent, and writes the gradients.
+    Operations per iteration and word: B4 as B1 (16 per edge slot, 17 with
+    UCN; 16 per lifted check; 10 per bit).  B5, what the function needs,
+    each message derived once from its pre-clip value:
+      per edge slot, 37 (38 with UCN):
+        the message: quantize (divide, round, multiply, min, max) 5, zero
+          nudge (compare, select) 2, |x| with the sentinel (abs, compare,
+          select) 3;
+        the slot's sign (compare, select) 2;
+        min1 or not (compare) and the extrinsic magnitude (select) 2;
+        the output's sign (times the check's negated product) 1;
+        the cotangent through the weighting chain: times that sign, the
+          ReLU/clip mask (select), times the weight 3;
+        the weight gradient: times the magnitude, into the edge's sum 2
+          (with UCN one more select, CN or UCN sum);
+        the tie bookkeeping: into the min1 or the other sum (select, add),
+          the min1 count (add), the min2 count (compare, add) 5;
+        the tie-splitting share: own cotangent out of the min1 sum, times
+          the per-check reciprocal, plus the other sum's share, two
+          selects among the cases 5;
+        |x|'s sign (select) and the clip mask of the pre-clip value (abs,
+          compare, select) 4;
+        the V->C transpose: into the bit's sum, own share out, plus the
+          APP cotangent 3;
+      per lifted check, 28 (32 with UCN): for each of the two extrinsic
+        magnitudes the nudge (abs, compare, subtract, select) 4, the weight
+        1, the ReLU/clip mask (two compares, and) 3, its sign (compare,
+        select) 2; the sentinel pads in both tie counts (compare, add each)
+        4, the reciprocals (max, two divides) 3, the several-minima flag 1;
+        with UCN the weight blend (subtract, two multiplies, add) 4;
+      per bit, 9: llr times the VN weight, the quantizer's clip mask
+        (abs, compare, select), times llr, into the sum 6; the APP's clip
+        mask (abs, compare, select) 3."""
+    code = graph.code
+    Ez, Mz, Nz = graph.E * code.z, code.M * code.z, code.N * code.z
+    T = spec.n_iters
+    ucn = spec.ucn_enabled
+    R = 4 if ucn else 3
+    dims = sum(spec.dim(k, graph) for k in ("cn", "ucn", "vn"))
+    stream = 4 * B * (T * Ez + T * R * Mz)
+    apps = 4 * B * (T - t0) * Nz
+    nbytes = 4 * Nz * B + 4 * T * dims + stream + apps
+    if backward:
+        nbytes += apps + 4 * T * dims
+        per_slot = (5 + 2 + 3) + 2 + 2 + 1 + 3 + 2 + 5 + 5 + 4 + 3 + (1 if ucn else 0)
+        per_check = 2 * (4 + 1 + 3 + 2) + 4 + 3 + 1 + (4 if ucn else 0)
+        ops = B * T * (per_slot * Ez + per_check * Mz + 9 * Nz)
+    else:
+        ops = B * T * ((17 if ucn else 16) * Ez + 16 * Mz + 10 * Nz)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_SIMPLE_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
 def early_stop_word_iters(err, G: int) -> int:
     """(word, iteration) pairs the early-stop kernel ran, from its flags
     [T, B]: a block of G words runs until the first iteration by which each
@@ -166,6 +264,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    from concurrent.futures import ThreadPoolExecutor
+
     from ldpc_error_floor_tpu_torch.channel import AWGNChannel
     from ldpc_error_floor_tpu_torch.codes import TannerGraph, get_code
     from ldpc_error_floor_tpu_torch.io import read_uncor_file
@@ -174,6 +274,7 @@ def main() -> int:
                                                    compose_boosted_params,
                                                    init_weights, load_params,
                                                    stack_weights)
+    from ldpc_error_floor_tpu_torch.ops import fused_train
     from ldpc_error_floor_tpu_torch.ops.fused_decoder import (FusedNMSKernel,
                                                               launch_shape,
                                                               load_library)
@@ -196,11 +297,15 @@ def main() -> int:
 
     # ---- 2. build -----------------------------------------------------------------
     t0 = time.perf_counter()
-    _, log = load_library()
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
+        builds = [pool.submit(fn) for fn in (load_library, fused_train.load_library)]
+        logs = {src: b.result()[1] for src, b in
+                zip(("fused_nms_stats.cu", "fused_nms_train.cu"), builds)}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "built": bool(log), "ptxas": ptxas})
+          "built": {src: bool(log) for src, log in logs.items()},
+          "ptxas": {src: [ln.strip() for ln in log.splitlines()
+                          if "Compiling entry" in ln or "registers" in ln
+                          or "spill" in ln] for src, log in logs.items()}})
 
     # ---- 3. kernels vs plain on the card -------------------------------------------
     wman = get_code(WMAN)
@@ -369,6 +474,125 @@ def main() -> int:
         check(kern.launches == {"fused_nms_stats_sp": 1}, f"{cid}: launches {kern.launches}")
         check(words_off <= 0.001 * B, f"{cid}: {words_off} words' counters differ")
 
+    # B4 and B5 against their plain version (autograd through the plain scan
+    # body): (id, code, sharing, decoding type, T, APP window t0, neural
+    # mode, weights, target node); 'post30' = base20's rows for iterations
+    # 0-19 and random rows for 20-29, the post block's weights
+    from ldpc_error_floor_tpu_torch.models import DecodeResult, Params
+    from ldpc_error_floor_tpu_torch.training import (make_optimizer,
+                                                     make_train_step,
+                                                     multi_iteration_loss)
+    G5 = "5G_LDPC_R0.50_n_dec640_n512_k256_z32_s257_320"
+    spec30_post = WeightSpec(sharing=(3, 3, 3), n_iters=T_BOOST, fixed_iter=T_MAIN)
+
+    def post30_stacked():
+        rand = case_weights(WeightSpec(sharing=(3, 3, 3), n_iters=T_BOOST - T_MAIN),
+                            wman_graph, "rand")
+        st = stack_weights(spec20, base20)
+        return {k: torch.cat([st[k], rand[k]]).contiguous() for k in st}
+
+    train_cases = [
+        ("m_wman_303_qms_t0_19", WMAN, (3, 0, 3), 2, T_MAIN, T_MAIN - 1, "scale", "rand", 0),
+        ("n_wman_303_qms_t0_0", WMAN, (3, 0, 3), 2, T_MAIN, 0, "scale", "rand", 0),
+        ("o_wman_333_qms_post30", WMAN, (3, 3, 3), 2, T_BOOST, T_BOOST - 1, "scale", "post30", 0),
+        ("p_wman_222_ms", WMAN, (2, 2, 2), 1, T_MAIN, 0, "scale", "rand", 0),
+        ("q_wman_303_qms_offset", WMAN, (3, 0, 3), 2, T_MAIN, 0, "offset", "offset", 0),
+        ("r_wman_110_qms_per_edge", WMAN, (1, 1, 0), 2, T_MAIN, 0, "scale", "rand", 0),
+        ("s_5g_222_qms_systematic", G5, (2, 2, 2), 2, T_MAIN, 0, "scale", "rand", 10),
+    ]
+    FWD, BWD = fused_train.FWD, fused_train.BWD
+    for cid, cname, sharing, dec, T, t0, mode, wkind, target in train_cases:
+        graph = graph_of(cname)
+        code = graph.code
+        spec = spec30_post if wkind == "post30" else WeightSpec(sharing=sharing, n_iters=T)
+        stacked = (post30_stacked() if wkind == "post30" else
+                   case_weights(spec, graph, wkind))
+        sig = torch.full((TRAIN_CHECK_B,), float(code.snr_sigmas([3.0])[0]), device=dev)
+        llr = AWGNChannel(code, decoding_type=dec, device=dev).sample(gen, sig)
+        kern = fused_train.FusedTrainKernel(
+            graph, DecoderConfig(decoding_type=dec, neural_mode=mode, target_node=target,
+                                 app_t0=t0), spec)
+        with torch.no_grad():  # B4 alone: the APPs of the window
+            apps = kern.apps(stacked, llr)
+            apps_p = kern.apps_plain(stacked, llr)
+        app_diff = float((apps - apps_p).abs().max())
+        max_err[FWD] = max(max_err.get(FWD, 0.0), app_diff)
+        check(apps.shape == (T - t0, kern.target * code.z, TRAIN_CHECK_B)
+              and bool(torch.isfinite(apps).all()), f"{cid}: APP stack shape or values")
+        check(bool((apps == apps_p).all()) if dec == 2 else app_diff <= 1e-5,
+              f"{cid}: B4 APPs differ from the plain forward ({app_diff})")
+        # B5: the soft-FER loss (eta 0 with the window, else 0.5)
+        etha = 0.0 if t0 else 0.5
+        labels = torch.zeros((kern.target * code.z, TRAIN_CHECK_B), device=dev)
+        grads = []
+        for run in ("kernel", "kernel", "plain"):
+            ws = {k: None if v is None else v.clone().requires_grad_(True)
+                  for k, v in stacked.items()}
+            a = kern.apps(ws, llr) if run == "kernel" else kern.apps_plain(ws, llr)
+            multi_iteration_loss(a, labels, 2, etha).backward()
+            grads.append({k: v.grad for k, v in ws.items() if v is not None})
+            del a, ws
+        torch.cuda.synchronize()
+        worst, ratio, identical = 0.0, 0.0, True
+        for k, g_ref in grads[2].items():
+            g = grads[0][k]
+            identical &= torch.equal(g, grads[1][k])
+            scale = max(float(g_ref.abs().max()), 1e-8)
+            err = (g - g_ref).abs()
+            worst = max(worst, float(err.max()))
+            ratio = max(ratio, float((err / (1e-5 * scale + 1e-4 * g_ref.abs())).max()))
+            check(float(g.abs().max()) > 0.0, f"{cid}: zero {k} gradient")
+        max_err[BWD] = max(max_err.get(BWD, 0.0), worst)
+        emit({"phase": "kernel_vs_plain", "kernel": "fused_nms_train_fwd+bwd", "case": cid,
+              "B": TRAIN_CHECK_B, "T": T, "app_t0": t0,
+              "launch_shape_fwd": list(fused_train.train_launch_shape(graph, spec, False)),
+              "launch_shape_bwd": list(fused_train.train_launch_shape(graph, spec, True)),
+              "max_abs_app_diff": app_diff, "max_abs_grad_diff": worst,
+              "grad_err_over_tolerance": ratio, "bwd_bit_identical": identical,
+              "grad_scale": {k: float(g.abs().max()) for k, g in grads[2].items()}})
+        check(kern.launches == {FWD: 3, BWD: 2}, f"{cid}: launches {kern.launches}")
+        check(identical, f"{cid}: two B5 launches differ")
+        check(ratio <= 1.0, f"{cid}: gradients outside rtol 1e-4 / atol 1e-5 x max|g| "
+                            f"(worst {ratio:.3f} of the tolerance)")
+        del grads
+        torch.cuda.empty_cache()
+
+    class PlainApps:
+        """A decoder whose 'apps' is B4/B5's plain version (for the Adam check)."""
+
+        def __init__(self, dec):
+            self.cfg, self.spec, self.kern = dec.cfg, dec.spec, dec.train_kernel
+
+        def apply(self, params: Params, llr, collect):
+            apps = self.kern.apps_plain(stack_weights(self.spec, params), llr)
+            return DecodeResult(apps[-1], None, None, apps)
+
+    spec_base = WeightSpec(sharing=(3, 0, 3), n_iters=T_MAIN)
+    dec_k = NMSDecoder(wman, DecoderConfig(app_t0=T_MAIN - 1), spec_base,
+                       graph=wman_graph, device=dev)
+    sig_mix = torch.as_tensor(
+        [float(s) for s in wman.snr_sigmas([2.0, 2.5, 3.0, 3.5, 4.0])] * (TRAIN_CHECK_B // 5 + 1),
+        device=dev)[:TRAIN_CHECK_B]
+    ch_adam = AWGNChannel(wman, device=dev)
+    llrs = [ch_adam.sample(gen, sig_mix) for _ in range(3)]
+    labels = torch.zeros((wman.n_full, TRAIN_CHECK_B), device=dev)
+    adam_params = {}
+    for route, dec in (("kernel", dec_k), ("plain", PlainApps(dec_k))):
+        p = init_weights(spec_base, wman_graph, device=dev)
+        opt = make_optimizer(p, 1e-2)
+        step = make_train_step(dec, spec_base, 2, 0, T_MAIN, static_etha=0.0)
+        losses = [float(step(p, opt, x, labels, 0.0)) for x in llrs]
+        adam_params[route] = ({k: v.detach() for k, v in p.items() if v is not None}, losses)
+    adam_diff = max(float((adam_params["kernel"][0][k] - adam_params["plain"][0][k]).abs().max())
+                    for k in ("cn", "vn"))
+    emit({"phase": "adam_kernel_vs_plain", "steps": 3, "B": TRAIN_CHECK_B,
+          "max_abs_weight_diff": adam_diff,
+          "losses_kernel": adam_params["kernel"][1], "losses_plain": adam_params["plain"][1],
+          "cn_kernel": adam_params["kernel"][0]["cn"][:, 0].tolist()})
+    check(adam_diff <= 1e-5, f"Adam steps through the kernels differ by {adam_diff}")
+    check(dec_k.train_kernel.launches == {FWD: 3, BWD: 3},
+          f"Adam launches {dec_k.train_kernel.launches}")
+
     # ---- 4. end to end: each path -------------------------------------------------
     def simulator(spec, cfg, batch=MAIN_B, stop="genie", dec=2):
         decoder = NMSDecoder(wman, cfg, spec, graph=wman_graph, device=dev)
@@ -453,7 +677,78 @@ def main() -> int:
     check(bool(err_h.all()), "a harvested word decodes at some iteration")
     check(rescued >= 0.25 * words.shape[0], f"boosted30 rescued {rescued} of {len(words)}")
 
-    # ---- 6. timing ----------------------------------------------------------------
+    # ---- 6. training end to end ---------------------------------------------------
+    import dataclasses
+
+    from ldpc_error_floor_tpu_torch.io import write_weight_file
+    from ldpc_error_floor_tpu_torch.models import params_to_blocks
+    from ldpc_error_floor_tpu_torch.pipelines import (base_config_wman,
+                                                      post_config_wman,
+                                                      run_training,
+                                                      split_uncor_dataset)
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "Weights")
+        cfg = dataclasses.replace(base_config_wman(), batch_size=TRAIN_B,
+                                  training_num=20 * TRAIN_B, epochs=2, valid_num=2 * TRAIN_B,
+                                  learn_rate_start=1e-2, seed=0, out_dir=out_dir)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = run_training(cfg, verbose=False, device=dev)
+        base_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        prefix = os.path.join(out_dir, cfg.out_prefix)
+        files = {sfx: os.path.exists(prefix + sfx) for sfx in
+                 ("_Weight_End20.txt", "_Opt_Weight_End20.txt", "_Performance.txt")}
+        metrics = [h["metric"] for h in res.history]
+        main_launches[FWD] = main_launches[BWD] = dict(res.launches)
+        emit({"phase": "train_base", "config": "base_config_wman", "batch": TRAIN_B,
+              "steps_per_epoch": 20, "epochs": 2, "seconds": base_s,
+              "peak_device_memory_gb": peak_gb,
+              "valid_fer_last_sum": metrics,
+              "valid_fer_last": [h["valid"][1] for h in res.history],
+              "train_loss": [h["train_loss"] for h in res.history],
+              "cn": res.params["cn"][:, 0].tolist(), "vn": res.params["vn"][:, 0].tolist(),
+              "files": files, "kernel_launches": res.launches})
+        check(all(files.values()), f"training files missing: {files}")
+        check(metrics[-1] <= (1.0 - FER_DROP) * metrics[0],
+              f"valid FER_last sum {metrics[0]} -> {metrics[-1]}: no {FER_DROP:.0%} drop")
+        check(res.launches.get(BWD) == 2 * 20 and res.launches.get(FWD, 0) > 2 * 20,
+              f"base training launches {res.launches}")
+
+        # post block on harvested words, base20 the frozen prefix
+        uncor = os.path.join(tmp, "Uncor_post.txt")
+        t0 = time.perf_counter()
+        words = run_collection(ExperimentConfig(code=WMAN, sharing=(3, 3, 3), iters_max=T_MAIN,
+                                                snrs=[4.2], seed=1),
+                               weight_file=f"{WMAN}_base20", target_words=4096,
+                               batch=MAIN_B, out_file=uncor, device=dev)
+        harvest_post_s = time.perf_counter() - t0
+        in_dir = os.path.join(tmp, "Inputs")
+        split_uncor_dataset(uncor, WMAN, in_dir, 2048, 1024, 1024)
+        write_weight_file(prefix + "_Opt_Weight_End20.txt", (3, 3, 3),
+                          params_to_blocks(spec20, base20))
+        post = dataclasses.replace(post_config_wman(), batch_size=512, training_num=2048,
+                                   epochs=3, valid_num=1024, test_num=1024,
+                                   learn_rate_start=1e-2, seed=0, out_dir=out_dir,
+                                   input_dir=in_dir)
+        t0 = time.perf_counter()
+        res_p = run_training(post, verbose=False, device=dev)
+        post_s = time.perf_counter() - t0
+    frozen = {k: bool(torch.equal(res_p.params[k][:T_MAIN], base20[k])) for k in base20}
+    moved = {k: bool((res_p.params[k][T_MAIN:] != 1.0).any()) for k in base20}
+    losses = [h["train_loss"] for h in res_p.history[1:]]
+    emit({"phase": "train_post", "config": "post_config_wman", "harvested": int(len(words)),
+          "harvest_seconds": harvest_post_s, "batch": 512, "epochs": 3, "seconds": post_s,
+          "train_loss": losses, "valid_fer_last": [h["valid"][1] for h in res_p.history],
+          "prefix_bit_equal": frozen, "post_rows_moved": moved,
+          "kernel_launches": res_p.launches})
+    check(len(words) >= 4096, f"harvested {len(words)} words, wanted 4096")
+    check(all(frozen.values()), f"frozen prefix rows changed: {frozen}")
+    check(all(moved.values()), f"post rows did not move: {moved}")
+    check(losses[-1] < losses[0], f"post training loss {losses} does not fall")
+    check(res_p.launches.get(BWD) == 3 * 4, f"post training launches {res_p.launches}")
+
+    # ---- 7. timing ----------------------------------------------------------------
     channel = AWGNChannel(wman, device=dev)
     st20, st30 = stack_weights(spec20, base20), stack_weights(spec30, boosted30)
 
@@ -520,26 +815,163 @@ def main() -> int:
           "words_per_block_deploy": G_dep,
           "smem_ms_this_design_fixed20": smem_traffic / SMEM_BYTES_PER_S * 1e3})
 
-    # ---- 7. summary -----------------------------------------------------------------
+    # B4 and B5 at the training batch on the base block ((3,0,3), T=20) and
+    # the post block ((3,3,3), T=30, base20's rows 0-19), APP window t0=T-1
+    # (eta 0), against the plain version on the same inputs in chunks of
+    # TRAIN_CHECK_B words (one chunk's autograd graph at a time)
+    from ldpc_error_floor_tpu_torch.channel.awgn import mix_sigma_lanes
+    from ldpc_error_floor_tpu_torch.training import make_epoch_step
+    sig_train = torch.as_tensor(
+        mix_sigma_lanes(wman.snr_sigmas(base_config_wman().snrs), TRAIN_B), device=dev)
+
+    def plain_chunks(kern, ws, llr, backward):
+        """The plain version on llr in chunks of TRAIN_CHECK_B words: its ms
+        (the forward, or the backward alone); with `backward` also the
+        clipped APPs, the loss and the weight gradients of the whole batch
+        (each chunk's loss and gradients scaled by chunk / B)."""
+        total, apps, loss, grads = 0.0, [], 0.0, {}
+        B = llr.shape[1]
+        labels_c = torch.zeros((wman.n_full, TRAIN_CHECK_B), device=dev)
+        for c in range(0, B, TRAIN_CHECK_B):
+            w = {k: None if v is None else v.detach().requires_grad_(True)
+                 for k, v in ws.items()}
+            x = llr[:, c:c + TRAIN_CHECK_B].contiguous()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            a = kern.apps_plain(w, x)
+            if backward:
+                loss_c = multi_iteration_loss(a, labels_c, 2, 0.0)
+                torch.cuda.synchronize()
+                start.record()
+                loss_c.backward()
+            stop.record()
+            torch.cuda.synchronize()
+            total += start.elapsed_time(stop)
+            if backward:
+                frac = x.shape[1] / B
+                apps.append(a.detach())
+                loss += frac * float(loss_c.detach())
+                for k, v in w.items():
+                    if v is not None:
+                        grads[k] = grads[k] + frac * v.grad if k in grads else frac * v.grad
+            del a, w
+        return total, (torch.cat(apps, dim=2) if apps else None), loss, grads
+
+    train_timing, train_bounds = {}, {}
+    train_blocks = {"base": (spec_base, 0, T_MAIN, case_weights(spec_base, wman_graph, "rand")),
+                    "post": (spec30_post, T_MAIN, T_BOOST, post30_stacked())}
+    for bname, (spec, start, end, ws) in train_blocks.items():
+        T = spec.n_iters
+        kern = fused_train.FusedTrainKernel(wman_graph, DecoderConfig(app_t0=T - 1), spec)
+        llr = ch_adam.sample(gen, sig_train)
+        w3 = (ws["cn"], ws["ucn"], ws["vn"])
+        train_timing[f"{bname}_fwd_ms"] = time_ms(lambda: kern._forward(w3, llr, True), reps=5)
+        apps_pre, hist, cres = kern._forward(w3, llr, True)
+        # B4 under no_grad (the evaluator's launch) writes the APPs alone
+        alone_mismatches = int((kern._forward(w3, llr, False)[0] != apps_pre).sum())
+        a = torch.clamp(apps_pre, -20.0, 20.0).requires_grad_(True)
+        loss_k = multi_iteration_loss(a, torch.zeros((wman.n_full, TRAIN_B), device=dev), 2,
+                                      0.0)
+        loss_k.backward()
+        g_apps = a.grad.contiguous()
+        train_timing[f"{bname}_bwd_ms"] = time_ms(
+            lambda: kern._backward(w3, llr, hist, cres, apps_pre, g_apps), reps=5)
+        g_k = dict(zip(("cn", "ucn", "vn"), kern._backward(w3, llr, hist, cres, apps_pre,
+                                                             g_apps)))
+        apps_k = a.detach()
+        del hist, cres, apps_pre, a
+        torch.cuda.empty_cache()
+        train_timing[f"{bname}_fwd_plain_ms"] = plain_chunks(kern, ws, llr, False)[0]
+        (train_timing[f"{bname}_bwd_plain_ms"], apps_p, loss_p,
+         g_p) = plain_chunks(kern, ws, llr, True)
+        # the main path's B4 (streaming, and alone) and B5 at B=32768 against
+        # the plain version on the same words
+        worst, ratio = 0.0, 0.0
+        for k, g_ref in g_p.items():
+            err = (g_k[k] - g_ref).abs()
+            worst = max(worst, float(err.max()))
+            scale = max(float(g_ref.abs().max()), 1e-8)
+            ratio = max(ratio, float((err / (1e-5 * scale + 1e-4 * g_ref.abs())).max()))
+        app_diff = float((apps_k - apps_p).abs().max())
+        par = {
+            "max_abs_app_diff": app_diff,
+            "app_mismatches": int((apps_k != apps_p).sum()),
+            "stream_vs_alone_mismatches": alone_mismatches,
+            "loss_kernel": float(loss_k), "loss_plain": loss_p,
+            "max_abs_grad_diff": worst, "grad_err_over_tolerance": ratio,
+            "grad_scale": {k: float(g.abs().max()) for k, g in g_p.items()}}
+        del apps_p, apps_k
+        emit({"phase": "kernel_vs_plain", "kernel": "fused_nms_train_fwd+bwd",
+              "case": f"{bname}_block_B{TRAIN_B}", "B": TRAIN_B, "T": T, "app_t0": T - 1,
+              **par})
+        max_err[FWD] = max(max_err[FWD], app_diff)
+        max_err[BWD] = max(max_err[BWD], worst)
+        check(par["app_mismatches"] == 0,
+              f"{bname} B={TRAIN_B}: B4's streaming APPs not bit-equal to the plain version")
+        check(par["stream_vs_alone_mismatches"] == 0,
+              f"{bname} B={TRAIN_B}: B4 alone and streaming give different APPs")
+        check(abs(par["loss_kernel"] - loss_p) <= 1e-6 * abs(loss_p),
+              f"{bname} B={TRAIN_B}: loss {par['loss_kernel']} against plain {loss_p}")
+        check(ratio <= 1.0, f"{bname} B={TRAIN_B}: B5 gradients outside rtol 1e-4 / atol "
+                            f"1e-5 x max|g| (worst {ratio:.3f} of the tolerance)")
+        train_bounds[f"{bname}_fwd"] = train_bound(wman_graph, spec, TRAIN_B, T - 1, False)
+        train_bounds[f"{bname}_bwd"] = train_bound(wman_graph, spec, TRAIN_B, T - 1, True)
+        # one whole step: sampling, B4, loss, B5, Adam, clip (5 steps timed)
+        dec = NMSDecoder(wman, DecoderConfig(app_t0=T - 1), spec, graph=wman_graph,
+                         device=dev)
+        p = init_weights(spec, wman_graph, device=dev)
+        opt = make_optimizer(p, 1e-2)
+        epoch = make_epoch_step(dec, spec, 2, start, end, 0, n_steps=5,
+                                labels=torch.zeros((wman.n_full, TRAIN_B), device=dev),
+                                channel=ch_adam, sigmas=sig_train, static_etha=0.0)
+        step_ms = time_ms(lambda: epoch(p, opt, gen, 0.0), reps=2, warmup=1) / 5
+        train_timing[f"{bname}_step_ms"] = step_ms
+        train_timing[f"{bname}_trained_cw_per_s"] = TRAIN_B / step_ms * 1e3
+        torch.cuda.empty_cache()
+    # the plain step (autograd through the plain version) at TRAIN_CHECK_B
+    p = init_weights(spec_base, wman_graph, device=dev)
+    opt = make_optimizer(p, 1e-2)
+    plain_step = make_train_step(PlainApps(dec_k), spec_base, 2, 0, T_MAIN, static_etha=0.0)
+    x = llrs[0]
+    train_timing["base_plain_step_ms_B4096"] = time_ms(
+        lambda: plain_step(p, opt, x, labels, 0.0), reps=2, warmup=1)
+    emit({"phase": "train_timing", "card": smi, "B": TRAIN_B, **train_timing,
+          "bounds": train_bounds,
+          "launch_shape_fwd": list(fused_train.train_launch_shape(wman_graph, spec_base, False)),
+          "launch_shape_bwd": list(fused_train.train_launch_shape(wman_graph, spec_base, True)),
+          "launch_shape_fwd_post": list(fused_train.train_launch_shape(wman_graph, spec30_post,
+                                                                       False)),
+          "launch_shape_bwd_post": list(fused_train.train_launch_shape(wman_graph, spec30_post,
+                                                                       True))})
+    bounds[FWD], bounds[BWD] = train_bounds["base_fwd"], train_bounds["base_bwd"]
+
+    # ---- 8. summary -----------------------------------------------------------------
     src = "ldpc_error_floor_tpu_torch/csrc/fused_nms_stats.cu"
-    rows = [  # (name, replaces, ms, plain ms)
-        ("fused_nms_stats", "ldpc_error_floor_tpu/ops/pallas_decoder.py:435",
+    src_train = "ldpc_error_floor_tpu_torch/csrc/fused_nms_train.cu"
+    rows = [  # (name, source, replaces, ms, plain ms)
+        ("fused_nms_stats", src, "ldpc_error_floor_tpu/ops/pallas_decoder.py:435",
          timing[f"fixed20_ms_B{MAIN_B}"], timing["fixed20_plain_ms"]),
-        ("fused_nms_early_stop", "ldpc_error_floor_tpu/ops/pallas_decoder.py:747",
+        ("fused_nms_early_stop", src, "ldpc_error_floor_tpu/ops/pallas_decoder.py:747",
          timing["early_stop30_ms"], timing["early_stop30_plain_ms"]),
-        ("fused_nms_deploy", "ldpc_error_floor_tpu/ops/pallas_decoder.py:692",
+        ("fused_nms_deploy", src, "ldpc_error_floor_tpu/ops/pallas_decoder.py:692",
          timing["deploy20_ms"], timing["deploy20_plain_ms"]),
-        ("fused_nms_stats_sp", "ldpc_error_floor_tpu/ops/pallas_decoder.py:567",
+        ("fused_nms_stats_sp", src, "ldpc_error_floor_tpu/ops/pallas_decoder.py:567",
          timing[f"sp20_ms_B{MAIN_B}"], timing[f"sp20_plain_ms_B{MAIN_B}"]),
+        (FWD, src_train, "ldpc_error_floor_tpu/ops/pallas_train.py:366",
+         train_timing["base_fwd_ms"], train_timing["base_fwd_plain_ms"]),
+        (BWD, src_train, "ldpc_error_floor_tpu/ops/pallas_train.py:652",
+         train_timing["base_bwd_ms"], train_timing["base_bwd_plain_ms"]),
     ]
     emit({"kernels": [{
-        "name": kname, "route": "cuda", "source": src, "replaces": replaces,
+        "name": kname, "route": "cuda", "source": source, "replaces": replaces,
         "launches": main_launches[kname][kname], "max_abs_err": max_err[kname],
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds[kname]["bound_ms"],
         "bound_by": bounds[kname]["bound_by"], "library_ms": None}
-        for kname, replaces, ms, plain_ms in rows]})
+        for kname, source, replaces, ms, plain_ms in rows]})
     print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
 

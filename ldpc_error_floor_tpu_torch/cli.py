@@ -12,9 +12,14 @@
         --weights wman_N0576_R34_z24_base20 --words 20000 --out Uncor.txt
     python -m ldpc_error_floor_tpu_torch.cli split-uncor --uncor Uncor.txt \
         --code wman_N0576_R34_z24 --train 10000 --valid 5000 --test 5000
+    python -m ldpc_error_floor_tpu_torch.cli train --config base.json
+    python -m ldpc_error_floor_tpu_torch.cli evaluate --config base.json \
+        --weights Weights/C0_wman_N0576_R34_z24_Opt_Weight_End20.txt
+    python -m ldpc_error_floor_tpu_torch.cli weights
 
-`simulate` and `collect` print one JSON line per SNR.  They run on the card
-unless ``--device cpu`` is given.
+`simulate`, `collect` and `evaluate` print one JSON line per SNR (or split).
+`train` writes the weight files and the perf log under the config's
+`out_dir`.  They run on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -30,6 +35,16 @@ def _cmd_codes(args) -> int:
         c = get_code(name)
         print(f"{name}: M={c.M} N={c.N} z={c.z} E={c.n_edges} "
               f"n={c.n} k={c.k} R={c.rate:.3f}")
+    return 0
+
+
+def _cmd_weights(args) -> int:
+    from ldpc_error_floor_tpu_torch.io.weight_files import (available_weight_sets,
+                                                            read_weight_json)
+    for name in available_weight_sets():
+        sharing, blocks = read_weight_json(name)
+        rows = next(len(v) for v in blocks.values() if v is not None)
+        print(f"{name}: sharing {sharing}, {rows} iterations")
     return 0
 
 
@@ -60,6 +75,79 @@ def _cmd_split_uncor(args) -> int:
     split_uncor_dataset(args.uncor, args.code, args.input_dir,
                         args.train, args.valid, args.test)
     print(f"split {args.uncor} into {args.input_dir}/[Uncor]_{args.code}*")
+    return 0
+
+
+def _cmd_train(args) -> int:
+    from ldpc_error_floor_tpu_torch.pipelines import (ExperimentConfig,
+                                                      run_training)
+    cfg = ExperimentConfig.from_json(args.config)
+    res = run_training(cfg, eval_batch=args.eval_batch, device=args.device)
+    print(f"done; best metric {res.best_metric:.3e}")
+    return 0
+
+
+def _cmd_evaluate(args) -> int:
+    """Evaluate a weight file on fresh noise or the harvested valid/test
+    datasets (the four metric rows)."""
+    import torch
+
+    from ldpc_error_floor_tpu_torch.channel import AWGNChannel
+    from ldpc_error_floor_tpu_torch.codes import TannerGraph, get_code
+    from ldpc_error_floor_tpu_torch.io.uncor_files import read_uncor_file
+    from ldpc_error_floor_tpu_torch.models import (DecoderConfig, NMSDecoder,
+                                                   WeightSpec, load_params)
+    from ldpc_error_floor_tpu_torch.pipelines import ExperimentConfig
+    from ldpc_error_floor_tpu_torch.pipelines.evaluate import Evaluator
+
+    cfg = ExperimentConfig.from_json(args.config).validate()
+    code = get_code(cfg.code, z=cfg.z, punct=cfg.punct, short=cfg.short)
+    graph = TannerGraph(code)
+    spec = WeightSpec(sharing=cfg.sharing, n_iters=cfg.iters_max,
+                      fixed_iter=cfg.fixed_iter)
+    weights = args.weights or (
+        f"{cfg.out_dir}/{cfg.out_prefix}_Opt_Weight_End{cfg.iters_max}.txt")
+    params = load_params(spec, graph, weights, device=args.device)
+    target = (code.N - code.M) if cfg.systematic else 0
+    dec = NMSDecoder(code, DecoderConfig(decoding_type=cfg.decoding_type,
+                                         q_bit=cfg.q_bit,
+                                         clip_llr=cfg.clip_llr,
+                                         neural_mode=cfg.neural_mode,
+                                         target_node=target),
+                     spec, graph=graph, device=args.device)
+    channel = AWGNChannel(code, decoding_type=cfg.decoding_type,
+                          q_bit=cfg.q_bit, clip_llr=cfg.clip_llr,
+                          device=args.device)
+    if cfg.sampling_type == 1:  # harvested datasets
+        base = f"{cfg.input_dir}/[Uncor]_{cfg.code}"
+        splits = [("valid", base + "_Valid.txt", cfg.valid_num),
+                  ("test", base + "_Test.txt", cfg.test_num)]
+        for name, path, num in splits:
+            data = read_uncor_file(path, max_rows=num)
+            rows = min(num, data.shape[0])
+            # a split smaller than --batch still evaluates; a trailing
+            # remainder that fills no batch is reported
+            eb = min(args.batch, rows)
+            used = (rows // eb) * eb
+            if used < rows:
+                print(f"# {name}: evaluating {used}/{rows} rows "
+                      f"({rows - used} trailing rows don't fill a batch "
+                      f"of {eb})", flush=True)
+            ev = Evaluator(dec, channel, cfg.loss_type, batch=eb)
+            res, dt = ev.run(params, [0.0], used, cfg.etha_start, data=data)
+            print(json.dumps({"split": name, "ber_last": res[0, 0],
+                              "fer_last": res[1, 0], "fer": res[2, 0],
+                              "loss": res[3, 0], "seconds": dt,
+                              "rows_used": used}))
+    else:
+        ev = Evaluator(dec, channel, cfg.loss_type, batch=args.batch)
+        gen = torch.Generator(device=dec.device).manual_seed(cfg.seed)
+        res, dt = ev.run(params, code.snr_sigmas(cfg.snrs), args.frames,
+                         cfg.etha_start, generator=gen)
+        for i, snr in enumerate(cfg.snrs):
+            print(json.dumps({"snr": snr, "ber_last": res[0, i],
+                              "fer_last": res[1, i], "fer": res[2, i],
+                              "loss": res[3, i]}))
     return 0
 
 
@@ -120,6 +208,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="ldpc_error_floor_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     sub.add_parser("codes", help="list bundled codes")
+    sub.add_parser("weights", help="list bundled trained weight sets")
 
     def device_arg(sp):
         sp.add_argument("--device", default="cuda",
@@ -143,6 +232,23 @@ def main(argv=None) -> int:
                     help="JSON resume checkpoint: a killed harvest restarts "
                          "from its last counters and generator state")
     device_arg(pl)
+
+    pt = sub.add_parser("train", help="train a decoder (base or post)")
+    pt.add_argument("--config", required=True)
+    pt.add_argument("--eval-batch", type=int, default=None, dest="eval_batch")
+    device_arg(pt)
+
+    pe = sub.add_parser("evaluate",
+                        help="evaluate weights on fresh noise or the "
+                             "harvested valid/test datasets (4 metric rows)")
+    pe.add_argument("--config", required=True)
+    pe.add_argument("--weights", default=None,
+                    help="weight file / bundled set (default: the config's "
+                         "Opt_Weight_End{iters_max}.txt)")
+    pe.add_argument("--batch", type=int, default=1000)
+    pe.add_argument("--frames", type=int, default=10000,
+                    help="frames per SNR for fresh-noise evaluation")
+    device_arg(pe)
 
     ps = sub.add_parser("split-uncor", help="split Uncor.txt into datasets")
     ps.add_argument("--uncor", required=True)
@@ -198,8 +304,10 @@ def main(argv=None) -> int:
                     help="count errors over the systematic columns only")
 
     args = p.parse_args(argv)
-    return {"codes": _cmd_codes, "init-config": _cmd_init_config,
-            "collect": _cmd_collect, "split-uncor": _cmd_split_uncor,
+    return {"codes": _cmd_codes, "weights": _cmd_weights,
+            "init-config": _cmd_init_config, "train": _cmd_train,
+            "evaluate": _cmd_evaluate, "collect": _cmd_collect,
+            "split-uncor": _cmd_split_uncor,
             "simulate": _cmd_simulate}[args.cmd](args)
 
 

@@ -20,395 +20,12 @@
 // traffic are ~20x the device-memory time at 3.35 TB/s.  SP adds a tanhf
 // and an atanhf per edge slot, which run on the special-function units.
 //
-// What the design does about it: the whole decoder state of G codewords
-// (the C->V messages [E*z] plus one sum [N*z] per bit, and the parity bits)
-// stays in shared memory for all T iterations; device memory sees the LLRs
-// (read through the cache each iteration), the APP and the statistics only.
-// Shared arrays are laid out [row][G] with the codeword fastest, so the 32
-// lanes of a warp read 32 consecutive words of one bank row.  Each
-// iteration is two phases split by __syncthreads():
-//   A. one thread per lifted bit and word: the slot-ordered sum S of its
-//      C->V messages; the previous iteration's APP, hard decision and error
-//      count; this iteration's weighted, quantized channel value plus S.
-//   B. one thread per lifted check and word: the parity of the previous
-//      hard decisions (UCN mask, and the syndrome in deploy mode); for each
-//      real edge (no padding to the largest check degree) the V->C message
-//      (bit total - own C->V); min1/min2 and the sign product, or SP's tanh
-//      prefix/suffix product; then the CN/UCN weight, ReLU, quantize or
-//      clip, sign, written back in place over the same C->V slot.
-// The stops end a block's loop, never a thread's: early stop decides with
-// __syncthreads_or after the statistics of an iteration, deploy after phase
-// B, from shared flags that every thread reads alike.  A block of G words
-// stops as a whole (the JAX tile stops as a whole too, at another size), so
-// the early-stop rows after a block's stop and its APP depend on G; the
-// genie-failure mask and every deploy output do not.
-// Rounding follows the scan decoder: rintf (half to even, as jnp.round and
-// torch.round), IEEE division, and the build uses -fmad=false so no
-// multiply-add is contracted.  It launches on the caller's stream,
-// allocates nothing and does not synchronise.
+// The loop itself, what its design does about that and how it rounds, is
+// csrc/fused_nms_kernel.cuh (shared with the training forward B4).  It
+// launches on the caller's stream, allocates nothing and does not
+// synchronise.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr float kPadMag = 1.0e4f;  // magnitude sentinel of the extrinsic min
-constexpr float kEps = 1.0e-4f;    // zero-message nudge
-constexpr float kSPClip = (float)(1.0 - 1e-7);  // SP product clip
-constexpr int kMaxDegSP = 64;      // largest check degree SP takes
-
-constexpr int kMS = 1;
-constexpr int kQMS = 2;
-
-constexpr int kFixed = 0;
-constexpr int kEarlyStop = 1;
-constexpr int kDeploy = 2;
-
-__device__ __forceinline__ float quantize(float x, float step, float qclip) {
-  return fminf(fmaxf(rintf(x / step) * step, -qclip), qclip);
-}
-
-__device__ __forceinline__ float clip(float x, float lim) {
-  return fminf(fmaxf(x, -lim), lim);
-}
-
-// Per-iteration weight of one check / edge under a sharing mode:
-// 1, 4 per edge (CN order), 2, 5 per check, 3 scalar.
-__device__ __forceinline__ float cn_weight(const float* __restrict__ w,
-                                           int t, int dim, int mode, int i,
-                                           int k) {
-  int col = (mode == 1 || mode == 4) ? k : ((mode == 2 || mode == 5) ? i : 0);
-  return __ldg(w + (size_t)t * dim + col);
-}
-
-// V->C message of one edge slot: bit total minus the edge's own C->V,
-// quantized (QMS) or clipped, zero nudged to eps (MS, QMS).
-__device__ __forceinline__ float v2c_msg(float tot, float c2v, int dec_type,
-                                         float qstep, float qclip,
-                                         float clip_llr) {
-  float x = tot - c2v;
-  x = (dec_type == kQMS) ? quantize(x, qstep, qclip) : clip(x, clip_llr);
-  if ((dec_type == kMS || dec_type == kQMS) && x == 0.0f) x = kEps;
-  return x;
-}
-
-// Graph table (int32): vn_ptr[N+1] | cn_ptr[M+1] | cn_edge[E] | edge_vn[E] |
-// edge_shift[E].  Edges are numbered in VN order, so VN j owns the edge
-// range [vn_ptr[j], vn_ptr[j+1]); cn_edge lists each check's edges in CN
-// order, so position k there is the CN-order index of the edge.
-struct Graph {
-  const int* vn_ptr;
-  const int* cn_ptr;
-  const int* cn_edge;
-  const int* edge_vn;
-  const int* edge_shift;
-  int z, G;
-
-  __device__ Graph(const int* tab, int N, int M, int E, int z_, int G_)
-      : vn_ptr(tab), cn_ptr(tab + N + 1), cn_edge(tab + N + M + 2),
-        edge_vn(tab + N + M + 2 + E), edge_shift(tab + N + M + 2 + 2 * E),
-        z(z_), G(G_) {}
-
-  // Slot-ordered sum of the C->V messages into lifted bit (j, s) of word g.
-  __device__ __forceinline__ float bit_sum(const float* c2v, int j, int s,
-                                           int g) const {
-    float S = 0.0f;
-    const int e0 = vn_ptr[j], e1 = vn_ptr[j + 1];
-    for (int e = e0; e < e1; ++e) {
-      const float c = c2v[(e * z + s) * G + g];
-      S = (e == e0) ? c : S + c;
-    }
-    return S;
-  }
-
-  // Parity of the hard decisions on the bits of lifted check (i, h), word g.
-  __device__ __forceinline__ int check_parity(const uint8_t* bits, int i,
-                                              int h, int g) const {
-    int par = 0;
-    for (int q = cn_ptr[i]; q < cn_ptr[i + 1]; ++q) {
-      const int e = cn_edge[q];
-      par ^= bits[(edge_vn[e] * z + (h + edge_shift[e]) % z) * G + g];
-    }
-    return par;
-  }
-};
-
-// Shared memory of one block (ops/fused_decoder.py::_smem_bytes computes its
-// size): C->V float [E*z][G] | bit totals float [N*z][G] | error counts int
-// [2][G] | deploy only: frozen int [G], last unsatisfied step int [G] |
-// parity bits uint8 [N*z][G] (with UCN or in deploy mode).
-template <int kMode, bool kSP>
-__global__ void __launch_bounds__(1024)
-fused_nms_kernel(const float* __restrict__ llr,
-                 const float* __restrict__ w_cn,
-                 const float* __restrict__ w_ucn,
-                 const float* __restrict__ w_vn,
-                 const int* __restrict__ tab,
-                 float* __restrict__ app_out,
-                 uint8_t* __restrict__ err_out,
-                 int* __restrict__ nerr_out,
-                 int* __restrict__ iters_out,
-                 uint8_t* __restrict__ fail_out,
-                 int N, int M, int z, int E, int T, int B, int G,
-                 int target, int dec_type, float qstep, float qclip,
-                 float clip_llr, int cn_mode, int ucn, int vn_mode,
-                 int offset_mode, int dim_cn, int dim_vn) {
-  constexpr bool kDep = kMode == kDeploy;
-  extern __shared__ float smem[];
-  const int NzG = N * z * G;
-  const int MzG = M * z * G;
-  const int EzG = E * z * G;
-  float* c2v = smem;
-  float* tot = c2v + EzG;
-  int* cnt = reinterpret_cast<int*>(tot + NzG);
-  // deploy: frozen[g] = word g's syndrome held at an iteration <= t-3 (as of
-  // phase A of step t); unsat_at[g] = the last step whose phase B found an
-  // unsatisfied check of word g (step s tests iteration s-1's decisions)
-  int* frozen = cnt + 2 * G;
-  int* unsat_at = frozen + G;
-  uint8_t* bits = reinterpret_cast<uint8_t*>(cnt + (kDep ? 4 : 2) * G);
-  const bool need_bits = ucn || kDep;
-  const Graph gr(tab, N, M, E, z, G);
-
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int b0 = blockIdx.x * G;
-  const bool qms = dec_type == kQMS;
-  const int gt = tid % G;  // blockDim.x % G == 0: a thread keeps its word
-  const int b = b0 + gt;
-  bool still_wrong = true;  // early stop, threads tid < G: word tid
-
-  for (int k = tid; k < EzG; k += nthr) c2v[k] = 0.0f;
-  if (tid < 2 * G) cnt[tid] = 0;
-  if (kDep && tid < G) {
-    frozen[tid] = 0;
-    unsat_at[tid] = -1;
-  }
-  __syncthreads();
-
-  int t = 0;
-  for (; t <= T; ++t) {
-    const int p = t & 1;
-    // deploy: outputs of iteration t-1 are written while no iteration
-    // <= t-2 satisfied the syndrome (t-2's was tested in phase B of step t-1)
-    const bool live =
-        !kDep || (!frozen[gt] && !(t >= 2 && unsat_at[gt] != t - 1));
-    // ---- phase A: per lifted bit --------------------------------------
-    int wrong = 0;
-    for (int k = tid; k < NzG; k += nthr) {
-      const int row = k / G;
-      const int j = row / z;
-      const float S = gr.bit_sum(c2v, j, row - j * z, gt);
-      const float x = (b < B) ? __ldg(llr + (size_t)row * B + b) : 0.0f;
-      if (t > 0) {  // APP and stats of iteration t-1
-        const float base = qms ? quantize(x, qstep, qclip) : x;
-        const float app = clip(base + S, clip_llr);
-        const bool bit = app >= 0.0f;
-        if (j < target) wrong += bit;
-        if (need_bits) bits[k] = bit;
-        if (b < B && (kDep ? live : t == T))
-          app_out[(size_t)row * B + b] = app;
-      }
-      if (t < T) {
-        float lw = x;
-        if (vn_mode > 0)
-          lw = x * __ldg(w_vn + (size_t)t * dim_vn +
-                         ((vn_mode == 2 || vn_mode == 5) ? j : 0));
-        if (qms) lw = quantize(lw, qstep, qclip);
-        tot[k] = lw + S;
-        if (ucn && t == 0) bits[k] = lw >= 0.0f;
-      }
-    }
-    if (t > 0 && wrong) atomicAdd(&cnt[p * G + gt], wrong);
-    __syncthreads();
-    int go = 0;  // early stop: a word of the block wrong at every iteration
-    if (tid < G) {
-      if (t > 0 && b < B) {
-        const int n = cnt[p * G + tid];
-        if (kDep) {
-          if (live) {
-            err_out[b] = n > 0;
-            nerr_out[b] = n;
-            iters_out[b] = t;
-          }
-        } else {
-          err_out[(size_t)(t - 1) * B + b] = n > 0;
-          nerr_out[(size_t)(t - 1) * B + b] = n;
-        }
-        still_wrong = still_wrong && n > 0;
-        go = still_wrong;
-      }
-      cnt[(p ^ 1) * G + tid] = 0;
-      if (kDep) frozen[tid] = !live;
-    }
-    if (kMode == kEarlyStop && t > 0 && !__syncthreads_or(go)) {
-      if (t < T) {
-        // every word has decoded at least once: leave iteration t-1's APP
-        // (the C->V state is still that of t-1) and zero the skipped rows
-        for (int k = tid; k < NzG; k += nthr) {
-          const int row = k / G;
-          const int j = row / z;
-          if (b < B) {
-            const float x = __ldg(llr + (size_t)row * B + b);
-            const float base = qms ? quantize(x, qstep, qclip) : x;
-            app_out[(size_t)row * B + b] =
-                clip(base + gr.bit_sum(c2v, j, row - j * z, gt), clip_llr);
-          }
-        }
-        if (tid < G && b < B)
-          for (int r = t; r < T; ++r) {
-            err_out[(size_t)r * B + b] = 0;
-            nerr_out[(size_t)r * B + b] = 0;
-          }
-      }
-      break;
-    }
-    if (t == T) break;
-
-    // ---- phase B: per lifted check ------------------------------------
-    for (int k = tid; k < MzG; k += nthr) {
-      const int g = gt;
-      const int row = k / G;
-      const int i = row / z;
-      const int h = row - i * z;
-      const int k0 = gr.cn_ptr[i], k1 = gr.cn_ptr[i + 1];
-      float u = 0.0f;
-      if (ucn || (kDep && t > 0)) {
-        const int par = gr.check_parity(bits, i, h, g);
-        u = (float)par;
-        if (kDep && t > 0 && par) unsat_at[g] = t;  // all writers store t
-      }
-      if (kSP) {
-        // tanh of each V->C message, stashed in its own C->V slot (this
-        // thread owns the check's slots), then suffix products in suf[]
-        float suf[kMaxDegSP];
-        for (int q = k0; q < k1; ++q) {
-          const int e = gr.cn_edge[q];
-          const int sl = (h + gr.edge_shift[e]) % z;
-          const int ci = (e * z + sl) * G + g;
-          const float x = v2c_msg(tot[(gr.edge_vn[e] * z + sl) * G + g],
-                                  c2v[ci], dec_type, qstep, qclip, clip_llr);
-          const float v = tanhf(-0.5f * x);
-          c2v[ci] = (v == 0.0f) ? 1.0f : v;
-        }
-        float acc = 1.0f;
-        for (int q = k1 - 1; q >= k0; --q) {
-          const int e = gr.cn_edge[q];
-          const float v = c2v[(e * z + (h + gr.edge_shift[e]) % z) * G + g];
-          suf[q - k0] = acc;
-          acc = (q == k1 - 1) ? v : acc * v;
-        }
-        float pre = 1.0f;
-        for (int q = k0; q < k1; ++q) {
-          const int e = gr.cn_edge[q];
-          const int ci = (e * z + (h + gr.edge_shift[e]) % z) * G + g;
-          const float v = c2v[ci];
-          float prod = (q == k0) ? suf[0]
-                       : ((q == k1 - 1) ? pre : pre * suf[q - k0]);
-          pre = (q == k0) ? v : pre * v;
-          prod = fminf(fmaxf(prod, -kSPClip), kSPClip);
-          const float out = -2.0f * atanhf(prod);
-          float wmag = fabsf(out);
-          if (cn_mode > 0) {
-            float w = cn_weight(w_cn, t, dim_cn, cn_mode, i, q);
-            if (ucn) {
-              const float wu = cn_weight(w_ucn, t, dim_cn, cn_mode, i, q);
-              w = w * (1.0f - u) + wu * u;
-            }
-            wmag = offset_mode ? wmag - w : wmag * w;
-          }
-          wmag = (wmag > 0.0f) ? wmag : 0.0f;
-          wmag = qms ? quantize(wmag, qstep, qclip) : clip(wmag, clip_llr);
-          const float so = (out > 0.0f) ? 1.0f : ((out < 0.0f) ? -1.0f : 0.0f);
-          c2v[ci] = wmag * so;
-        }
-        continue;
-      }
-      float m1 = kPadMag, m2 = kPadMag, sgn_tot = 1.0f;
-      for (int q = k0; q < k1; ++q) {
-        const int e = gr.cn_edge[q];
-        const int sl = (h + gr.edge_shift[e]) % z;
-        const float x = v2c_msg(tot[(gr.edge_vn[e] * z + sl) * G + g],
-                                c2v[(e * z + sl) * G + g], dec_type, qstep,
-                                qclip, clip_llr);
-        const float a = (x == 0.0f) ? kPadMag : fabsf(x);
-        m2 = fminf(m2, fmaxf(m1, a));
-        m1 = fminf(m1, a);
-        sgn_tot *= (x > 0.0f) ? -1.0f : 1.0f;
-      }
-      for (int q = k0; q < k1; ++q) {
-        const int e = gr.cn_edge[q];
-        const int sl = (h + gr.edge_shift[e]) % z;
-        const int ci = (e * z + sl) * G + g;
-        const float x = v2c_msg(tot[(gr.edge_vn[e] * z + sl) * G + g], c2v[ci],
-                                dec_type, qstep, qclip, clip_llr);
-        const float a = (x == 0.0f) ? kPadMag : fabsf(x);
-        const float sg = (x > 0.0f) ? -1.0f : 1.0f;
-        float mag = (a == m1) ? m2 : m1;
-        mag = (mag <= kEps) ? mag - kEps : mag;
-        const float out = mag * (-(sgn_tot * sg));
-        float wmag = mag;
-        if (cn_mode > 0) {
-          float w = cn_weight(w_cn, t, dim_cn, cn_mode, i, q);
-          if (ucn) {
-            const float wu = cn_weight(w_ucn, t, dim_cn, cn_mode, i, q);
-            w = w * (1.0f - u) + wu * u;
-          }
-          wmag = offset_mode ? mag - w : mag * w;
-        }
-        wmag = (wmag > 0.0f) ? wmag : 0.0f;
-        wmag = qms ? quantize(wmag, qstep, qclip) : clip(wmag, clip_llr);
-        const float so = (out > 0.0f) ? 1.0f : ((out < 0.0f) ? -1.0f : 0.0f);
-        c2v[ci] = wmag * so;
-      }
-    }
-    __syncthreads();
-    if (kDep && t > 0) {
-      // every word's syndrome held at some iteration <= t-1: its outputs
-      // are all written.  Every thread reads the same flags: uniform.
-      bool done = true;
-      for (int g = 0; g < G && b0 + g < B; ++g)
-        done = done && (frozen[g] || unsat_at[g] != t);
-      if (done) break;
-    }
-  }
-
-  if (kDep) {
-    if (t == T) {  // the syndrome of the last iteration, T-1
-      for (int k = tid; k < MzG; k += nthr) {
-        const int row = k / G;
-        const int i = row / z;
-        if (gr.check_parity(bits, i, row - i * z, gt)) unsat_at[gt] = T;
-      }
-      __syncthreads();
-    }
-    if (tid < G && b < B) fail_out[b] = !frozen[tid] && unsat_at[tid] == T;
-  }
-}
-
-template <int kMode, bool kSP>
-int launch(const void* llr, const void* w_cn, const void* w_ucn,
-           const void* w_vn, const void* tab, void* app, void* err,
-           void* nerr, void* iters, void* fail, int N, int M, int z, int E,
-           int T, int B, int G, int threads, int smem, int target,
-           int dec_type, float qstep, float qclip, float clip_llr,
-           int cn_mode, int ucn, int vn_mode, int offset_mode, int dim_cn,
-           int dim_vn, cudaStream_t stream) {
-  cudaError_t st = cudaFuncSetAttribute(
-      fused_nms_kernel<kMode, kSP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (st != cudaSuccess) return (int)st;
-  const int blocks = (B + G - 1) / G;
-  fused_nms_kernel<kMode, kSP><<<blocks, threads, smem, stream>>>(
-      (const float*)llr, (const float*)w_cn, (const float*)w_ucn,
-      (const float*)w_vn, (const int*)tab, (float*)app, (uint8_t*)err,
-      (int*)nerr, (int*)iters, (uint8_t*)fail, N, M, z, E, T, B, G, target,
-      dec_type, qstep, qclip, clip_llr, cn_mode, ucn, vn_mode, offset_mode,
-      dim_cn, dim_vn);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+#include "fused_nms_kernel.cuh"
 
 // mode: 0 fixed T, 1 genie early stop, 2 deploy; sp: the SP check update.
 // Stats modes write app [N*z][B], err uint8 [T][B], nerr int [T][B] (iters
@@ -425,9 +42,9 @@ extern "C" int fused_nms_launch(
     int dim_cn, int dim_vn, int mode, int sp, void* stream) {
 #define FUSED_NMS_LAUNCH(MODE, SP)                                            \
   launch<MODE, SP>(llr, w_cn, w_ucn, w_vn, tab, app, err, nerr, iters, fail, \
-                   N, M, z, E, T, B, G, threads, smem, target, dec_type,      \
-                   qstep, qclip, clip_llr, cn_mode, ucn, vn_mode,             \
-                   offset_mode, dim_cn, dim_vn, (cudaStream_t)stream)
+                   nullptr, nullptr, N, M, z, E, T, B, G, threads, smem,      \
+                   target, 0, dec_type, qstep, qclip, clip_llr, cn_mode, ucn, \
+                   vn_mode, offset_mode, dim_cn, dim_vn, (cudaStream_t)stream)
   switch (mode * 2 + (sp ? 1 : 0)) {
     case 0: return FUSED_NMS_LAUNCH(kFixed, false);
     case 1: return FUSED_NMS_LAUNCH(kFixed, true);

@@ -5,10 +5,12 @@
 the final clipped APP plus per-iteration frame-wrong flags and bit-error
 counts against the all-zero codeword (with ``DecoderConfig.early_stop``,
 the genie early stop).  ``collect='deploy'`` stops each word at its first
-iteration whose hard decisions satisfy every check (`DeployResult`).  The
-work goes to `ops.fused_decoder.FusedNMSKernel`: the hand-written CUDA
-kernel for a tensor on the card, its plain PyTorch version for a tensor on
-the CPU.
+iteration whose hard decisions satisfy every check (`DeployResult`).
+``collect='apps'`` returns the per-iteration APP stack on the target
+columns, differentiable with respect to the weights (training).  The work
+goes to `ops.fused_decoder.FusedNMSKernel` and, for 'apps',
+`ops.fused_train.FusedTrainKernel`: hand-written CUDA kernels for a tensor
+on the card, their plain PyTorch versions for a tensor on the CPU.
 
 Sign conventions (as in the JAX package): positive LLR means bit 1; a bit is
 wrong when ``APP >= 0``; the check-node sign is
@@ -50,18 +52,25 @@ class DecoderConfig:
     #   of G words stops once each has decoded correctly at least once.  The
     #   genie-failure mask is exact; the rows after a block's stop read 0,
     #   so FER_last refers to the stop iteration (ops/fused_decoder.py)
+    app_t0: int = 0  # APP emission window of collect='apps' (the JAX
+    #   package's pallas_app_t0): only iterations t >= app_t0 are returned,
+    #   [T - app_t0, target*z, B].  Legal only under the static eta = 0 loss,
+    #   whose cotangents below the window are zero; training sets T-1 then
 
     def __post_init__(self):
         if self.decoding_type not in (SP, MS, QMS, MS_RAW):
             raise ValueError(f"bad decoding_type {self.decoding_type}")
         if self.neural_mode not in ("scale", "offset"):
             raise ValueError(f"bad neural_mode {self.neural_mode!r}")
+        if self.app_t0 < 0:
+            raise ValueError(f"bad app_t0 {self.app_t0}")
 
 
 class DecodeResult(NamedTuple):
     app_last: torch.Tensor                 # [N*z, B] final-iteration APP LLRs
     err_flags: Optional[torch.Tensor]      # [T, B] bool — frame wrong at iter t
     bit_errors: Optional[torch.Tensor]     # [T, B] int32 — bit errors at iter t
+    apps: Optional[torch.Tensor] = None    # [T - app_t0, target*z, B] clipped APPs
 
     @property
     def uncor_mask(self) -> torch.Tensor:
@@ -92,6 +101,7 @@ class NMSDecoder:
     def __init__(self, code: Code, cfg: DecoderConfig, spec: WeightSpec,
                  graph: Optional[TannerGraph] = None, device="cuda"):
         from ldpc_error_floor_tpu_torch.ops.fused_decoder import FusedNMSKernel
+        from ldpc_error_floor_tpu_torch.ops.fused_train import FusedTrainKernel
         self.code = code
         self.cfg = cfg
         self.spec = spec
@@ -100,23 +110,28 @@ class NMSDecoder:
         self.N, self.M, self.z = code.N, code.M, code.z
         self.target = cfg.target_node if cfg.target_node > 0 else self.N
         self.kernel = FusedNMSKernel(self.graph, cfg, spec)
+        self.train_kernel = FusedTrainKernel(self.graph, cfg, spec)
 
     def apply(self, params: Params, llr: torch.Tensor,
               collect: str = "stats"):
         """Run `spec.n_iters` decoding iterations on ``llr [N*z, B]``.
 
         collect: 'stats' (final APP + per-iteration error flags and
-        bit-error counts), 'app_last' (final APP only) or 'deploy'
-        (syndrome stop per word; returns a `DeployResult`).
+        bit-error counts), 'app_last' (final APP only), 'deploy' (syndrome
+        stop per word; returns a `DeployResult`) or 'apps' (the clipped APPs
+        of iterations t >= app_t0 on the target columns, differentiable
+        with respect to `params`; `app_last` is then the last of them).
         """
-        if collect not in ("stats", "app_last", "deploy"):
-            raise NotImplementedError(
-                f"collect={collect!r} is not ported yet (ROADMAP queue)")
+        if collect not in ("stats", "app_last", "deploy", "apps"):
+            raise ValueError(f"bad collect {collect!r}")
         if llr.device.type != self.device.type:
             raise ValueError(f"llr on {llr.device}, decoder on {self.device}")
         stacked = stack_weights(self.spec, params)
         if collect == "deploy":
             return DeployResult(*self.kernel.decode_deploy(stacked, llr))
+        if collect == "apps":
+            apps = self.train_kernel.apps(stacked, llr)
+            return DecodeResult(apps[-1], None, None, apps)
         app, err, nerr = self.kernel.decode_stats(stacked, llr)
         if collect == "app_last":
             return DecodeResult(app, None, None)

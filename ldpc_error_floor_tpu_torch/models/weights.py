@@ -120,8 +120,52 @@ def init_weights(spec: WeightSpec, graph: TannerGraph,
     return params
 
 
+def clip_weights(spec: WeightSpec, params: Params,
+                 masks: Optional[Mapping[str, Optional[torch.Tensor]]] = None
+                 ) -> Params:
+    """The [min_w, max_w] box constraint, applied after every optimizer step.
+    With the trainable-row `masks` (per row, [rows] as `trainable_mask`
+    gives them or [rows, 1]), rows outside the mask pass through unclipped:
+    frozen-prefix rows loaded from a file are never clipped."""
+    out: Params = {}
+    for k, v in params.items():
+        if v is None:
+            out[k] = None
+            continue
+        clipped = torch.clamp(v, spec.min_w, spec.max_w)
+        if masks is not None and masks.get(k) is not None:
+            m = torch.as_tensor(masks[k], device=v.device)
+            if m.dim() == 1:
+                m = m[:, None]
+            clipped = torch.where(m > 0, clipped, v)
+        out[k] = clipped
+    return out
+
+
+def trainable_mask(spec: WeightSpec, train_start: int, train_end: int,
+                   fixed_init: int = 0) -> Dict[str, Optional[np.ndarray]]:
+    """Boolean row masks selecting the current training block's variables:
+    per-iteration modes train rows [max(train_start - fixed_init,
+    fixed_iter), train_end); temporal modes train the single shared row."""
+    lo = max(train_start - fixed_init, spec.fixed_iter)
+    masks = {}
+    for kind in KINDS:
+        m = spec.mode(kind)
+        if m == 0:
+            masks[kind] = None
+            continue
+        rows = np.zeros(spec.n_rows(kind), bool)
+        if m in _PER_ITER:
+            rows[lo:train_end] = True
+        else:  # temporal: only the shared pivot row
+            rows[spec.fixed_iter] = True
+        masks[kind] = rows
+    return masks
+
+
 def stack_weights(spec: WeightSpec, params: Params) -> Dict[str, Optional[torch.Tensor]]:
-    """Expand stored rows to per-iteration [T, dim] tensors."""
+    """Expand stored rows to per-iteration [T, dim] tensors (differentiable:
+    a row shared by several iterations gathers their gradients)."""
     out = {}
     for kind in KINDS:
         v = params.get(kind)
@@ -162,6 +206,47 @@ def params_from_numpy(params: Mapping[str, Optional[np.ndarray]],
     return {k: None if params.get(k) is None else
             torch.as_tensor(np.array(params[k], np.float32), device=dev)
             for k in KINDS}
+
+
+def params_to_numpy(params: Params) -> Dict[str, Optional[np.ndarray]]:
+    """The reverse of `params_from_numpy`: float32 numpy copies on the host."""
+    return {k: None if params.get(k) is None else
+            params[k].detach().cpu().numpy().astype(np.float32)
+            for k in KINDS}
+
+
+def params_to_blocks(spec: WeightSpec, params: Params) -> Blocks:
+    """Expand parameters to per-iteration file rows (temporal modes re-print
+    the shared row)."""
+    blocks: Blocks = {}
+    for kind, v in params_to_numpy(params).items():
+        if v is None:
+            blocks[kind] = None
+        else:
+            rows = v[spec.iter_to_row(kind)]
+            blocks[kind] = [rows[t] for t in range(spec.n_iters)]
+    return blocks
+
+
+def partial_update_from_blocks(spec: WeightSpec, params: Params, blocks: Blocks,
+                               upto_iter: int, graph: TannerGraph) -> Params:
+    """Overwrite rows for iterations [0, upto_iter) from file blocks: the
+    frozen-prefix load of the block-wise schedule.  Returns new tensors."""
+    out: Params = {}
+    for kind in KINDS:
+        v = params.get(kind)
+        if v is None:
+            out[kind] = None
+            continue
+        file_rows = blocks.get(kind)
+        if file_rows is None:
+            raise ValueError(f"frozen-prefix blocks missing kind {kind!r}")
+        rows_np = v.detach().cpu().numpy().astype(np.float32).copy()
+        d = spec.dim(kind, graph)
+        for t in range(min(upto_iter, spec.n_rows(kind))):
+            rows_np[t] = np.broadcast_to(np.atleast_1d(file_rows[t]), (d,))
+        out[kind] = torch.as_tensor(rows_np, device=v.device)
+    return out
 
 
 def load_params(spec: WeightSpec, graph: TannerGraph, path_or_name: str,

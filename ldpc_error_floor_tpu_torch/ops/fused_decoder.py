@@ -31,7 +31,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,7 +39,7 @@ import torch
 from ldpc_error_floor_tpu_torch.codes.graph import TannerGraph
 from ldpc_error_floor_tpu_torch.models.nms import MS, QMS, SP, DecoderConfig
 from ldpc_error_floor_tpu_torch.models.weights import WeightSpec
-from ldpc_error_floor_tpu_torch.ops.ste import qms_grid
+from ldpc_error_floor_tpu_torch.ops.ste import clip_tf_grad, qms_grid, quantize_ste
 
 _PAD_MAG = 1.0e4  # magnitude sentinel excluded from extrinsic mins
 _EPS_MSG = 1.0e-4  # zero-message nudge
@@ -83,25 +83,32 @@ def _find_nvcc() -> str:
     return nvcc
 
 
-@functools.lru_cache(maxsize=None)
-def load_library() -> Tuple[ctypes.CDLL, str]:
-    """Build `csrc/fused_nms_stats.cu` (once per source hash) into
-    `_BUILD_DIR` and load it.  Returns the library and the
-    compiler's log (``-Xptxas -v``: registers, shared memory, spills)."""
-    src = _SRC.read_bytes()
+def build_library(src_path: Path) -> Tuple[ctypes.CDLL, str]:
+    """Build one kernel source (once per hash of it, the headers beside it
+    and the flags) into `_BUILD_DIR` and load it.  Returns the library and
+    the compiler's log (``-Xptxas -v``: registers, shared memory, spills;
+    empty when the build was cached)."""
+    src = src_path.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(src_path.parent.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = _BUILD_DIR / f"fused_nms_stats_{digest}.so"
+    lib_path = _BUILD_DIR / f"{src_path.stem}_{digest}.so"
     log = ""
     if not lib_path.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_find_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
+        cmd = [_find_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src_path)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
         os.replace(tmp, lib_path)
         log = res.stderr
-    lib = ctypes.CDLL(str(lib_path))
+    return ctypes.CDLL(str(lib_path)), log
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> Tuple[ctypes.CDLL, str]:
+    """Build and load `csrc/fused_nms_stats.cu` (`build_library`)."""
+    lib, log = build_library(_SRC)
     fn = lib.fused_nms_launch
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
                    + [ctypes.c_float] * 3 + [ctypes.c_int] * 8
@@ -121,23 +128,30 @@ def _smem_bytes(N: int, z: int, E: int, G: int, ucn: bool,
             + (N * z * G if ucn or deploy else 0))
 
 
-def launch_shape(graph: TannerGraph, ucn: bool,
-                 deploy: bool = False) -> Tuple[int, int]:
-    """(G codewords per block, threads per block): the most words whose
-    state fits one block's shared memory (at most 32, a power of two), and a
-    thread count that is a multiple of G and of the warp, preferring one
-    that splits the check phase's M*z*G items evenly."""
+def pick_launch_shape(graph: TannerGraph,
+                      smem: Callable[[int], int]) -> Tuple[int, int]:
+    """(G codewords per block, threads per block) of a kernel whose block of
+    G words needs ``smem(G)`` bytes of shared memory: the most words that
+    fit (at most 32, a power of two), and a thread count that is a multiple
+    of G and of the warp, preferring one that splits the check phase's
+    M*z*G items evenly."""
     code = graph.code
-    N, M, z, E = code.N, code.M, code.z, graph.E
-    G = next((g for g in (32, 16, 8, 4, 2, 1)
-              if _smem_bytes(N, z, E, g, ucn, deploy) <= _SMEM_LIMIT), None)
+    G = next((g for g in (32, 16, 8, 4, 2, 1) if smem(g) <= _SMEM_LIMIT), None)
     if G is None:
-        raise ValueError(f"{code.name}: one codeword's decoder state exceeds "
-                         "a block's shared memory")
-    items = M * z * G
+        raise ValueError(f"{code.name}: one codeword's state exceeds a "
+                         "block's shared memory")
+    items = code.M * code.z * G
     cands = [c for c in range(1024, 127, -32) if c % G == 0]
     threads = next((c for c in cands if items % c == 0), 512)
     return G, threads
+
+
+def launch_shape(graph: TannerGraph, ucn: bool,
+                 deploy: bool = False) -> Tuple[int, int]:
+    """(G, threads) of the decode kernel (`pick_launch_shape`)."""
+    code = graph.code
+    return pick_launch_shape(graph, lambda g: _smem_bytes(
+        code.N, code.z, graph.E, g, ucn, deploy))
 
 
 def _graph_table(graph: TannerGraph) -> np.ndarray:
@@ -153,6 +167,21 @@ def _graph_table(graph: TannerGraph) -> np.ndarray:
     return np.concatenate([vn_ptr, cn_ptr, graph.edge_of_cn_order,
                            graph.edge_vn, graph.edge_shift % code.z]
                           ).astype(np.int32)
+
+
+def check_weights(graph: TannerGraph, spec: WeightSpec, kind: str,
+                  w: Optional[torch.Tensor], device) -> int:
+    """A kernel's stacked weights of one kind: None for a kind without
+    weights, else a contiguous float32 [T, dim] tensor on `device`.
+    Returns dim (0 without weights); raises otherwise."""
+    if spec.mode(kind) == 0:
+        return 0
+    T, dim = spec.n_iters, spec.dim(kind, graph)
+    if (w is None or w.dtype != torch.float32 or w.device != device
+            or tuple(w.shape) != (T, dim) or not w.is_contiguous()):
+        raise ValueError(f"{kind} weights must be a contiguous float32 "
+                         f"[{T}, {dim}] tensor on {device}")
+    return dim
 
 
 # ----- plain PyTorch versions ------------------------------------------------------
@@ -177,14 +206,72 @@ def _slot_sum(x: torch.Tensor) -> torch.Tensor:
     return s
 
 
-def _ext_min(amag: torch.Tensor) -> torch.Tensor:
-    """Per-slot extrinsic min over axis 1 (min1/min2 form)."""
+def _min1_min2(amag: torch.Tensor):
+    """(m1, m2, is_first) over axis 1: the min, the min over the other
+    slots than the first argmin, and that slot's mask."""
     m1 = amag.amin(dim=1, keepdim=True)
     i1 = amag.argmin(dim=1, keepdim=True)
-    slot = torch.arange(amag.shape[1], device=amag.device).view(1, -1, 1, 1)
+    slot = torch.arange(amag.shape[1], device=amag.device).view(
+        (1, -1) + (1,) * (amag.dim() - 2))
     is_first = slot == i1
     m2 = torch.where(is_first, _PAD_MAG, amag).amin(dim=1, keepdim=True)
-    return torch.where(is_first, m2, m1)
+    return m1, m2, is_first
+
+
+def ext_min_bwd(amag: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The extrinsic min's backward (port of `_ext_min_vjp_bwd` of
+    `ldpc_error_floor_tpu/models/nms.py`): the reference's `tf.reduce_min`
+    gradient, which splits a gradient EQUALLY AMONG TIES.  Slots tied at
+    m1 receive 1/(c1-1) of each other tied slot's gradient and 1/c1 of
+    every larger slot's; a unique min receives every other slot's, and the
+    slots at m2 share the min slot's own."""
+    m1, m2, _ = _min1_min2(amag)
+    is_m1 = amag == m1
+    is_m2 = amag == m2
+    c1 = is_m1.sum(dim=1, keepdim=True).to(g.dtype)
+    c2 = torch.clamp(is_m2.sum(dim=1, keepdim=True), min=1).to(g.dtype)
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    g_above = torch.where(is_m1, zero, g).sum(dim=1, keepdim=True)
+    g_min = torch.where(is_m1, g, zero).sum(dim=1, keepdim=True)
+    multi = c1 > 1.0
+    tied_recv = torch.where(multi, g_above / c1 + (g_min - g)
+                            / torch.clamp(c1 - 1.0, min=1.0), g_above)
+    m2_recv = torch.where(multi, zero, g_min / c2)
+    return torch.where(is_m1, tied_recv, torch.where(is_m2, m2_recv, zero))
+
+
+class _ExtMin(torch.autograd.Function):
+    """Per-slot extrinsic min over axis 1 (min1/min2 form) with the
+    tie-splitting backward.  Ties are the common case under QMS."""
+
+    @staticmethod
+    def forward(ctx, amag):
+        m1, m2, is_first = _min1_min2(amag)
+        ctx.save_for_backward(amag)
+        return torch.where(is_first, m2, m1)
+
+    @staticmethod
+    def backward(ctx, g):
+        (amag,) = ctx.saved_tensors
+        return ext_min_bwd(amag, g)
+
+
+_ext_min = _ExtMin.apply
+
+
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| with JAX's gradient: +1 at exactly 0 (torch.abs gives 0)."""
+    return torch.where(x >= 0.0, x, -x)
+
+
+def _clip_jnp(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """`jnp.clip` with its gradient: 1/2 at an exactly hit bound (max/min
+    split ties, in both frameworks)."""
+    if not x.requires_grad:
+        return torch.clamp(x, lo, hi)
+    lo_t = torch.tensor(lo, dtype=x.dtype, device=x.device)
+    hi_t = torch.tensor(hi, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo_t), hi_t)
 
 
 def _extrinsic_prod(x: torch.Tensor) -> torch.Tensor:
@@ -221,8 +308,10 @@ def plain_iterations(graph: TannerGraph, tables: PlainTables,
     dev = llr.device
 
     def quantize(x):
-        step, clip = qms_grid(cfg.q_bit)
-        return torch.clamp(torch.round(x / step) * step, -clip, clip)
+        return quantize_ste(x, cfg.q_bit)
+
+    def clip(x):
+        return clip_tf_grad(x, -cfg.clip_llr, cfg.clip_llr)
 
     def cn_weight(w_t, mode):
         if mode in (1, 4):
@@ -257,7 +346,7 @@ def plain_iterations(graph: TannerGraph, tables: PlainTables,
         # (3) VN update: extrinsic sum of C->V plus channel
         s_prev = _slot_sum(y)
         v2c = (llr_w[:, None] + s_prev[:, None]) - y
-        v2c = quantize(v2c) if qms else torch.clamp(v2c, -cfg.clip_llr, cfg.clip_llr)
+        v2c = quantize(v2c) if qms else clip(v2c)
         if cfg.decoding_type in (MS, QMS):
             v2c = v2c + _EPS_MSG * (v2c == 0.0).float()
 
@@ -269,11 +358,11 @@ def plain_iterations(graph: TannerGraph, tables: PlainTables,
         if cfg.decoding_type == SP:
             tt = torch.tanh(-0.5 * xc)
             tt = tt + (tt == 0.0).float()
-            prod = torch.clamp(_extrinsic_prod(tt), -1.0 + 1e-7, 1.0 - 1e-7)
+            prod = _clip_jnp(_extrinsic_prod(tt), -1.0 + 1e-7, 1.0 - 1e-7)
             out = -2.0 * torch.atanh(prod)
-            mag = out.abs()
+            mag = _abs(out)
         else:
-            amag = xc.abs() + _PAD_MAG * (xc == 0.0).float()
+            amag = _abs(xc) + _PAD_MAG * (xc == 0.0).float()
             sgn = torch.where(xc > 0.0, -1.0, 1.0)
             mag = _ext_min(amag)
             mag = torch.where(mag.abs() <= _EPS_MSG, mag - _EPS_MSG, mag)
@@ -289,7 +378,7 @@ def plain_iterations(graph: TannerGraph, tables: PlainTables,
                 w = w * (1.0 - u) + w_u * u
             wmag = mag - w if cfg.neural_mode == "offset" else mag * w
         wmag = wmag * (wmag > 0.0).float()
-        wmag = quantize(wmag) if qms else torch.clamp(wmag, -cfg.clip_llr, cfg.clip_llr)
+        wmag = quantize(wmag) if qms else clip(wmag)
         c2v = wmag * torch.sign(out)
 
         # (7) route back to variable-node-major arrangement
@@ -297,7 +386,7 @@ def plain_iterations(graph: TannerGraph, tables: PlainTables,
         y = c2v_flat[tables.vn_in].reshape(N, Dv, z, B)
 
         # (8) APP and hard decisions
-        app = torch.clamp(llr_app + _slot_sum(y), -cfg.clip_llr, cfg.clip_llr)
+        app = clip(llr_app + _slot_sum(y))
         app_flat = app.reshape(N * z, B)
         prev_bits = (app_flat >= 0.0).float()
         yield app_flat
@@ -447,15 +536,8 @@ class FusedNMSKernel:
                                    self.cfg, self.spec, stacked, llr)
 
     def _weights(self, stacked: Stacked, kind: str, device) -> Tuple[Optional[torch.Tensor], int]:
-        if self.spec.mode(kind) == 0:
-            return None, 0
-        w = stacked[kind]
-        dim = self.spec.dim(kind, self.graph)
-        if (w is None or w.dtype != torch.float32 or w.device != device
-                or tuple(w.shape) != (self.T, dim) or not w.is_contiguous()):
-            raise ValueError(f"{kind} weights must be a contiguous float32 "
-                             f"[{self.T}, {dim}] tensor on {device}")
-        return w, dim
+        w = stacked[kind] if self.spec.mode(kind) else None
+        return w, check_weights(self.graph, self.spec, kind, w, device)
 
     def _launch(self, stacked: Stacked, llr: torch.Tensor, mode: int):
         cfg, spec = self.cfg, self.spec

@@ -1,0 +1,281 @@
+"""Fused differentiable decode for training: the CUDA pair B4/B5, their
+wrapper and their plain PyTorch version.
+
+`FusedTrainKernel.apps(stacked, llr)` returns the per-iteration APP stack
+``[T - t0, target*z, B]`` (iterations ``t >= DecoderConfig.app_t0``),
+differentiable with respect to the stacked weights ``[T, dim]`` (the LLRs
+get no gradient).  It replaces `ldpc_error_floor_tpu/ops/pallas_train.py::
+FusedTrainKernel` (`apps`, `_build_vjp`):
+
+* a tensor on the card goes to `csrc/fused_nms_train.cu` through
+  `_FusedTrainFn`, a `torch.autograd.Function` whose forward launches B4
+  (``fused_nms_train_fwd``: the decode, streaming the pre-clip V->C
+  messages, the per-check residuals and the pre-clip APPs) and whose
+  backward launches B5 (``fused_nms_train_bwd``: the reverse loop over the
+  residuals, weight gradients reduced over the batch in a fixed order).
+  A failed build or launch raises; SP raises `NotImplementedError`;
+* a tensor on the CPU goes to `decode_apps_plain`: autograd through
+  `ops/fused_decoder.py::plain_iterations`, whose gradient semantics are the
+  JAX scan backend's (tie-splitting extrinsic min, inclusive STE and clip
+  masks, ReLU subgradient 0 at 0, the additive zero nudge, UCN masks and
+  signs as constants).
+
+Under ``torch.no_grad`` (or with no weight requiring a gradient) the card
+path launches B4 alone and streams only the APPs.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ldpc_error_floor_tpu_torch.codes.graph import TannerGraph
+from ldpc_error_floor_tpu_torch.models.nms import QMS, SP, DecoderConfig
+from ldpc_error_floor_tpu_torch.models.weights import WeightSpec
+from ldpc_error_floor_tpu_torch.ops import fused_decoder as fd
+from ldpc_error_floor_tpu_torch.ops.ste import qms_grid
+
+_SRC = fd._SRC.parent / "fused_nms_train.cu"
+FWD, BWD = "fused_nms_train_fwd", "fused_nms_train_bwd"
+
+Stacked = Dict[str, Optional[torch.Tensor]]
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> Tuple[ctypes.CDLL, str]:
+    """Build `csrc/fused_nms_train.cu` (once per source hash) into the
+    decode kernel's build directory and load it.  Returns the library and
+    the compiler's log (``-Xptxas -v``)."""
+    lib, log = fd.build_library(_SRC)
+    cfg = [ctypes.c_int] * 13 + [ctypes.c_float] * 3 + [ctypes.c_int] * 6
+    lib.fused_nms_train_fwd_launch.argtypes = (
+        [ctypes.c_void_p] * 8 + cfg + [ctypes.c_void_p])
+    lib.fused_nms_train_bwd_launch.argtypes = (
+        [ctypes.c_void_p] * 15 + cfg + [ctypes.c_void_p])
+    lib.fused_nms_train_fwd_launch.restype = ctypes.c_int
+    lib.fused_nms_train_bwd_launch.restype = ctypes.c_int
+    return lib, log
+
+
+def _smem_bwd(N: int, M: int, z: int, E: int, G: int, cnw: bool, vnw: bool,
+              ucn: bool) -> int:
+    """B5's dynamic shared memory: slot cotangents float [E*z][G], per-slot
+    CN-weight gradients float [E*z][G] (CN weights), per-bit VN-weight
+    gradients float [N*z][G] (VN weights), per-edge and per-VN sums float
+    [2E + N], UCN masks uint8 [M*z][G] (UCN)."""
+    return ((E * z * G * (2 if cnw else 1) + (N * z * G if vnw else 0)
+             + 2 * E + N) * 4 + (M * z * G if ucn else 0))
+
+
+def train_launch_shape(graph: TannerGraph, spec: WeightSpec,
+                       backward: bool) -> Tuple[int, int, int]:
+    """(G words per block, threads per block, shared bytes) of B4 or B5
+    (`ops/fused_decoder.py::pick_launch_shape`).  B4 lays out its shared
+    memory as the decode kernel does (`ops/fused_decoder.py::_smem_bytes`)."""
+    code = graph.code
+    N, M, z, E = code.N, code.M, code.z, graph.E
+    ucn = spec.ucn_enabled
+
+    def smem(g):
+        if backward:
+            return _smem_bwd(N, M, z, E, g, spec.sharing[0] > 0,
+                             spec.sharing[2] > 0, ucn)
+        return fd._smem_bytes(N, z, E, g, ucn)  # B4 is the decode loop's kTrain
+
+    G, threads = fd.pick_launch_shape(graph, smem)
+    return G, threads, smem(G)
+
+
+def _train_table(graph: TannerGraph) -> np.ndarray:
+    """The decode kernel's graph table plus edge_cn[E] (the check of each
+    VN-order edge)."""
+    return np.concatenate([fd._graph_table(graph),
+                           graph.edge_cn.astype(np.int32)]).astype(np.int32)
+
+
+# ----- plain PyTorch version -----------------------------------------------------
+
+def decode_apps_plain(graph: TannerGraph, tables: fd.PlainTables,
+                      cfg: DecoderConfig, spec: WeightSpec, stacked: Stacked,
+                      llr: torch.Tensor, t0: int = 0) -> torch.Tensor:
+    """[T - t0, target*z, B]: the clipped APPs of iterations t >= t0 on the
+    target columns, differentiable through the plain scan body."""
+    z = graph.code.z
+    target = cfg.target_node if cfg.target_node > 0 else graph.code.N
+    apps = [app[: target * z] for t, app in enumerate(
+        fd.plain_iterations(graph, tables, cfg, spec, stacked, llr)) if t >= t0]
+    return torch.stack(apps)
+
+
+# ----- the autograd Function -----------------------------------------------------
+
+class _FusedTrainFn(torch.autograd.Function):
+    """B4 forward, B5 backward.  Inputs: the kernel wrapper, whether to
+    stream the residuals (a gradient is wanted), the stacked cn, ucn and vn
+    weights (None where a kind has none) and the LLRs."""
+
+    @staticmethod
+    def forward(ctx, kern, stream, w_cn, w_ucn, w_vn, llr):
+        weights = (w_cn, w_ucn, w_vn)
+        apps_pre, hist, cres = kern._forward(weights, llr, stream)
+        ctx.kern = kern
+        ctx.save_for_backward(llr, hist, cres, apps_pre, *[
+            w if w is not None else torch.empty(0) for w in weights])
+        ctx.has = tuple(w is not None for w in weights)
+        clip = kern.cfg.clip_llr
+        return torch.clamp(apps_pre, -clip, clip)
+
+    @staticmethod
+    def backward(ctx, g_apps):
+        llr, hist, cres, apps_pre, *ws = ctx.saved_tensors
+        weights = tuple(w if h else None for w, h in zip(ws, ctx.has))
+        grads = ctx.kern._backward(weights, llr, hist, cres, apps_pre,
+                                   g_apps.contiguous())
+        return (None, None, *grads, None)
+
+
+# ----- the wrapper ---------------------------------------------------------------------
+
+class FusedTrainKernel:
+    """The fused differentiable decode for one (graph, config, spec).
+
+    `launches` counts the CUDA launches of this wrapper under
+    ``fused_nms_train_fwd`` (B4) and ``fused_nms_train_bwd`` (B5)."""
+
+    def __init__(self, graph: TannerGraph, cfg: DecoderConfig, spec: WeightSpec):
+        self.graph = graph
+        self.cfg = cfg
+        self.spec = spec
+        code = graph.code
+        self.N, self.M, self.z, self.E = code.N, code.M, code.z, graph.E
+        self.T = spec.n_iters
+        self.target = cfg.target_node if cfg.target_node > 0 else self.N
+        if not 0 <= cfg.app_t0 <= self.T - 1:
+            raise ValueError(f"app_t0 {cfg.app_t0} outside [0, {self.T - 1}]")
+        self.t0 = cfg.app_t0
+        self.launches: collections.Counter = collections.Counter()
+        self._plain_tables: Dict[torch.device, fd.PlainTables] = {}
+        self._graph_tabs: Dict[torch.device, torch.Tensor] = {}
+
+    def apps(self, stacked: Stacked, llr: torch.Tensor) -> torch.Tensor:
+        """llr: [N*z, B] float32.  The APP stack of iterations t >= t0 on the
+        target columns: the CUDA pair for a tensor on the card, the plain
+        version for a tensor on the CPU."""
+        if llr.device.type == "cpu":
+            return self.apps_plain(stacked, llr)
+        if llr.device.type != "cuda":
+            raise ValueError(f"unsupported device {llr.device}")
+        if self.cfg.decoding_type == SP:
+            raise NotImplementedError(
+                "SP training on the card (B4-SP/B5-SP) is not ported yet; "
+                "device='cpu' runs the plain version")
+        ws = (stacked["cn"], stacked["ucn"], stacked["vn"])
+        stream = torch.is_grad_enabled() and any(
+            w is not None and w.requires_grad for w in ws)
+        return _FusedTrainFn.apply(self, stream, *ws, llr)
+
+    def apps_plain(self, stacked: Stacked, llr: torch.Tensor) -> torch.Tensor:
+        """The plain PyTorch version on any device (the kernels' reference)."""
+        tabs = self._plain_tables.get(llr.device)
+        if tabs is None:
+            tabs = self._plain_tables[llr.device] = fd.PlainTables(
+                self.graph, llr.device)
+        return decode_apps_plain(self.graph, tabs, self.cfg, self.spec,
+                                 stacked, llr, t0=self.t0)
+
+    # ----- launches -------------------------------------------------------------
+
+    def _weights(self, w: Optional[torch.Tensor], kind: str, device) -> int:
+        return fd.check_weights(self.graph, self.spec, kind, w, device)
+
+    def _cfg_args(self, B: int, G: int, threads: int, smem: int,
+                  dim_cn: int, dim_vn: int):
+        cfg, spec = self.cfg, self.spec
+        qms = cfg.decoding_type == QMS
+        qstep, qclip = qms_grid(cfg.q_bit) if qms else (1.0, cfg.clip_llr)
+        return (self.N, self.M, self.z, self.E, self.T, B, G, threads, smem,
+                self.target, self.t0, self.graph.Dc, cfg.decoding_type,
+                qstep, qclip, cfg.clip_llr, spec.sharing[0],
+                int(spec.ucn_enabled), spec.sharing[2],
+                int(cfg.neural_mode == "offset"), dim_cn, dim_vn)
+
+    def _table(self, dev) -> torch.Tensor:
+        tab = self._graph_tabs.get(dev)
+        if tab is None:
+            tab = self._graph_tabs[dev] = torch.as_tensor(
+                _train_table(self.graph), device=dev)
+        return tab
+
+    def _forward(self, weights, llr: torch.Tensor, stream: bool):
+        """Launch B4: (apps_pre [T-t0, target*z, B], hist [T, E*z, B] or
+        None, cres [T, R*M*z, B] or None)."""
+        Nz = self.N * self.z
+        if (llr.dtype != torch.float32 or llr.dim() != 2 or llr.shape[0] != Nz
+                or not llr.is_contiguous()):
+            raise ValueError(f"llr must be a contiguous float32 [{Nz}, B] tensor")
+        dev, B = llr.device, llr.shape[1]
+        w_cn, w_ucn, w_vn = weights
+        dim_cn = self._weights(w_cn, "cn", dev)
+        dim_vn = self._weights(w_vn, "vn", dev)
+        if self.spec.ucn_enabled:
+            self._weights(w_ucn, "ucn", dev)
+        R = 4 if self.spec.ucn_enabled else 3
+        empty = functools.partial(torch.empty, dtype=torch.float32, device=dev)
+        apps = empty((self.T - self.t0, self.target * self.z, B))
+        hist = empty((self.T, self.E * self.z, B)) if stream else None
+        cres = empty((self.T, R * self.M * self.z, B)) if stream else None
+        if B == 0:
+            return apps, hist, cres
+        lib, _ = load_library()
+        G, threads, smem = train_launch_shape(self.graph, self.spec, False)
+        ptr = lambda x: None if x is None else x.data_ptr()
+        with torch.cuda.device(dev):
+            rc = lib.fused_nms_train_fwd_launch(
+                ptr(llr), ptr(w_cn), ptr(w_ucn), ptr(w_vn), ptr(self._table(dev)),
+                ptr(apps), ptr(hist), ptr(cres),
+                *self._cfg_args(B, G, threads, smem, dim_cn, dim_vn),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"fused_nms_train_fwd_launch failed: CUDA error {rc}")
+        self.launches[FWD] += 1
+        return apps, hist, cres
+
+    def _backward(self, weights, llr, hist, cres, apps_pre, g_apps):
+        """Launch B5: the [T, dim] gradients of cn, ucn and vn (None for a
+        kind without weights)."""
+        if hist is None:
+            raise RuntimeError("the forward streamed no residuals (no weight "
+                               "required a gradient)")
+        dev, B = llr.device, llr.shape[1]
+        w_cn, w_ucn, w_vn = weights
+        dim_cn = self._weights(w_cn, "cn", dev)
+        dim_vn = self._weights(w_vn, "vn", dev)
+        ucn = self.spec.ucn_enabled
+        empty = functools.partial(torch.empty, dtype=torch.float32, device=dev)
+        g_cn = empty((self.T, dim_cn)) if dim_cn else None
+        g_ucn = empty((self.T, dim_cn)) if ucn else None
+        g_vn = empty((self.T, dim_vn)) if dim_vn else None
+        if B == 0:
+            return tuple(None if g is None else g.zero_() for g in (g_cn, g_ucn, g_vn))
+        lib, _ = load_library()
+        G, threads, smem = train_launch_shape(self.graph, self.spec, True)
+        blocks = -(-B // G)
+        part = lambda g: None if g is None else empty((blocks,) + tuple(g.shape))
+        parts = (part(g_cn), part(g_ucn), part(g_vn))
+        ptr = lambda x: None if x is None else x.data_ptr()
+        with torch.cuda.device(dev):
+            rc = lib.fused_nms_train_bwd_launch(
+                ptr(llr), ptr(w_cn), ptr(w_ucn), ptr(w_vn), ptr(self._table(dev)),
+                ptr(hist), ptr(cres), ptr(apps_pre), ptr(g_apps),
+                *[ptr(p) for p in parts], ptr(g_cn), ptr(g_ucn), ptr(g_vn),
+                *self._cfg_args(B, G, threads, smem, dim_cn, dim_vn),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"fused_nms_train_bwd_launch failed: CUDA error {rc}")
+        self.launches[BWD] += 1
+        return g_cn, g_ucn, g_vn

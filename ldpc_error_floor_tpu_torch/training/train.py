@@ -1,0 +1,148 @@
+"""Training step: Adam over the current training block's weights (port of
+`ldpc_error_floor_tpu/training/train.py`).
+
+* The parameter dict always spans the full decode depth; block selection is
+  a boolean row mask applied to the gradients.  With a fresh optimizer per
+  block, masked rows keep zero moments and never move.
+* Adam is `torch.optim.Adam` with optax's defaults (betas 0.9/0.999, eps
+  1e-8); the learning rate lives in its param groups, so epoch-wise decay
+  needs no rebuild.
+* The [min_w, max_w] box constraint is applied to the trainable rows after
+  every update; frozen-prefix rows loaded from a file pass through.
+
+Parameters are a dict of leaf tensors that require gradients (`make_optimizer`
+marks them); a step updates them in place.  On the card the decode goes
+through the CUDA pair B4/B5 (`ops/fused_train.py`); on the CPU through the
+plain version.  Nothing here reads a value back to the host: an epoch's
+losses stay on the device until the caller reads their mean.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+
+from ldpc_error_floor_tpu_torch.models.nms import NMSDecoder
+from ldpc_error_floor_tpu_torch.models.weights import (Params, WeightSpec,
+                                                       clip_weights,
+                                                       trainable_mask)
+from ldpc_error_floor_tpu_torch.training.losses import multi_iteration_loss
+
+
+def make_optimizer(params: Params, lr: float = 1e-3) -> torch.optim.Adam:
+    """Adam over the parameter tensors, which become leaves that require
+    gradients."""
+    tensors = [p.requires_grad_(True) for p in params.values() if p is not None]
+    return torch.optim.Adam(tensors, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+
+
+class TrainStep:
+    """One Adam step on the block [train_start, train_end):
+    ``step(params, optimizer, llr, labels, etha) -> loss`` (a 0-d tensor on
+    the device, detached).
+
+    ``static_etha``: 0.0 when the configuration's eta is identically zero;
+    the loss then takes its last-iteration path, and a decoder whose
+    ``app_t0`` windows the APP stack is legal (its loss window shifts with
+    it)."""
+
+    def __init__(self, decoder: NMSDecoder, spec: WeightSpec, loss_type: int,
+                 train_start: int, train_end: int, fixed_init: int = 0,
+                 static_etha: Optional[float] = None):
+        self.decoder = decoder
+        self.spec = spec
+        self.loss_type = loss_type
+        self.static_etha = static_etha
+        self.masks = trainable_mask(spec, train_start, train_end, fixed_init)
+        t_lo = max(train_start - fixed_init, spec.fixed_iter)
+        t_off = decoder.cfg.app_t0
+        if t_off and static_etha != 0.0:
+            raise ValueError("an APP window (app_t0 > 0) requires the static "
+                             "eta = 0 loss")
+        self.t_lo = max(0, t_lo - t_off)
+        self._mask_dev: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+
+    def _device_masks(self, dev: torch.device) -> Dict[str, torch.Tensor]:
+        masks = self._mask_dev.get(dev)
+        if masks is None:
+            masks = self._mask_dev[dev] = {
+                k: torch.as_tensor(v[:, None], dtype=torch.float32, device=dev)
+                for k, v in self.masks.items() if v is not None}
+        return masks
+
+    def __call__(self, params: Params, optimizer: torch.optim.Optimizer,
+                 llr: torch.Tensor, labels: torch.Tensor, etha) -> torch.Tensor:
+        live = {k: p for k, p in params.items() if p is not None}
+        for p in live.values():
+            p.grad = None
+        res = self.decoder.apply(params, llr, collect="apps")
+        e = self.static_etha if self.static_etha is not None else etha
+        loss = multi_iteration_loss(res.apps, labels, self.loss_type, e,
+                                    t_start=self.t_lo)
+        loss.backward()
+        masks = self._device_masks(llr.device)
+        with torch.no_grad():
+            for k, p in live.items():
+                if p.grad is None:  # Adam must still see the (zero) gradient
+                    p.grad = torch.zeros_like(p)
+                p.grad.mul_(masks[k])
+        optimizer.step()
+        with torch.no_grad():
+            clipped = clip_weights(self.spec, {k: p.detach() for k, p in live.items()},
+                                   masks=masks)
+            for k, p in live.items():
+                p.copy_(clipped[k])
+        return loss.detach()
+
+
+def make_train_step(decoder: NMSDecoder, spec: WeightSpec, loss_type: int,
+                    train_start: int, train_end: int, fixed_init: int = 0,
+                    static_etha: Optional[float] = None) -> TrainStep:
+    """The step for the training block [train_start, train_end)."""
+    return TrainStep(decoder, spec, loss_type, train_start, train_end,
+                     fixed_init, static_etha)
+
+
+def make_epoch_step(decoder: NMSDecoder, spec: WeightSpec, loss_type: int,
+                    train_start: int, train_end: int, fixed_init: int,
+                    n_steps: int, labels: torch.Tensor, channel=None,
+                    sigmas: Optional[torch.Tensor] = None,
+                    data_mode: bool = False, encoder=None,
+                    static_etha: Optional[float] = None) -> Callable:
+    """`n_steps` train steps, sampling on the device.  Returns
+
+      data_mode=False: epoch(params, optimizer, generator, etha) -> mean loss
+        (mixed-SNR AWGN lanes `sigmas` [B] from the channel; with `encoder`,
+        fresh random codewords and BCE against their bits);
+      data_mode=True: epoch(params, optimizer, data, etha) -> mean loss,
+        where data is [n_steps*B, N*z] rows on the device.
+
+    The mean loss is a 0-d tensor on the device."""
+    step = make_train_step(decoder, spec, loss_type, train_start, train_end,
+                           fixed_init, static_etha)
+    batch = labels.shape[-1]
+    nbits = labels.shape[0]
+
+    def batch_of(source, i):
+        if data_mode:
+            return source[i * batch:(i + 1) * batch].T.contiguous(), labels
+        if encoder is None:
+            return channel.sample(source, sigmas), labels
+        bits = encoder.random_codewords(source, batch)
+        return channel.sample_codewords(source, sigmas, bits), bits[:nbits]
+
+    def epoch(params: Params, optimizer: torch.optim.Optimizer, source,
+              etha) -> torch.Tensor:
+        losses = []
+        for i in range(n_steps):
+            llr, lab = batch_of(source, i)
+            losses.append(step(params, optimizer, llr, lab, etha))
+        return torch.stack(losses).mean()
+
+    return epoch

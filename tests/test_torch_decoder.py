@@ -136,8 +136,13 @@ def test_app_last_collect_and_unported_modes():
     llr = -torch.ones((code.n_full, 4))
     res = dec.apply(params, llr, collect="app_last")
     assert res.err_flags is None and res.app_last.shape == (code.n_full, 4)
-    with pytest.raises(NotImplementedError):
-        dec.apply(params, llr, collect="apps")
+    # every mode of the JAX decoder is ported now: 'apps' returns the APP
+    # stack (training), an unknown mode raises
+    res = dec.apply(params, llr, collect="apps")
+    assert res.apps.shape == (2, code.n_full, 4)
+    assert torch.equal(res.app_last, res.apps[-1])
+    with pytest.raises(ValueError, match="collect"):
+        dec.apply(params, llr, collect="syndrome")
 
 
 def test_cuda_device_raises_without_cuda():

@@ -1,4 +1,4 @@
-"""The CUDA decode kernel against its plain PyTorch versions on the card.
+"""The CUDA kernels against their plain PyTorch versions on the card.
 
 These tests need a CUDA card and skip without one.  They import nothing of
 JAX, so they run on a machine without it; `tests/conftest.py` imports JAX,
@@ -13,7 +13,12 @@ words (G per block), and its genie-failure mask to the fixed-T kernel's
 exactly.  The syndrome stop's per-word outputs are integer-equal to its
 plain version.  SP (tanhf/atanhf are not PyTorch's, and the plain version's
 cumprod may associate differently on the card): APPs within atol 1e-3 /
-rtol 1e-4, counters equal on at least 99.9% of words.
+rtol 1e-4, counters equal on at least 99.9% of words.  The training pair:
+B4's APP stack (full and windowed to the last iteration) QMS bit-equal, MS
+and MS_RAW within atol 1e-5, against the plain forward, and the streaming
+launch's bit-equal to the no_grad launch's; B5's weight
+gradients against autograd through the plain version within rtol 1e-4 and
+atol 1e-5 x max|g|, and bit-identical over two launches.
 """
 
 import pytest
@@ -23,6 +28,8 @@ from ldpc_error_floor_tpu_torch.channel import AWGNChannel
 from ldpc_error_floor_tpu_torch.codes import TannerGraph, get_code
 from ldpc_error_floor_tpu_torch.models import DecoderConfig, WeightSpec
 from ldpc_error_floor_tpu_torch.ops.fused_decoder import FusedNMSKernel
+from ldpc_error_floor_tpu_torch.ops.fused_train import FusedTrainKernel
+from ldpc_error_floor_tpu_torch.training.losses import multi_iteration_loss
 
 torch.set_num_threads(1)
 
@@ -177,4 +184,102 @@ def test_kernel_rejects_sp_and_bad_inputs_on_card():
         kern.decode_deploy(w, llr.double())
     with pytest.raises(ValueError, match="cn weights"):
         kern.decode_stats({**w, "cn": torch.ones((3, 1), device=dev)}, llr)
+    assert not kern.launches
+
+
+# (code, sharing, decoding_type, T, loss_type, etha, neural_mode, target_node):
+# the CPU gradient-parity cases (tests/test_torch_train_grad.py) at T <= 6
+TRAIN_CASES = [
+    (WMAN, (3, 0, 3), 2, 4, 2, 0.5, "scale", 0),
+    (WMAN, (3, 3, 3), 2, 6, 2, 0.0, "scale", 0),
+    (WMAN, (5, 0, 5), 2, 4, 1, 0.8, "scale", 0),
+    (WMAN, (1, 1, 0), 2, 3, 0, 1.0, "scale", 0),
+    (WMAN, (2, 2, 2), 1, 4, 2, 0.5, "scale", 0),
+    (WMAN, (3, 0, 3), 2, 4, 2, 0.5, "offset", 0),
+    (G5, (2, 2, 2), 2, 3, 2, 0.5, "scale", 10),
+    (MACKAY, (3, 0, 3), 3, 4, 2, 0.5, "scale", 0),
+]
+
+
+def _train_setup(dev, case, B=1000, app_t0=0, seed=5):
+    code_name, sharing, dec, T, _, _, mode, target = case
+    code = get_code(code_name)
+    graph = TannerGraph(code)
+    spec = WeightSpec(sharing=sharing, n_iters=T)
+    cfg = DecoderConfig(decoding_type=dec, neural_mode=mode, target_node=target,
+                        app_t0=app_t0)
+    kern = FusedTrainKernel(graph, cfg, spec)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lo = 0.0 if mode == "offset" else 0.7
+    stacked = {k: None if spec.dim(k, graph) == 0 else
+               (lo + 0.6 * torch.rand((T, spec.dim(k, graph)), generator=gen,
+                                      device=dev)).contiguous()
+               for k in ("cn", "ucn", "vn")}
+    sig = torch.full((B,), float(code.snr_sigmas([2.5])[0]), device=dev)
+    llr = AWGNChannel(code, decoding_type=dec, device=dev).sample(gen, sig)
+    return kern, stacked, llr
+
+
+def _assert_train_apps(apps, ref, dec):
+    assert apps.shape == ref.shape
+    if dec == 2:
+        assert bool((apps == ref).all())
+    else:
+        torch.testing.assert_close(apps, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TRAIN_CASES, ids=lambda c: f"{c[0][:6]}_{c[1]}_{c[2]}_{c[6]}")
+def test_train_forward_matches_plain_on_card(case):
+    """B4 under no_grad (the APPs alone, the evaluator's launch) against the
+    plain forward, and the launch that also streams the residuals
+    (training's) against it bit for bit."""
+    dev = _cuda()
+    T = case[3]
+    for t0 in (0, T - 1):
+        kern, stacked, llr = _train_setup(dev, case, app_t0=t0)
+        with torch.no_grad():
+            apps = kern.apps(stacked, llr)
+        ref = kern.apps_plain(stacked, llr)
+        ws = {k: None if v is None else v.clone().requires_grad_(True)
+              for k, v in stacked.items()}
+        streamed = kern.apps(ws, llr)
+        torch.cuda.synchronize()
+        assert kern.launches == {"fused_nms_train_fwd": 2}
+        assert apps.shape[0] == T - t0
+        _assert_train_apps(apps, ref, case[2])
+        assert streamed.requires_grad and torch.equal(streamed.detach(), apps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TRAIN_CASES, ids=lambda c: f"{c[0][:6]}_{c[1]}_{c[2]}_{c[6]}")
+def test_train_backward_matches_autograd_on_card(case):
+    dev = _cuda()
+    loss_type, etha = case[4], case[5]
+    t0 = case[3] - 1 if etha == 0.0 else 0
+    kern, stacked, llr = _train_setup(dev, case, app_t0=t0)
+    labels = torch.zeros((kern.target * kern.z, llr.shape[1]), device=dev)
+    grads = []
+    for run in ("kernel", "kernel", "plain"):
+        ws = {k: None if v is None else v.clone().requires_grad_(True)
+              for k, v in stacked.items()}
+        apps = kern.apps(ws, llr) if run == "kernel" else kern.apps_plain(ws, llr)
+        loss = multi_iteration_loss(apps, labels, loss_type, etha)
+        loss.backward()
+        grads.append({k: v.grad for k, v in ws.items() if v is not None})
+    torch.cuda.synchronize()
+    assert kern.launches == {"fused_nms_train_fwd": 2, "fused_nms_train_bwd": 2}
+    for k, g_ref in grads[2].items():
+        assert torch.equal(grads[0][k], grads[1][k])  # deterministic
+        scale = max(float(g_ref.abs().max()), 1e-8)
+        torch.testing.assert_close(grads[0][k], g_ref, rtol=1e-4, atol=1e-5 * scale)
+        assert float(grads[0][k].abs().max()) > 0.0
+
+
+@pytest.mark.cuda
+def test_train_kernel_rejects_sp_on_card():
+    dev = _cuda()
+    kern, stacked, llr = _train_setup(dev, (WMAN, (3, 0, 3), 0, 3, 2, 0.5, "scale", 0))
+    with pytest.raises(NotImplementedError, match="SP"):
+        kern.apps(stacked, llr)
     assert not kern.launches
