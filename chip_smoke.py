@@ -36,12 +36,19 @@ exits non-zero:
      1e-5 x max|g| (the worst error is printed), two launches bit-identical;
      three Adam steps through the kernels against three through the plain
      version, weights within atol 1e-5;
-   - at the training batch, 32768, on the base and the post block (in phase
-     7, from the timed launches): B4's streaming APPs bit-equal to the plain
-     version's and to B4's no_grad launch (APPs alone, as the evaluator
-     runs it), the soft-FER loss within rtol 1e-6, and B5's gradients within
-     rtol 1e-4 and atol 1e-5 x max|g| of the plain gradients, summed over
-     chunks of 4096 words, each scaled by 4096 / 32768;
+   - neural BP, the SP pair B4-SP/B5-SP, the same way at B=4096 (T=20):
+     wman (3,0,3) with the window t0=19, (2,2,2) with UCN, per-edge (1,1,0),
+     MacKay (3,3,3); APPs within atol 1e-3 / rtol 1e-4 (as B1-SP) and the
+     last iteration's bit-equal to B1-SP's on the same LLRs; gradients and
+     determinism as B5; three Adam steps on the SP base block;
+   - at the training batch, 32768, on the base and the post block and the
+     SP base block (in phase 7, from the timed launches): B4's streaming
+     APPs bit-equal to the plain version's (SP: within atol 1e-3 / rtol
+     1e-4) and to B4's no_grad launch (APPs alone, as the evaluator runs
+     it), no word whose soft-FER term (the sign of its worst bit) differs,
+     the soft-FER loss within rtol 1e-6, and B5's gradients within rtol 1e-4 and atol
+     1e-5 x max|g| of the plain gradients, summed over chunks of 4096
+     words, each scaled by 4096 / 32768;
 4. end to end, each path driven through `FERSimulator.run_point` with the
    launch counts set to 0 just before and read just after (wman_N0576_R34_z24,
    QMS q_bit 5, sharing (3,3,3), 4.0 dB, seed 0, 2^20 frames in batches of
@@ -72,13 +79,19 @@ exits non-zero:
      [20, 30), sampling_type 1) at batch 512, 3 epochs; rows 0-19 of every
      kind bit-equal to base20 afterwards, rows 20-29 moved, the training
      loss falls;
+   - neural BP base block: `base_config_wman` with decoding type 0 (SP),
+     otherwise as the base block; the weight and perf-log files appear, the
+     rows moved, and the valid FER_last sum at epoch 2 is at most 5% above
+     epoch 0's (plain BP: neural BP gains little over BP on this code);
 7. timing with CUDA events at batch 65536 unless noted: each kernel and its
    plain version, the early stop at 4.0 and 5.0 dB against the fixed-T
    kernel on the same LLRs, SP at 16384 too, run_point frames/s; B4 and B5
    at batch 32768 on the base and post blocks against the plain version on
    the same inputs (in chunks of 4096), one whole train step (sampling,
    B4, loss, B5, Adam) and trained codewords/s, the plain step at 4096;
-8. the `kernels` line, then the card's nvidia-smi line, then the result.
+   the same for B4-SP and B5-SP on the SP base block;
+8. the `kernels` line (eight entries), then the card's nvidia-smi line,
+   then the result.
 
 It imports neither JAX nor the JAX package.
 """
@@ -177,17 +190,20 @@ def bound(graph, spec, B: int, word_iters=None, out_bytes_per_word=None,
     return out
 
 
-def train_bound(graph, spec, B: int, t0: int, backward: bool) -> dict:
-    """Least time for B4 (forward) or B5 (backward) on B words: device bytes
-    over 3.35 TB/s against simple f32 operations over 33.5 T/s.  Bytes,
-    each once: B4 reads the LLRs and weights and writes the pre-clip V->C
-    stream [T, E*z], the check residuals [T, R*M*z] (R = 3, 4 with UCN) and
-    the APP window [T-t0, N*z]; B5 reads the LLRs, weights, both streams,
-    the pre-clip APPs and their cotangent, and writes the gradients.
+def train_bound(kern, B: int, backward: bool) -> dict:
+    """Least time for B4 (forward) or B5 (backward) of the FusedTrainKernel
+    `kern` on B words: device bytes over 3.35 TB/s against simple f32
+    operations over 33.5 T/s (SP: or its tanh and atanh over the
+    special-function units' rate, whichever is longer).  A multiply that
+    feeds an add counts once (one FMA issues at that rate).  Bytes, each
+    once: B4 reads the LLRs and weights and writes the pre-clip V->C stream
+    [T, E*z], the check residuals [T, R*M*z] (R = `kern.cres_rows`) and the
+    APP window [T-t0, N*z]; B5 reads the LLRs, weights, both streams, the
+    pre-clip APPs and their cotangent, and writes the gradients.
     Operations per iteration and word: B4 as B1 (16 per edge slot, 17 with
     UCN; 16 per lifted check; 10 per bit).  B5, what the function needs,
     each message derived once from its pre-clip value:
-      per edge slot, 37 (38 with UCN):
+      per edge slot, 35 (36 with UCN):
         the message: quantize (divide, round, multiply, min, max) 5, zero
           nudge (compare, select) 2, |x| with the sentinel (abs, compare,
           select) 3;
@@ -196,47 +212,87 @@ def train_bound(graph, spec, B: int, t0: int, backward: bool) -> dict:
         the output's sign (times the check's negated product) 1;
         the cotangent through the weighting chain: times that sign, the
           ReLU/clip mask (select), times the weight 3;
-        the weight gradient: times the magnitude, into the edge's sum 2
+        the weight gradient: times the magnitude into the edge's sum (FMA) 1
           (with UCN one more select, CN or UCN sum);
         the tie bookkeeping: into the min1 or the other sum (select, add),
           the min1 count (add), the min2 count (compare, add) 5;
         the tie-splitting share: own cotangent out of the min1 sum, times
-          the per-check reciprocal, plus the other sum's share, two
-          selects among the cases 5;
+          the per-check reciprocal plus the other sum's share (FMA), two
+          selects among the cases 4;
         |x|'s sign (select) and the clip mask of the pre-clip value (abs,
           compare, select) 4;
         the V->C transpose: into the bit's sum, own share out, plus the
           APP cotangent 3;
-      per lifted check, 28 (32 with UCN): for each of the two extrinsic
+      per lifted check, 28 (30 with UCN): for each of the two extrinsic
         magnitudes the nudge (abs, compare, subtract, select) 4, the weight
         1, the ReLU/clip mask (two compares, and) 3, its sign (compare,
         select) 2; the sentinel pads in both tie counts (compare, add each)
         4, the reciprocals (max, two divides) 3, the several-minima flag 1;
-        with UCN the weight blend (subtract, two multiplies, add) 4;
-      per bit, 9: llr times the VN weight, the quantizer's clip mask
-        (abs, compare, select), times llr, into the sum 6; the APP's clip
-        mask (abs, compare, select) 3."""
+        with UCN the weight blend (subtract, FMA) 2;
+      per bit, 8: llr times the VN weight, the quantizer's clip mask (abs,
+        compare, select), times llr into the sum (FMA) 5; the APP's clip
+        mask (abs, compare, select) 3.
+    B4-SP as B1-SP (16 per edge slot, 17 with UCN; 16 per lifted check; 10
+    per bit) plus a tanh and an atanh per edge slot.  B5-SP, each message
+    derived once, its tanh and the product's atanh once more:
+      per edge slot, 45 (46 with UCN) and the two transcendentals:
+        the message's clip (min, max) 2 and the clip mask of the pre-clip
+          value (abs, compare, select) 3;
+        the tanh argument (multiply) 1 and the zero fix (compare, select) 2;
+        the prefix and suffix products and their product p 3;
+        the product's clip (min, max) 2, times -2 1, |out| 1;
+        the weighting chain: times the weight 1, the ReLU/clip mask (two
+          compares, and) 3, the weight gradient (the cotangent times out,
+          sign(out)*|out|, into the edge's sum: FMA) 1, the cotangent times
+          the weight 1, and |out|'s gradient: sign(out) * sign(out) is
+          [out != 0] (compare, select) 2 (with UCN one more select, CN or
+          UCN sum);
+        atanh's derivative: 1 - pc^2 (FMA), -2 over, times 3;
+        the product clip's gradient (1 inside, 1/2 at a bound: |p|, two
+          compares, two selects) and its product with the cotangent 6;
+        gF and gB (two multiplies) 2;
+        the suffix and the prefix recurrences' reverses, each a running sum
+          (FMA) 2, and the slot's tanh cotangent, one share (multiply) plus
+          the other (FMA) 2;
+        tanh's derivative: 1 - t^2 (FMA), times -1/2, times 3; the clip
+          mask's select 1;
+        the V->C transpose: into the bit's sum, own share out, plus the APP
+          cotangent 3;
+      per lifted check, 2 with UCN (the weight blend), else 0;
+      per bit, 4: times llr into the sum (FMA) 1, the APP's clip mask 3
+        (SP has no quantizer)."""
+    graph, spec = kern.graph, kern.spec
     code = graph.code
     Ez, Mz, Nz = graph.E * code.z, code.M * code.z, code.N * code.z
-    T = spec.n_iters
+    T, t0, R = spec.n_iters, kern.t0, kern.cres_rows
     ucn = spec.ucn_enabled
-    R = 4 if ucn else 3
+    sp = kern.cfg.decoding_type == 0
     dims = sum(spec.dim(k, graph) for k in ("cn", "ucn", "vn"))
     stream = 4 * B * (T * Ez + T * R * Mz)
     apps = 4 * B * (T - t0) * Nz
     nbytes = 4 * Nz * B + 4 * T * dims + stream + apps
-    if backward:
+    if backward and sp:
         nbytes += apps + 4 * T * dims
-        per_slot = (5 + 2 + 3) + 2 + 2 + 1 + 3 + 2 + 5 + 5 + 4 + 3 + (1 if ucn else 0)
-        per_check = 2 * (4 + 1 + 3 + 2) + 4 + 3 + 1 + (4 if ucn else 0)
-        ops = B * T * (per_slot * Ez + per_check * Mz + 9 * Nz)
+        per_slot = (2 + 3) + (1 + 2) + 3 + (2 + 1 + 1) + (1 + 3 + 1 + 1 + 2) + 3 + 6 + 2 \
+            + (2 + 2) + (3 + 1) + 3 + (1 if ucn else 0)
+        ops = B * T * (per_slot * Ez + (2 if ucn else 0) * Mz + 4 * Nz)
+    elif backward:
+        nbytes += apps + 4 * T * dims
+        per_slot = (5 + 2 + 3) + 2 + 2 + 1 + 3 + 1 + 5 + 4 + 4 + 3 + (1 if ucn else 0)
+        per_check = 2 * (4 + 1 + 3 + 2) + 4 + 3 + 1 + (2 if ucn else 0)
+        ops = B * T * (per_slot * Ez + per_check * Mz + 8 * Nz)
     else:
         ops = B * T * ((17 if ucn else 16) * Ez + 16 * Mz + 10 * Nz)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / F32_SIMPLE_OPS_PER_S * 1e3
-    return {"bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    out = {"bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+    if sp:  # a tanh and an atanh per edge slot, forward and again backward
+        out["transcendentals"] = B * T * 2 * Ez
+        out["transcendental_ms"] = out["transcendentals"] / SFU_OPS_PER_S * 1e3
+        ops_ms = max(ops_ms, out["transcendental_ms"])
+    out["bound_ms"] = max(bytes_ms, ops_ms)
+    out["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+    return out
 
 
 def early_stop_word_iters(err, G: int) -> int:
@@ -324,7 +380,8 @@ def main() -> int:
             graphs[cname] = TannerGraph(get_code(cname))
         return graphs[cname]
 
-    def case_weights(spec, graph, kind_of):
+    def case_weights(spec, graph, kind_of, g=None):
+        g = gen if g is None else g
         if kind_of in ("base20", "boosted30"):
             return stack_weights(spec, base20 if kind_of == "base20" else boosted30)
         out = {}
@@ -334,7 +391,7 @@ def main() -> int:
                       "offset": (0.0, 0.6) if k != "vn" else (0.7, 1.3)}[kind_of]
             d = spec.dim(k, graph)
             out[k] = None if d == 0 else (
-                lo + (hi - lo) * torch.rand((spec.n_iters, d), generator=gen,
+                lo + (hi - lo) * torch.rand((spec.n_iters, d), generator=g,
                                             device=dev)).contiguous()
         return out
 
@@ -500,15 +557,27 @@ def main() -> int:
         ("r_wman_110_qms_per_edge", WMAN, (1, 1, 0), 2, T_MAIN, 0, "scale", "rand", 0),
         ("s_5g_222_qms_systematic", G5, (2, 2, 2), 2, T_MAIN, 0, "scale", "rand", 10),
     ]
+    sp_train_cases = [  # neural BP through B4-SP/B5-SP
+        ("t_wman_303_sp_t0_19", WMAN, (3, 0, 3), 0, T_MAIN, T_MAIN - 1, "scale", "rand", 0),
+        ("u_wman_222_sp_ucn", WMAN, (2, 2, 2), 0, T_MAIN, 0, "scale", "rand", 0),
+        ("v_wman_110_sp_per_edge", WMAN, (1, 1, 0), 0, T_MAIN, 0, "scale", "rand", 0),
+        ("w_mackay_333_sp", "MACKAY_N96_K48", (3, 3, 3), 0, T_MAIN, 0, "scale", "rand", 0),
+    ]
     FWD, BWD = fused_train.FWD, fused_train.BWD
-    for cid, cname, sharing, dec, T, t0, mode, wkind, target in train_cases:
+    FWD_SP, BWD_SP = fused_train.FWD_SP, fused_train.BWD_SP  # B4-SP, B5-SP
+    # SP draws its inputs from a generator of its own, so the inputs of
+    # every other phase do not depend on the SP cases
+    gen_sp = torch.Generator(device=dev).manual_seed(4321)
+    for cid, cname, sharing, dec, T, t0, mode, wkind, target in train_cases + sp_train_cases:
         graph = graph_of(cname)
         code = graph.code
+        g = gen_sp if dec == 0 else gen
+        kf, kb = (FWD_SP, BWD_SP) if dec == 0 else (FWD, BWD)
         spec = spec30_post if wkind == "post30" else WeightSpec(sharing=sharing, n_iters=T)
         stacked = (post30_stacked() if wkind == "post30" else
-                   case_weights(spec, graph, wkind))
+                   case_weights(spec, graph, wkind, g))
         sig = torch.full((TRAIN_CHECK_B,), float(code.snr_sigmas([3.0])[0]), device=dev)
-        llr = AWGNChannel(code, decoding_type=dec, device=dev).sample(gen, sig)
+        llr = AWGNChannel(code, decoding_type=dec, device=dev).sample(g, sig)
         kern = fused_train.FusedTrainKernel(
             graph, DecoderConfig(decoding_type=dec, neural_mode=mode, target_node=target,
                                  app_t0=t0), spec)
@@ -516,11 +585,18 @@ def main() -> int:
             apps = kern.apps(stacked, llr)
             apps_p = kern.apps_plain(stacked, llr)
         app_diff = float((apps - apps_p).abs().max())
-        max_err[FWD] = max(max_err.get(FWD, 0.0), app_diff)
+        max_err[kf] = max(max_err.get(kf, 0.0), app_diff)
         check(apps.shape == (T - t0, kern.target * code.z, TRAIN_CHECK_B)
               and bool(torch.isfinite(apps).all()), f"{cid}: APP stack shape or values")
-        check(bool((apps == apps_p).all()) if dec == 2 else app_diff <= 1e-5,
-              f"{cid}: B4 APPs differ from the plain forward ({app_diff})")
+        check(bool((apps == apps_p).all()) if dec == 2 else
+              bool(torch.allclose(apps, apps_p, rtol=1e-4, atol=1e-3)) if dec == 0 else
+              app_diff <= 1e-5, f"{cid}: B4 APPs differ from the plain forward ({app_diff})")
+        b1_equal = None
+        if dec == 0:  # B4-SP is B1-SP's loop: the same last APP, bit for bit
+            app_b1 = FusedNMSKernel(graph, DecoderConfig(decoding_type=0, neural_mode=mode),
+                                    spec).decode_stats(stacked, llr)[0]
+            b1_equal = bool(torch.equal(apps[-1], app_b1))
+            check(b1_equal, f"{cid}: B4-SP's last APP differs from B1-SP's")
         # B5: the soft-FER loss (eta 0 with the window, else 0.5)
         etha = 0.0 if t0 else 0.5
         labels = torch.zeros((kern.target * code.z, TRAIN_CHECK_B), device=dev)
@@ -542,15 +618,15 @@ def main() -> int:
             worst = max(worst, float(err.max()))
             ratio = max(ratio, float((err / (1e-5 * scale + 1e-4 * g_ref.abs())).max()))
             check(float(g.abs().max()) > 0.0, f"{cid}: zero {k} gradient")
-        max_err[BWD] = max(max_err.get(BWD, 0.0), worst)
-        emit({"phase": "kernel_vs_plain", "kernel": "fused_nms_train_fwd+bwd", "case": cid,
-              "B": TRAIN_CHECK_B, "T": T, "app_t0": t0,
+        max_err[kb] = max(max_err.get(kb, 0.0), worst)
+        emit({"phase": "kernel_vs_plain", "kernel": f"{kf}+bwd", "case": cid,
+              "B": TRAIN_CHECK_B, "T": T, "app_t0": t0, "last_app_equal_b1_sp": b1_equal,
               "launch_shape_fwd": list(fused_train.train_launch_shape(graph, spec, False)),
               "launch_shape_bwd": list(fused_train.train_launch_shape(graph, spec, True)),
               "max_abs_app_diff": app_diff, "max_abs_grad_diff": worst,
               "grad_err_over_tolerance": ratio, "bwd_bit_identical": identical,
               "grad_scale": {k: float(g.abs().max()) for k, g in grads[2].items()}})
-        check(kern.launches == {FWD: 3, BWD: 2}, f"{cid}: launches {kern.launches}")
+        check(kern.launches == {kf: 3, kb: 2}, f"{cid}: launches {kern.launches}")
         check(identical, f"{cid}: two B5 launches differ")
         check(ratio <= 1.0, f"{cid}: gradients outside rtol 1e-4 / atol 1e-5 x max|g| "
                             f"(worst {ratio:.3f} of the tolerance)")
@@ -568,30 +644,43 @@ def main() -> int:
             return DecodeResult(apps[-1], None, None, apps)
 
     spec_base = WeightSpec(sharing=(3, 0, 3), n_iters=T_MAIN)
-    dec_k = NMSDecoder(wman, DecoderConfig(app_t0=T_MAIN - 1), spec_base,
-                       graph=wman_graph, device=dev)
     sig_mix = torch.as_tensor(
         [float(s) for s in wman.snr_sigmas([2.0, 2.5, 3.0, 3.5, 4.0])] * (TRAIN_CHECK_B // 5 + 1),
         device=dev)[:TRAIN_CHECK_B]
-    ch_adam = AWGNChannel(wman, device=dev)
-    llrs = [ch_adam.sample(gen, sig_mix) for _ in range(3)]
     labels = torch.zeros((wman.n_full, TRAIN_CHECK_B), device=dev)
-    adam_params = {}
-    for route, dec in (("kernel", dec_k), ("plain", PlainApps(dec_k))):
-        p = init_weights(spec_base, wman_graph, device=dev)
-        opt = make_optimizer(p, 1e-2)
-        step = make_train_step(dec, spec_base, 2, 0, T_MAIN, static_etha=0.0)
-        losses = [float(step(p, opt, x, labels, 0.0)) for x in llrs]
-        adam_params[route] = ({k: v.detach() for k, v in p.items() if v is not None}, losses)
-    adam_diff = max(float((adam_params["kernel"][0][k] - adam_params["plain"][0][k]).abs().max())
-                    for k in ("cn", "vn"))
-    emit({"phase": "adam_kernel_vs_plain", "steps": 3, "B": TRAIN_CHECK_B,
-          "max_abs_weight_diff": adam_diff,
-          "losses_kernel": adam_params["kernel"][1], "losses_plain": adam_params["plain"][1],
-          "cn_kernel": adam_params["kernel"][0]["cn"][:, 0].tolist()})
-    check(adam_diff <= 1e-5, f"Adam steps through the kernels differ by {adam_diff}")
-    check(dec_k.train_kernel.launches == {FWD: 3, BWD: 3},
-          f"Adam launches {dec_k.train_kernel.launches}")
+
+    def adam_check(dec_type, g):
+        """Three Adam steps on the base block through the kernels and
+        through the plain version: (the kernels' decoder, its channel, the
+        three batches of LLRs)."""
+        dec_k = NMSDecoder(wman, DecoderConfig(decoding_type=dec_type, app_t0=T_MAIN - 1),
+                           spec_base, graph=wman_graph, device=dev)
+        ch = AWGNChannel(wman, decoding_type=dec_type, device=dev)
+        llrs = [ch.sample(g, sig_mix) for _ in range(3)]
+        adam_params = {}
+        for route, dec in (("kernel", dec_k), ("plain", PlainApps(dec_k))):
+            p = init_weights(spec_base, wman_graph, device=dev)
+            opt = make_optimizer(p, 1e-2)
+            step = make_train_step(dec, spec_base, 2, 0, T_MAIN, static_etha=0.0)
+            losses = [float(step(p, opt, x, labels, 0.0)) for x in llrs]
+            adam_params[route] = ({k: v.detach() for k, v in p.items() if v is not None},
+                                  losses)
+        adam_diff = max(float((adam_params["kernel"][0][k] - adam_params["plain"][0][k])
+                              .abs().max()) for k in ("cn", "vn"))
+        emit({"phase": "adam_kernel_vs_plain", "decoding_type": dec_type, "steps": 3,
+              "B": TRAIN_CHECK_B, "max_abs_weight_diff": adam_diff,
+              "losses_kernel": adam_params["kernel"][1],
+              "losses_plain": adam_params["plain"][1],
+              "cn_kernel": adam_params["kernel"][0]["cn"][:, 0].tolist()})
+        check(adam_diff <= 1e-5, f"Adam steps (decoding type {dec_type}) through the "
+                                 f"kernels differ by {adam_diff}")
+        tk = dec_k.train_kernel
+        check(tk.launches == {tk.fwd_name: 3, tk.bwd_name: 3},
+              f"Adam launches {dec_k.train_kernel.launches}")
+        return dec_k, ch, llrs
+
+    dec_k, ch_adam, llrs = adam_check(2, gen)
+    dec_sp, ch_sp, llrs_sp = adam_check(0, gen_sp)
 
     # ---- 4. end to end: each path -------------------------------------------------
     def simulator(spec, cfg, batch=MAIN_B, stop="genie", dec=2):
@@ -748,6 +837,36 @@ def main() -> int:
     check(losses[-1] < losses[0], f"post training loss {losses} does not fall")
     check(res_p.launches.get(BWD) == 3 * 4, f"post training launches {res_p.launches}")
 
+    # neural BP base block: decoding type 0, through B4-SP and B5-SP
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "Weights")
+        cfg_sp = dataclasses.replace(base_config_wman(), decoding_type=0, batch_size=TRAIN_B,
+                                     training_num=20 * TRAIN_B, epochs=2,
+                                     valid_num=2 * TRAIN_B, learn_rate_start=1e-2, seed=0,
+                                     out_dir=out_dir)
+        t0 = time.perf_counter()
+        res_sp = run_training(cfg_sp, verbose=False, device=dev)
+        sp_s = time.perf_counter() - t0
+        prefix_sp = os.path.join(out_dir, cfg_sp.out_prefix)
+        files_sp = {sfx: os.path.exists(prefix_sp + sfx) for sfx in
+                    ("_Weight_End20.txt", "_Opt_Weight_End20.txt", "_Performance.txt")}
+    metrics_sp = [h["metric"] for h in res_sp.history]
+    moved_sp = {k: bool((res_sp.params[k] != 1.0).any()) for k in ("cn", "vn")}
+    main_launches[FWD_SP] = main_launches[BWD_SP] = dict(res_sp.launches)
+    emit({"phase": "train_base_sp", "config": "base_config_wman, decoding_type 0",
+          "batch": TRAIN_B, "steps_per_epoch": 20, "epochs": 2, "seconds": sp_s,
+          "valid_fer_last_sum": metrics_sp,
+          "valid_fer_last": [h["valid"][1] for h in res_sp.history],
+          "train_loss": [h["train_loss"] for h in res_sp.history],
+          "cn": res_sp.params["cn"][:, 0].tolist(), "vn": res_sp.params["vn"][:, 0].tolist(),
+          "files": files_sp, "rows_moved": moved_sp, "kernel_launches": res_sp.launches})
+    check(all(files_sp.values()), f"SP training files missing: {files_sp}")
+    check(all(moved_sp.values()), f"SP weights did not move: {moved_sp}")
+    check(metrics_sp[-1] <= 1.05 * metrics_sp[0],
+          f"SP valid FER_last sum {metrics_sp[0]} -> {metrics_sp[-1]}: more than 5% worse")
+    check(set(res_sp.launches) == {FWD_SP, BWD_SP} and res_sp.launches[BWD_SP] == 2 * 20
+          and res_sp.launches[FWD_SP] > 2 * 20, f"SP training launches {res_sp.launches}")
+
     # ---- 7. timing ----------------------------------------------------------------
     channel = AWGNChannel(wman, device=dev)
     st20, st30 = stack_weights(spec20, base20), stack_weights(spec30, boosted30)
@@ -860,12 +979,18 @@ def main() -> int:
         return total, (torch.cat(apps, dim=2) if apps else None), loss, grads
 
     train_timing, train_bounds = {}, {}
-    train_blocks = {"base": (spec_base, 0, T_MAIN, case_weights(spec_base, wman_graph, "rand")),
-                    "post": (spec30_post, T_MAIN, T_BOOST, post30_stacked())}
-    for bname, (spec, start, end, ws) in train_blocks.items():
+    train_blocks = {  # (spec, rows trained, decoding type, weights)
+        "base": (spec_base, 0, T_MAIN, 2, case_weights(spec_base, wman_graph, "rand")),
+        "post": (spec30_post, T_MAIN, T_BOOST, 2, post30_stacked()),
+        "base_sp": (spec_base, 0, T_MAIN, 0,
+                    case_weights(spec_base, wman_graph, "rand", gen_sp))}
+    for bname, (spec, start, end, dt, ws) in train_blocks.items():
         T = spec.n_iters
-        kern = fused_train.FusedTrainKernel(wman_graph, DecoderConfig(app_t0=T - 1), spec)
-        llr = ch_adam.sample(gen, sig_train)
+        sp = dt == 0
+        ch, g = (ch_sp, gen_sp) if sp else (ch_adam, gen)
+        kern = fused_train.FusedTrainKernel(
+            wman_graph, DecoderConfig(decoding_type=dt, app_t0=T - 1), spec)
+        llr = ch.sample(g, sig_train)
         w3 = (ws["cn"], ws["ucn"], ws["vn"])
         train_timing[f"{bname}_fwd_ms"] = time_ms(lambda: kern._forward(w3, llr, True), reps=5)
         apps_pre, hist, cres = kern._forward(w3, llr, True)
@@ -895,38 +1020,47 @@ def main() -> int:
             scale = max(float(g_ref.abs().max()), 1e-8)
             ratio = max(ratio, float((err / (1e-5 * scale + 1e-4 * g_ref.abs())).max()))
         app_diff = float((apps_k - apps_p).abs().max())
+        # words whose soft-FER term (the sign of the worst bit) differs
+        decisions = int((torch.sign(torch.amin(-apps_k[-1], dim=0))
+                         != torch.sign(torch.amin(-apps_p[-1], dim=0))).sum())
         par = {
             "max_abs_app_diff": app_diff,
             "app_mismatches": int((apps_k != apps_p).sum()),
+            "apps_within_sp_tolerance": bool(torch.allclose(apps_k, apps_p, rtol=1e-4,
+                                                            atol=1e-3)),
+            "decision_mismatches": decisions,
             "stream_vs_alone_mismatches": alone_mismatches,
-            "loss_kernel": float(loss_k), "loss_plain": loss_p,
+            "loss_kernel": float(loss_k.detach()), "loss_plain": loss_p,
             "max_abs_grad_diff": worst, "grad_err_over_tolerance": ratio,
             "grad_scale": {k: float(g.abs().max()) for k, g in g_p.items()}}
         del apps_p, apps_k
-        emit({"phase": "kernel_vs_plain", "kernel": "fused_nms_train_fwd+bwd",
+        kf, kb = (FWD_SP, BWD_SP) if sp else (FWD, BWD)
+        emit({"phase": "kernel_vs_plain", "kernel": f"{kf}+bwd",
               "case": f"{bname}_block_B{TRAIN_B}", "B": TRAIN_B, "T": T, "app_t0": T - 1,
               **par})
-        max_err[FWD] = max(max_err[FWD], app_diff)
-        max_err[BWD] = max(max_err[BWD], worst)
-        check(par["app_mismatches"] == 0,
-              f"{bname} B={TRAIN_B}: B4's streaming APPs not bit-equal to the plain version")
+        max_err[kf] = max(max_err[kf], app_diff)
+        max_err[kb] = max(max_err[kb], worst)
+        check(par["apps_within_sp_tolerance"] if sp else par["app_mismatches"] == 0,
+              f"{bname} B={TRAIN_B}: B4's streaming APPs differ from the plain version")
         check(par["stream_vs_alone_mismatches"] == 0,
               f"{bname} B={TRAIN_B}: B4 alone and streaming give different APPs")
+        check(decisions == 0, f"{bname} B={TRAIN_B}: {decisions} words' soft-FER terms "
+                              "differ from the plain version's")
         check(abs(par["loss_kernel"] - loss_p) <= 1e-6 * abs(loss_p),
               f"{bname} B={TRAIN_B}: loss {par['loss_kernel']} against plain {loss_p}")
         check(ratio <= 1.0, f"{bname} B={TRAIN_B}: B5 gradients outside rtol 1e-4 / atol "
                             f"1e-5 x max|g| (worst {ratio:.3f} of the tolerance)")
-        train_bounds[f"{bname}_fwd"] = train_bound(wman_graph, spec, TRAIN_B, T - 1, False)
-        train_bounds[f"{bname}_bwd"] = train_bound(wman_graph, spec, TRAIN_B, T - 1, True)
+        train_bounds[f"{bname}_fwd"] = train_bound(kern, TRAIN_B, False)
+        train_bounds[f"{bname}_bwd"] = train_bound(kern, TRAIN_B, True)
         # one whole step: sampling, B4, loss, B5, Adam, clip (5 steps timed)
-        dec = NMSDecoder(wman, DecoderConfig(app_t0=T - 1), spec, graph=wman_graph,
-                         device=dev)
+        dec = NMSDecoder(wman, DecoderConfig(decoding_type=dt, app_t0=T - 1), spec,
+                         graph=wman_graph, device=dev)
         p = init_weights(spec, wman_graph, device=dev)
         opt = make_optimizer(p, 1e-2)
         epoch = make_epoch_step(dec, spec, 2, start, end, 0, n_steps=5,
                                 labels=torch.zeros((wman.n_full, TRAIN_B), device=dev),
-                                channel=ch_adam, sigmas=sig_train, static_etha=0.0)
-        step_ms = time_ms(lambda: epoch(p, opt, gen, 0.0), reps=2, warmup=1) / 5
+                                channel=ch, sigmas=sig_train, static_etha=0.0)
+        step_ms = time_ms(lambda: epoch(p, opt, g, 0.0), reps=2, warmup=1) / 5
         train_timing[f"{bname}_step_ms"] = step_ms
         train_timing[f"{bname}_trained_cw_per_s"] = TRAIN_B / step_ms * 1e3
         torch.cuda.empty_cache()
@@ -937,6 +1071,12 @@ def main() -> int:
     x = llrs[0]
     train_timing["base_plain_step_ms_B4096"] = time_ms(
         lambda: plain_step(p, opt, x, labels, 0.0), reps=2, warmup=1)
+    p = init_weights(spec_base, wman_graph, device=dev)
+    opt = make_optimizer(p, 1e-2)
+    plain_step = make_train_step(PlainApps(dec_sp), spec_base, 2, 0, T_MAIN, static_etha=0.0)
+    x = llrs_sp[0]
+    train_timing["base_sp_plain_step_ms_B4096"] = time_ms(
+        lambda: plain_step(p, opt, x, labels, 0.0), reps=2, warmup=1)
     emit({"phase": "train_timing", "card": smi, "B": TRAIN_B, **train_timing,
           "bounds": train_bounds,
           "launch_shape_fwd": list(fused_train.train_launch_shape(wman_graph, spec_base, False)),
@@ -946,6 +1086,7 @@ def main() -> int:
           "launch_shape_bwd_post": list(fused_train.train_launch_shape(wman_graph, spec30_post,
                                                                        True))})
     bounds[FWD], bounds[BWD] = train_bounds["base_fwd"], train_bounds["base_bwd"]
+    bounds[FWD_SP], bounds[BWD_SP] = train_bounds["base_sp_fwd"], train_bounds["base_sp_bwd"]
 
     # ---- 8. summary -----------------------------------------------------------------
     src = "ldpc_error_floor_tpu_torch/csrc/fused_nms_stats.cu"
@@ -963,6 +1104,10 @@ def main() -> int:
          train_timing["base_fwd_ms"], train_timing["base_fwd_plain_ms"]),
         (BWD, src_train, "ldpc_error_floor_tpu/ops/pallas_train.py:652",
          train_timing["base_bwd_ms"], train_timing["base_bwd_plain_ms"]),
+        (FWD_SP, src_train, "ldpc_error_floor_tpu/ops/pallas_train.py:527",
+         train_timing["base_sp_fwd_ms"], train_timing["base_sp_fwd_plain_ms"]),
+        (BWD_SP, src_train, "ldpc_error_floor_tpu/ops/pallas_train.py:235",
+         train_timing["base_sp_bwd_ms"], train_timing["base_sp_bwd_plain_ms"]),
     ]
     emit({"kernels": [{
         "name": kname, "route": "cuda", "source": source, "replaces": replaces,

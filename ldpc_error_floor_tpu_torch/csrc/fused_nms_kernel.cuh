@@ -26,11 +26,12 @@
 // stops as a whole (the JAX tile stops as a whole too, at another size), so
 // the early-stop rows after a block's stop and its APP depend on G; the
 // genie-failure mask and every deploy output do not.
-// kTrain (min-sum types only) counts nothing and writes, straight to device
-// memory with the word fastest (the G threads of a row write G consecutive
-// words), the pre-clip APPs of iterations t >= t0 and, when hist_out is not
-// null, per iteration the pre-clip V->C message of every edge slot and the
-// check residuals (min1, min2, the negated sign product, the UCN mask).
+// kTrain counts nothing and writes, straight to device memory with the word
+// fastest (the G threads of a row write G consecutive words), the pre-clip
+// APPs of iterations t >= t0 and, when hist_out is not null, per iteration
+// the pre-clip V->C message of every edge slot and the check residuals: for
+// the min-sum types min1, min2, the negated sign product and the UCN mask;
+// for SP (whose backward recomputes the tanh products) the UCN mask alone.
 // Nothing is staged asynchronously, so no copy can read a buffer that is
 // being rewritten.
 // Rounding follows the scan decoder: rintf (half to even, as jnp.round and
@@ -49,6 +50,7 @@ constexpr float kEps = 1.0e-4f;    // zero-message nudge
 constexpr float kSPClip = (float)(1.0 - 1e-7);  // SP product clip
 constexpr int kMaxDegSP = 64;      // largest check degree SP takes
 
+constexpr int kSPDec = 0;  // decoding types
 constexpr int kMS = 1;
 constexpr int kQMS = 2;
 
@@ -135,7 +137,8 @@ struct Graph {
 // Outputs: stats modes app [N*z][B] (clipped), err uint8 [T][B], nerr int
 // [T][B]; deploy app, err uint8 [B], nerr int [B], iters int [B], fail uint8
 // [B]; kTrain app [T-t0][target*z][B] (pre-clip) and, with hist_out, hist
-// [T][E*z][B] and cres [T][R*M*z][B] (R = 4 with UCN, else 3).
+// [T][E*z][B] and cres [T][R*M*z][B] (min-sum: R = 4 with UCN, else 3; SP:
+// R = 1 with UCN, else no cres).
 template <int kMode, bool kSP>
 __global__ void __launch_bounds__(1024)
 fused_nms_kernel(const float* __restrict__ llr,
@@ -154,7 +157,6 @@ fused_nms_kernel(const float* __restrict__ llr,
                  int target, int t0, int dec_type, float qstep, float qclip,
                  float clip_llr, int cn_mode, int ucn, int vn_mode,
                  int offset_mode, int dim_cn, int dim_vn) {
-  static_assert(!(kMode == kTrain && kSP), "no SP training forward");
   constexpr bool kDep = kMode == kDeploy;
   constexpr bool kTr = kMode == kTrain;
   extern __shared__ float smem[];
@@ -292,14 +294,20 @@ fused_nms_kernel(const float* __restrict__ llr,
       }
       if (kSP) {
         // tanh of each V->C message, stashed in its own C->V slot (this
-        // thread owns the check's slots), then suffix products in suf[]
+        // thread owns the check's slots), then suffix products in suf[];
+        // streaming, the pre-clip value goes out before its slot is
+        // overwritten, and the UCN mask is the check's one residual
         float suf[kMaxDegSP];
+        if (stream && ucn && b < B)
+          cres_out[((size_t)t * Mz + row) * B + b] = u;
         for (int q = k0; q < k1; ++q) {
           const int e = gr.cn_edge[q];
           const int sl = (h + gr.edge_shift[e]) % z;
           const int ci = (e * z + sl) * G + g;
-          const float x = v2c_msg(tot[(gr.edge_vn[e] * z + sl) * G + g] - c2v[ci],
-                                  dec_type, qstep, qclip, clip_llr);
+          const float pre = tot[(gr.edge_vn[e] * z + sl) * G + g] - c2v[ci];
+          if (stream && b < B)
+            hist_out[((size_t)t * Ez + (size_t)e * z + sl) * B + b] = pre;
+          const float x = v2c_msg(pre, dec_type, qstep, qclip, clip_llr);
           const float v = tanhf(-0.5f * x);
           c2v[ci] = (v == 0.0f) ? 1.0f : v;
         }

@@ -1,9 +1,11 @@
-// Fused neural min-sum training pair: forward (B4) and backward (B5).
+// Fused neural min-sum / neural BP training pair: forward (B4) and backward
+// (B5).
 //
 // Replaces ldpc_error_floor_tpu/ops/pallas_train.py::FusedTrainKernel:
 //   fused_nms_train_fwd  _fwd_kernel (:366, pl.pallas_call :1166)
 //   fused_nms_train_bwd  _bwd_kernel (:652, pl.pallas_call :1238)
-// for MS, QMS and MS_RAW.  Their plain version is autograd through
+// for MS, QMS, MS_RAW and SP (B4-SP: the SP branch :527-563; B5-SP:
+// _sp_check_bwd :235-353).  Their plain version is autograd through
 // ops/fused_decoder.py::plain_iterations (the scan body of
 // ldpc_error_floor_tpu/models/nms.py with the scan backend's gradient
 // semantics); under QMS the forward agrees with it bit for bit.
@@ -15,8 +17,10 @@
 // a row write G consecutive words:
 //   hist [T][E*z][B]      the pre-clip V->C message of every edge slot
 //                         (slot e*z + s: edge e, lifted bit s);
-//   cres [T][R*M*z][B]    per lifted check: min1, min2, the negated sign
-//                         product, and (R = 4, with UCN) the UCN mask;
+//   cres [T][R*M*z][B]    per lifted check: min-sum min1, min2, the negated
+//                         sign product, and (R = 4, with UCN) the UCN mask;
+//                         SP the UCN mask alone (R = 1; no cres without
+//                         UCN), since B5-SP recomputes the tanh products;
 //   apps [T-t0][target*z][B]  the pre-clip APP for t >= t0 (the wrapper
 //                         clips it for the primal output).
 // Nothing is staged asynchronously, so no copy can read a buffer that is
@@ -33,6 +37,8 @@
 //     share equally), |x|'s gradient (+1 at 0, as JAX), the zero nudge
 //     (gradient 1) and the inclusive STE/clip mask of the pre-clip V->C
 //     message; the per-slot weight gradient goes to a second shared array;
+//     SP (sp_check_bwd) instead rebuilds the check's tanh prefix and suffix
+//     products from the V->C stream and runs their VJP (below);
 //   VN phase, one thread per lifted bit: the V->C sum's transpose turns the
 //     slot cotangents into those of the previous iteration's C->V messages,
 //     plus the previous iteration's APP cotangent under its clip mask; the
@@ -45,12 +51,33 @@
 //
 // What bounds it on an H100: the residual stream, ~0.2 MB per word at T=20,
 // against on-chip work (~16 simple f32 operations per edge slot and
-// iteration forward, ~37 backward; chip_smoke.py::train_bound counts them);
+// iteration forward, ~37 backward; SP adds a tanhf and an atanhf per slot
+// forward and again backward; chip_smoke.py::train_bound counts them);
 // both kernels touch device memory once per slot and iteration (the
 // backward reads the V->C stream twice, from L2 the second time, and
 // derives each message twice).  The launches run on the caller's stream,
 // allocate nothing and do not synchronise.  Rounding follows the scan
 // decoder (rintf, IEEE division; the build uses -fmad=false).
+//
+// B5-SP.  Per lifted check of degree d, one thread, four passes over the
+// check's edges in CN order and back, holding per slot the raw tanh, the
+// prefix product F and the suffix product B in three arrays of kMaxDegSP
+// floats in the thread's local memory (cached in L1; a third [E*z][G]
+// shared array would halve G on most codes), and the inclusive clip mask of
+// each pre-clip message in a 64-bit register:
+//   1. forward: x = the clipped message, raw tanh(-x/2), F, exactly the
+//      forward's operations (so p = F*B is the forward's product, bit for
+//      bit, and the product clip's masks are the forward's);
+//   2. backward: B;
+//   3. forward: per edge the clip, -2 atanh, the weighting chain and its
+//      gradient (the per-slot weight gradient to gw, as B5), g_p with the
+//      half-gradient at an exactly hit clip bound; gF = g_p*B kept in B's
+//      place; the suffix recurrence's reverse as a running sum, whose share
+//      of each slot's tanh cotangent waits in the slot's gc;
+//   4. backward: the prefix recurrence's reverse as a running sum, plus
+//      the waiting share, through tanh's derivative on the raw value (the
+//      additive zero->1 map has gradient 1) and the clip mask, into gc.
+// No division anywhere (the plain version's cumprod backward divides).
 
 #include "fused_nms_kernel.cuh"
 
@@ -83,10 +110,114 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// B5-SP for lifted check (i, h) of word g (column b) at iteration t: turns
+// the cotangents of its new C->V messages (gc, this thread's slots) into
+// those of its pre-clip V->C messages, and writes the per-slot CN-weight
+// gradient to gw (with CN weights).  u: the check's UCN mask.
+__device__ void sp_check_bwd(const Cfg& c, const Graph& gr,
+                             const float* __restrict__ hist,
+                             const float* __restrict__ w_cn,
+                             const float* __restrict__ w_ucn, float* gc,
+                             float* gw, int t, int i, int h, int g, int b,
+                             float u) {
+  float ttr[kMaxDegSP], fp[kMaxDegSP], bs[kMaxDegSP];
+  const int k0 = gr.cn_ptr[i], deg = gr.cn_ptr[i + 1] - k0;
+  const int z = c.z;
+  const bool cnw = c.cn_mode > 0;
+  const size_t Ez = (size_t)c.E * z;
+  auto slot = [&](int n) {  // the shared index of the check's n-th edge
+    const int e = gr.cn_edge[k0 + n];
+    return (e * z + (h + gr.edge_shift[e]) % z) * c.G + g;
+  };
+  auto tt_of = [](float v) { return (v == 0.0f) ? 1.0f : v; };
+  // 1. the raw tanh of each message and the prefix products F
+  unsigned long long inside = 0ull;  // bit n: |pre| <= clip_llr
+  float a = 1.0f;
+  for (int n = 0; n < deg; ++n) {
+    const int e = gr.cn_edge[k0 + n];
+    const int sl = (h + gr.edge_shift[e]) % z;
+    const float pre =
+        __ldg(hist + ((size_t)t * Ez + (size_t)e * z + sl) * c.B + b);
+    if (fabsf(pre) <= c.clip_llr) inside |= 1ull << n;
+    const float v = tanhf(-0.5f * c.msg(pre));
+    ttr[n] = v;
+    fp[n] = a;
+    a = (n == 0) ? tt_of(v) : a * tt_of(v);
+  }
+  // 2. the suffix products B
+  a = 1.0f;
+  for (int n = deg - 1; n >= 0; --n) {
+    bs[n] = a;
+    a = (n == deg - 1) ? tt_of(ttr[n]) : a * tt_of(ttr[n]);
+  }
+  // 3. per edge: the product's clip and atanh, the weighting chain and its
+  // gradient, g_p; gF = g_p*B replaces B; the running gB of the suffix
+  // recurrence's reverse leaves its share of the slot's tanh cotangent in gc
+  float gb = 0.0f;
+  for (int n = 0; n < deg; ++n) {
+    const int si = slot(n);
+    const float F = fp[n], Bn = bs[n];
+    const float p = F * Bn;
+    const float pc = fminf(fmaxf(p, -kSPClip), kSPClip);
+    const float out = -2.0f * atanhf(pc);
+    const float mag = fabsf(out);
+    const float so = (out > 0.0f) ? 1.0f : ((out < 0.0f) ? -1.0f : 0.0f);
+    float w_eff = 1.0f, r = mag;
+    if (cnw) {
+      w_eff = cn_weight(w_cn, t, c.dim_cn, c.cn_mode, i, k0 + n);
+      if (c.ucn) {
+        const float wu = cn_weight(w_ucn, t, c.dim_cn, c.cn_mode, i, k0 + n);
+        w_eff = w_eff * (1.0f - u) + wu * u;
+      }
+      r = c.offset_mode ? mag - w_eff : mag * w_eff;
+    }
+    // ReLU and the inclusive clip mask on the weighted magnitude: 0 < r <= clip
+    const float g_in = (r > 0.0f && r <= c.clip_llr) ? gc[si] * so : 0.0f;
+    const float g_mag = (cnw && !c.offset_mode) ? g_in * w_eff : g_in;
+    if (cnw) gw[si] = c.offset_mode ? -g_in : g_in * mag;
+    // |out| (gradient +1 at 0), -2 atanh, the clip: 1/2 at a hit bound
+    const float g_out = g_mag * ((out >= 0.0f) ? 1.0f : -1.0f);
+    const float g_pc = g_out * (-2.0f / (1.0f - pc * pc));
+    const float in_hi = 0.5f * ((p < kSPClip ? 1.0f : 0.0f) +
+                                (p <= kSPClip ? 1.0f : 0.0f));
+    const float in_lo = 0.5f * ((p > -kSPClip ? 1.0f : 0.0f) +
+                                (p >= -kSPClip ? 1.0f : 0.0f));
+    const float g_p = g_pc * in_hi * in_lo;
+    bs[n] = g_p * Bn;  // gF
+    const float gbn = g_p * F;
+    float share = 0.0f;
+    if (n == 0) {
+      gb = gbn;
+    } else {
+      share = gb * Bn;
+      gb = gbn + gb * tt_of(ttr[n]);
+    }
+    gc[si] = share;
+  }
+  // 4. the running gF of the prefix recurrence's reverse; tanh(-x/2)'s
+  // derivative on the raw value; the clip mask (a degree-1 check gets 0)
+  float gf = 0.0f;
+  for (int n = deg - 1; n >= 0; --n) {
+    const int si = slot(n);
+    float share = 0.0f;
+    if (n == deg - 1) {
+      gf = bs[n];
+    } else {
+      share = gf * fp[n];
+      gf = bs[n] + gf * tt_of(ttr[n]);
+    }
+    const float g_tt = share + gc[si];
+    const float g_x = g_tt * (-0.5f) * (1.0f - ttr[n] * ttr[n]);
+    gc[si] = ((inside >> n) & 1ull) ? g_x : 0.0f;
+  }
+}
+
 // Shared memory (ops/fused_train.py::_smem_bwd): slot cotangents float
 // [E*z][G] | per-slot CN-weight gradients float [E*z][G] (CN weights) |
 // per-bit VN-weight gradients float [N*z][G] (VN weights) | per-edge sums
 // float [2][E] and per-VN sums float [N] | UCN masks uint8 [M*z][G] (UCN).
+// kSP: the CN phase is SP's (sp_check_bwd).
+template <bool kSP>
 __global__ void __launch_bounds__(1024)
 train_bwd_kernel(const float* __restrict__ llr, const float* __restrict__ w_cn,
                  const float* __restrict__ w_ucn,
@@ -156,6 +287,13 @@ train_bwd_kernel(const float* __restrict__ llr, const float* __restrict__ w_cn,
           if (cnw) gw[si] = 0.0f;
         }
         if (c.ucn) ucn_s[k] = 0;
+        continue;
+      }
+      if (kSP) {
+        const float u =
+            c.ucn ? __ldg(cres + ((size_t)t * Mz + row) * B + b) : 0.0f;
+        if (c.ucn) ucn_s[k] = u > 0.5f;
+        sp_check_bwd(c, gr, hist, w_cn, w_ucn, gc, gw, t, i, h, g, b, u);
         continue;
       }
       const size_t r0 = (size_t)t * R * Mz + row;
@@ -373,25 +511,28 @@ Cfg make_cfg(int N, int M, int z, int E, int T, int B, int G, int target,
   make_cfg(N, M, z, E, T, B, G, target, t0, Dc, dec_type, qstep, qclip,     \
            clip_llr, cn_mode, ucn, vn_mode, offset_mode, dim_cn, dim_vn)
 
-// B4: fused_nms_kernel<kTrain>.  Writes apps [T-t0][target*z][B]
+// B4: fused_nms_kernel<kTrain, SP?>.  Writes apps [T-t0][target*z][B]
 // (pre-clip) and, when hist is not null, hist [T][E*z][B] and cres
-// [T][R*M*z][B].  `smem` is one block's dynamic shared memory
-// (ops/fused_decoder.py::_smem_bytes).  Returns cudaGetLastError() after
-// the launch (0 = launched).
+// [T][R*M*z][B] (null for SP without UCN).  `smem` is one block's dynamic
+// shared memory (ops/fused_decoder.py::_smem_bytes).  Returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int fused_nms_train_fwd_launch(
     const void* llr, const void* w_cn, const void* w_ucn, const void* w_vn,
     const void* tab, void* apps, void* hist, void* cres, TRAIN_CFG_ARGS,
     void* stream) {
   (void)Dc;
-  return launch<kTrain, false>(
-      llr, w_cn, w_ucn, w_vn, tab, apps, nullptr, nullptr, nullptr, nullptr,
-      hist, cres, N, M, z, E, T, B, G, threads, smem, target, t0, dec_type,
-      qstep, qclip, clip_llr, cn_mode, ucn, vn_mode, offset_mode, dim_cn,
-      dim_vn, (cudaStream_t)stream);
+#define TRAIN_FWD_LAUNCH(SP)                                                  \
+  launch<kTrain, SP>(llr, w_cn, w_ucn, w_vn, tab, apps, nullptr, nullptr,     \
+                     nullptr, nullptr, hist, cres, N, M, z, E, T, B, G,       \
+                     threads, smem, target, t0, dec_type, qstep, qclip,       \
+                     clip_llr, cn_mode, ucn, vn_mode, offset_mode, dim_cn,    \
+                     dim_vn, (cudaStream_t)stream)
+  return dec_type == kSPDec ? TRAIN_FWD_LAUNCH(true) : TRAIN_FWD_LAUNCH(false);
+#undef TRAIN_FWD_LAUNCH
 }
 
-// B5.  Reads the forward's residuals and the APP cotangent g_apps (same
-// layout as apps), writes the partials part_* [blocks][T][dim] (scratch)
+// B5 (B5-SP for dec_type SP).  Reads the forward's residuals and the APP
+// cotangent g_apps (same layout as apps), writes the partials part_* [blocks][T][dim] (scratch)
 // and the weight gradients g_* [T][dim] (null for a kind without weights).
 extern "C" int fused_nms_train_bwd_launch(
     const void* llr, const void* w_cn, const void* w_ucn, const void* w_vn,
@@ -400,11 +541,13 @@ extern "C" int fused_nms_train_bwd_launch(
     void* part_vn, void* g_cn, void* g_ucn, void* g_vn, TRAIN_CFG_ARGS,
     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  auto* kernel = dec_type == kSPDec ? train_bwd_kernel<true>
+                                    : train_bwd_kernel<false>;
   cudaError_t st = cudaFuncSetAttribute(
-      train_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (st != cudaSuccess) return (int)st;
   const int blocks = (B + G - 1) / G;
-  train_bwd_kernel<<<blocks, threads, smem, s>>>(
+  kernel<<<blocks, threads, smem, s>>>(
       (const float*)llr, (const float*)w_cn, (const float*)w_ucn,
       (const float*)w_vn, (const int*)tab, (const float*)hist,
       (const float*)cres, (const float*)apps_pre, (const float*)g_apps,

@@ -169,6 +169,14 @@ def _graph_table(graph: TannerGraph) -> np.ndarray:
                           ).astype(np.int32)
 
 
+def check_sp_degree(graph: TannerGraph) -> None:
+    """Raise unless the SP kernels (B1-SP, B4-SP, B5-SP: per-slot arrays of
+    kMaxDegSP in the .cu) take the graph's largest check degree."""
+    if graph.Dc > _MAX_DEG_SP:
+        raise ValueError(f"the SP kernels take check degrees up to {_MAX_DEG_SP}; "
+                         f"{graph.code.name} has {graph.Dc}")
+
+
 def check_weights(graph: TannerGraph, spec: WeightSpec, kind: str,
                   w: Optional[torch.Tensor], device) -> int:
     """A kernel's stacked weights of one kind: None for a kind without
@@ -542,10 +550,8 @@ class FusedNMSKernel:
     def _launch(self, stacked: Stacked, llr: torch.Tensor, mode: int):
         cfg, spec = self.cfg, self.spec
         sp = cfg.decoding_type == SP
-        if sp and self.graph.Dc > _MAX_DEG_SP:
-            raise ValueError(f"the SP kernel takes check degrees up to "
-                             f"{_MAX_DEG_SP}; {self.graph.code.name} has "
-                             f"{self.graph.Dc}")
+        if sp:
+            check_sp_degree(self.graph)
         Nz = self.N * self.z
         if (llr.dtype != torch.float32 or llr.dim() != 2 or llr.shape[0] != Nz
                 or not llr.is_contiguous()):

@@ -13,7 +13,11 @@ FusedTrainKernel` (`apps`, `_build_vjp`):
   messages, the per-check residuals and the pre-clip APPs) and whose
   backward launches B5 (``fused_nms_train_bwd``: the reverse loop over the
   residuals, weight gradients reduced over the batch in a fixed order).
-  A failed build or launch raises; SP raises `NotImplementedError`;
+  For SP (neural BP) the two launches run the SP instances, B4-SP
+  (``fused_nms_train_fwd_sp``) and B5-SP (``fused_nms_train_bwd_sp``);
+  B4-SP streams the pre-clip V->C messages and, with UCN, the UCN mask, and
+  B5-SP recomputes the tanh products from them.  A failed build or launch
+  raises;
 * a tensor on the CPU goes to `decode_apps_plain`: autograd through
   `ops/fused_decoder.py::plain_iterations`, whose gradient semantics are the
   JAX scan backend's (tie-splitting extrinsic min, inclusive STE and clip
@@ -42,6 +46,7 @@ from ldpc_error_floor_tpu_torch.ops.ste import qms_grid
 
 _SRC = fd._SRC.parent / "fused_nms_train.cu"
 FWD, BWD = "fused_nms_train_fwd", "fused_nms_train_bwd"
+FWD_SP, BWD_SP = FWD + "_sp", BWD + "_sp"  # the SP instances, B4-SP and B5-SP
 
 Stacked = Dict[str, Optional[torch.Tensor]]
 
@@ -145,7 +150,9 @@ class FusedTrainKernel:
     """The fused differentiable decode for one (graph, config, spec).
 
     `launches` counts the CUDA launches of this wrapper under
-    ``fused_nms_train_fwd`` (B4) and ``fused_nms_train_bwd`` (B5)."""
+    ``fused_nms_train_fwd`` (B4) and ``fused_nms_train_bwd`` (B5), or, for
+    SP, ``fused_nms_train_fwd_sp`` (B4-SP) and ``fused_nms_train_bwd_sp``
+    (B5-SP)."""
 
     def __init__(self, graph: TannerGraph, cfg: DecoderConfig, spec: WeightSpec):
         self.graph = graph
@@ -158,6 +165,8 @@ class FusedTrainKernel:
         if not 0 <= cfg.app_t0 <= self.T - 1:
             raise ValueError(f"app_t0 {cfg.app_t0} outside [0, {self.T - 1}]")
         self.t0 = cfg.app_t0
+        sp = cfg.decoding_type == SP
+        self.fwd_name, self.bwd_name = (FWD_SP, BWD_SP) if sp else (FWD, BWD)
         self.launches: collections.Counter = collections.Counter()
         self._plain_tables: Dict[torch.device, fd.PlainTables] = {}
         self._graph_tabs: Dict[torch.device, torch.Tensor] = {}
@@ -171,9 +180,7 @@ class FusedTrainKernel:
         if llr.device.type != "cuda":
             raise ValueError(f"unsupported device {llr.device}")
         if self.cfg.decoding_type == SP:
-            raise NotImplementedError(
-                "SP training on the card (B4-SP/B5-SP) is not ported yet; "
-                "device='cpu' runs the plain version")
+            fd.check_sp_degree(self.graph)
         ws = (stacked["cn"], stacked["ucn"], stacked["vn"])
         stream = torch.is_grad_enabled() and any(
             w is not None and w.requires_grad for w in ws)
@@ -187,6 +194,16 @@ class FusedTrainKernel:
                 self.graph, llr.device)
         return decode_apps_plain(self.graph, tabs, self.cfg, self.spec,
                                  stacked, llr, t0=self.t0)
+
+    @property
+    def cres_rows(self) -> int:
+        """R, the check residuals B4 streams per lifted check and iteration:
+        min-sum min1, min2, the negated sign product and, with UCN, the UCN
+        mask (3 or 4); SP the UCN mask alone (1, or 0 without UCN)."""
+        ucn = self.spec.ucn_enabled
+        if self.cfg.decoding_type == SP:
+            return 1 if ucn else 0
+        return 4 if ucn else 3
 
     # ----- launches -------------------------------------------------------------
 
@@ -213,7 +230,7 @@ class FusedTrainKernel:
 
     def _forward(self, weights, llr: torch.Tensor, stream: bool):
         """Launch B4: (apps_pre [T-t0, target*z, B], hist [T, E*z, B] or
-        None, cres [T, R*M*z, B] or None)."""
+        None, cres [T, R*M*z, B] or None; `cres_rows` gives R)."""
         Nz = self.N * self.z
         if (llr.dtype != torch.float32 or llr.dim() != 2 or llr.shape[0] != Nz
                 or not llr.is_contiguous()):
@@ -224,11 +241,11 @@ class FusedTrainKernel:
         dim_vn = self._weights(w_vn, "vn", dev)
         if self.spec.ucn_enabled:
             self._weights(w_ucn, "ucn", dev)
-        R = 4 if self.spec.ucn_enabled else 3
+        R = self.cres_rows
         empty = functools.partial(torch.empty, dtype=torch.float32, device=dev)
         apps = empty((self.T - self.t0, self.target * self.z, B))
         hist = empty((self.T, self.E * self.z, B)) if stream else None
-        cres = empty((self.T, R * self.M * self.z, B)) if stream else None
+        cres = empty((self.T, R * self.M * self.z, B)) if stream and R else None
         if B == 0:
             return apps, hist, cres
         lib, _ = load_library()
@@ -242,7 +259,7 @@ class FusedTrainKernel:
                 torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"fused_nms_train_fwd_launch failed: CUDA error {rc}")
-        self.launches[FWD] += 1
+        self.launches[self.fwd_name] += 1
         return apps, hist, cres
 
     def _backward(self, weights, llr, hist, cres, apps_pre, g_apps):
@@ -277,5 +294,5 @@ class FusedTrainKernel:
                 torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"fused_nms_train_bwd_launch failed: CUDA error {rc}")
-        self.launches[BWD] += 1
+        self.launches[self.bwd_name] += 1
         return g_cn, g_ucn, g_vn

@@ -1,6 +1,6 @@
 """The port's training pipeline on the CPU (plain versions), at a tiny size
-on the MacKay code: a base block, then a post block on harvested words with
-the base rows frozen, and a killed-and-resumed run.
+on the MacKay code: a base block (QMS, and neural BP), then a post block on
+harvested words with the base rows frozen, and a killed-and-resumed run.
 
 Checks: the weight files are the shared text format (the JAX package reads
 them to the same values); epoch 0 evaluates only; the frozen prefix rows are
@@ -69,6 +69,27 @@ def test_base_block_writes_shared_weight_files(base_run):
     assert not np.allclose(params_to_numpy(res.params)["cn"], 1.0)
     log = open(pre + "_Performance.txt").read()
     assert log.count("Valid_Result") == 3 and "epoch: [2/2]" in log
+
+
+def test_sp_base_block_trains_neural_bp(tmp_path):
+    """Neural BP (decoding type 0, the card's B4-SP/B5-SP) through the same
+    pipeline: the weight files appear, the JAX package reads them to the
+    port's final weights, and the weights moved."""
+    cfg = _base_cfg(tmp_path / "Weights", decoding_type=0, sharing=(3, 0, 3),
+                    iters_max=3, iter_step=3, batch_size=32, training_num=64,
+                    valid_num=32)
+    res = run_training(cfg, verbose=False, device="cpu")
+    pre = os.path.join(cfg.out_dir, cfg.out_prefix)
+    for suffix in ("_Weight_End3.txt", "_Opt_Weight_End3.txt", "_Performance.txt"):
+        assert os.path.exists(pre + suffix)
+    assert res.launches == {} and len(res.history) == 3
+    assert all(h["train_loss"] > 0.0 for h in res.history[1:])
+    jp = jax_load_params(JaxSpec(sharing=(3, 0, 3), n_iters=3),
+                         JaxGraph(jax_get_code(MACKAY)), pre + "_Weight_End3.txt")
+    p = params_to_numpy(res.params)
+    for k in ("cn", "vn"):
+        np.testing.assert_array_equal(np.asarray(jp[k]), p[k])
+        assert not np.allclose(p[k], 1.0)
 
 
 def test_post_block_on_uncor_words_keeps_prefix(base_run, tmp_path):
