@@ -87,9 +87,11 @@ exits non-zero:
    plain version, the early stop at 4.0 and 5.0 dB against the fixed-T
    kernel on the same LLRs, SP at 16384 too, run_point frames/s; B4 and B5
    at batch 32768 on the base and post blocks against the plain version on
-   the same inputs (in chunks of 4096), one whole train step (sampling,
-   B4, loss, B5, Adam) and trained codewords/s, the plain step at 4096;
-   the same for B4-SP and B5-SP on the SP base block;
+   the same inputs (in chunks of 4096), each one's achieved device-memory
+   rate and multiple of its bound, one whole train step (sampling, B4,
+   loss, B5, Adam) and trained codewords/s, the plain step at 4096; the
+   same for B4-SP and B5-SP on the SP base block; ptxas' report of every
+   training instance;
 8. the `kernels` line (eight entries), then the card's nvidia-smi line,
    then the result.
 
@@ -357,11 +359,10 @@ def main() -> int:
         builds = [pool.submit(fn) for fn in (load_library, fused_train.load_library)]
         logs = {src: b.result()[1] for src, b in
                 zip(("fused_nms_stats.cu", "fused_nms_train.cu"), builds)}
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "built": {src: bool(log) for src, log in logs.items()},
-          "ptxas": {src: [ln.strip() for ln in log.splitlines()
-                          if "Compiling entry" in ln or "registers" in ln
-                          or "spill" in ln] for src, log in logs.items()}})
+    ptxas = {src: [ln.strip() for ln in log.splitlines()
+                   if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
+             for src, log in logs.items()}
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
 
     # ---- 3. kernels vs plain on the card -------------------------------------------
     wman = get_code(WMAN)
@@ -622,7 +623,8 @@ def main() -> int:
         emit({"phase": "kernel_vs_plain", "kernel": f"{kf}+bwd", "case": cid,
               "B": TRAIN_CHECK_B, "T": T, "app_t0": t0, "last_app_equal_b1_sp": b1_equal,
               "launch_shape_fwd": list(fused_train.train_launch_shape(graph, spec, False)),
-              "launch_shape_bwd": list(fused_train.train_launch_shape(graph, spec, True)),
+              "launch_shape_bwd": list(fused_train.train_launch_shape(graph, spec, True,
+                                                                      sp=dec == 0)),
               "max_abs_app_diff": app_diff, "max_abs_grad_diff": worst,
               "grad_err_over_tolerance": ratio, "bwd_bit_identical": identical,
               "grad_scale": {k: float(g.abs().max()) for k, g in grads[2].items()}})
@@ -1077,14 +1079,23 @@ def main() -> int:
     x = llrs_sp[0]
     train_timing["base_sp_plain_step_ms_B4096"] = time_ms(
         lambda: plain_step(p, opt, x, labels, 0.0), reps=2, warmup=1)
+    # each kernel's achieved device-memory rate (the bound's bytes over its
+    # time) and its time as a multiple of its bound
+    achieved = {f"{blk}_{d}": {
+        "gb_per_s": train_bounds[f"{blk}_{d}"]["bytes"] / train_timing[f"{blk}_{d}_ms"] / 1e6,
+        "x_bound": train_timing[f"{blk}_{d}_ms"] / train_bounds[f"{blk}_{d}"]["bound_ms"]}
+        for blk in train_blocks for d in ("fwd", "bwd")}
     emit({"phase": "train_timing", "card": smi, "B": TRAIN_B, **train_timing,
-          "bounds": train_bounds,
+          "bounds": train_bounds, "achieved": achieved,
+          "ptxas_train": ptxas["fused_nms_train.cu"],
           "launch_shape_fwd": list(fused_train.train_launch_shape(wman_graph, spec_base, False)),
           "launch_shape_bwd": list(fused_train.train_launch_shape(wman_graph, spec_base, True)),
           "launch_shape_fwd_post": list(fused_train.train_launch_shape(wman_graph, spec30_post,
                                                                        False)),
           "launch_shape_bwd_post": list(fused_train.train_launch_shape(wman_graph, spec30_post,
-                                                                       True))})
+                                                                       True)),
+          "launch_shape_bwd_sp": list(fused_train.train_launch_shape(wman_graph, spec_base,
+                                                                     True, sp=True))})
     bounds[FWD], bounds[BWD] = train_bounds["base_fwd"], train_bounds["base_bwd"]
     bounds[FWD_SP], bounds[BWD_SP] = train_bounds["base_sp_fwd"], train_bounds["base_sp_bwd"]
 

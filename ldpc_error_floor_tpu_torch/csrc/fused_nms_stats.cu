@@ -31,20 +31,22 @@
 // Stats modes write app [N*z][B], err uint8 [T][B], nerr int [T][B] (iters
 // and fail unused); deploy writes app, err uint8 [B], nerr int [B], iters
 // int [B], fail uint8 [B].  `smem` is the dynamic shared memory of one
-// block (ops/fused_decoder.py::_smem_bytes).  Returns cudaGetLastError()
-// after the launch (0 = launched), or -1 for an unknown mode.
+// block (ops/fused_decoder.py::_smem_bytes); qinv = 1/qstep, exactly (a
+// power of two).  Returns cudaGetLastError() after the launch (0 =
+// launched), or -1 for an unknown mode.
 extern "C" int fused_nms_launch(
     const void* llr, const void* w_cn, const void* w_ucn, const void* w_vn,
     const void* tab, void* app, void* err, void* nerr, void* iters,
     void* fail, int N, int M, int z, int E, int T, int B, int G, int threads,
-    int smem, int target, int dec_type, float qstep, float qclip,
+    int smem, int target, int dec_type, float qstep, float qinv, float qclip,
     float clip_llr, int cn_mode, int ucn, int vn_mode, int offset_mode,
     int dim_cn, int dim_vn, int mode, int sp, void* stream) {
+  const Msg ms{dec_type, qinv, qstep, qclip, clip_llr};
 #define FUSED_NMS_LAUNCH(MODE, SP)                                            \
   launch<MODE, SP>(llr, w_cn, w_ucn, w_vn, tab, app, err, nerr, iters, fail, \
-                   nullptr, nullptr, N, M, z, E, T, B, G, threads, smem,      \
-                   target, 0, dec_type, qstep, qclip, clip_llr, cn_mode, ucn, \
-                   vn_mode, offset_mode, dim_cn, dim_vn, (cudaStream_t)stream)
+                   nullptr, nullptr, N, M, z, E, T, B, G, 1, threads, smem,   \
+                   target, 0, ms, cn_mode, ucn, vn_mode, offset_mode, dim_cn, \
+                   dim_vn, (cudaStream_t)stream)
   switch (mode * 2 + (sp ? 1 : 0)) {
     case 0: return FUSED_NMS_LAUNCH(kFixed, false);
     case 1: return FUSED_NMS_LAUNCH(kFixed, true);

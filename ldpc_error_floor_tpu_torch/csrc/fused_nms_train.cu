@@ -13,21 +13,24 @@
 // Forward.  The mode kTrain of the decode loop in csrc/fused_nms_kernel.cuh
 // (the loop of B1, G words per block, their whole decoder state in shared
 // memory), which also writes, per iteration, the residuals the backward
-// needs, straight to device memory, batch fastest so that the G threads of
-// a row write G consecutive words:
-//   hist [T][E*z][B]      the pre-clip V->C message of every edge slot
-//                         (slot e*z + s: edge e, lifted bit s);
-//   cres [T][R*M*z][B]    per lifted check: min-sum min1, min2, the negated
-//                         sign product, and (R = 4, with UCN) the UCN mask;
-//                         SP the UCN mask alone (R = 1; no cres without
-//                         UCN), since B5-SP recomputes the tanh products;
-//   apps [T-t0][target*z][B]  the pre-clip APP for t >= t0 (the wrapper
-//                         clips it for the primal output).
-// Nothing is staged asynchronously, so no copy can read a buffer that is
-// being rewritten (the JAX forward's ping-pong has such a race).  Without
+// needs, straight to device memory, in a layout private to the pair: tiles
+// of W words, W the backward's G, the last tile padded:
+//   hist [tiles][T][E*z][W]    the pre-clip V->C message of every edge slot
+//                              (slot e*z + s: edge e, lifted bit s);
+//   cres [tiles][T][R*M*z][W]  per lifted check: min-sum min1, min2, the
+//                              negated sign product, and (R = 4, with UCN)
+//                              the UCN mask; SP the UCN mask alone (R = 1;
+//                              no cres without UCN), since B5-SP recomputes
+//                              the tanh products;
+//   apps [T-t0][target*z][B]   the pre-clip APP for t >= t0 (the wrapper
+//                              clips it for the primal output; the loss
+//                              reads it, so it keeps the batch-minor
+//                              layout).
+// One backward block's residuals of one iteration are then one contiguous
+// run (on wman at W = 4: 33,792 bytes of hist and 6,912 of cres).  Without
 // hist (forward only, no gradient wanted) only the APPs are written.
 //
-// Backward.  t = T-1..0 over the residuals, G words per block; the
+// Backward.  t = T-1..0 over the residuals, G = W words per block; the
 // cotangent of every C->V message of those words stays in shared memory
 // (gc, VN-aligned like the forward's state).  Per iteration:
 //   CN phase, one thread per lifted check: the weighting chain's gradient
@@ -36,41 +39,72 @@
 //     tie-splitting backward (the reference's reduce_min gradient: ties
 //     share equally), |x|'s gradient (+1 at 0, as JAX), the zero nudge
 //     (gradient 1) and the inclusive STE/clip mask of the pre-clip V->C
-//     message; the per-slot weight gradient goes to a second shared array;
-//     SP (sp_check_bwd) instead rebuilds the check's tanh prefix and suffix
-//     products from the V->C stream and runs their VJP (below);
+//     message.  Each message is derived once: the first pass writes it (or,
+//     outside the clip, a flag) over its pre-clip value in the staged tile,
+//     the second reads it back.  SP (sp_check_bwd) instead rebuilds the
+//     check's tanh prefix and suffix products from the V->C stream and runs
+//     their VJP (below);
 //   VN phase, one thread per lifted bit: the V->C sum's transpose turns the
 //     slot cotangents into those of the previous iteration's C->V messages,
 //     plus the previous iteration's APP cotangent under its clip mask; the
 //     VN-weight gradient through quantize_ste(llr * w).
-// Weight gradients are reduced without atomics, in a fixed order: warps
-// sum each edge's (or bit's) z*G slots of a block, one thread per weight
-// column combines them and writes a [blocks][T][dim] partial, and a second
-// kernel sums the partials over blocks.  Two launches on the same inputs
-// give bit-identical gradients.
-//
-// What bounds it on an H100: the residual stream, ~0.2 MB per word at T=20,
-// against on-chip work (~16 simple f32 operations per edge slot and
-// iteration forward, ~37 backward; SP adds a tanhf and an atanhf per slot
-// forward and again backward; chip_smoke.py::train_bound counts them);
-// both kernels touch device memory once per slot and iteration (the
-// backward reads the V->C stream twice, from L2 the second time, and
-// derives each message twice).  The launches run on the caller's stream,
-// allocate nothing and do not synchronise.  Rounding follows the scan
-// decoder (rintf, IEEE division; the build uses -fmad=false).
+// What bounds it on an H100 is latency, not bytes (it moves ~6.9 GB per
+// launch at batch 32768 on the base block, 2.06 ms at 3.35 TB/s): serial
+// slot loops, shared-memory round trips and three block-wide barriers per
+// iteration, with few warps per SM to hide them.  What the design does
+// (min-sum types):
+//   - one thread issues Hopper's bulk asynchronous copy (cp.async.bulk,
+//     completing on an mbarrier; no tensor map) of a whole iteration's
+//     residual run into shared memory, and the CN phase reads the stream
+//     from there only.  The copy of iteration t - 1 goes out as soon as the
+//     CN phase of t is done with the buffer, so it overlaps the weight sums
+//     and the VN phase of t.  One buffer: two fit the base block, wman
+//     (3,0,3), at G = 8 (232,352 bytes) but measured 4% slower there (16.4
+//     against 17.1 ms at batch 32768 on an H100; they leave the SM 24 KB of
+//     L1), and the post block (UCN) has room for one only;
+//   - the weight gradients need no per-slot array under scalar or
+//     per-check CN sharing (modes 3, 2, 5) and scalar VN sharing: a check's
+//     (bit's) thread owns all of its contributions to a weight, so it sums
+//     them in registers, CN and UCN apart by the check's mask.  A check's
+//     sums go to one value per lifted check and word, which a warp per
+//     check sums in lane order (scalar sharing then adds the checks' sums
+//     in check order); a bit's scalar sums go through warp shuffles and
+//     then per-warp values summed in warp order.  The per-edge modes 1 and
+//     4 keep the per-slot array gw and its per-edge warp sums, the per-VN
+//     modes 2 and 5 the per-bit array gv.  That frees the shared memory the
+//     staged tiles take.  Measured on wman at batch 32768 on an H100:
+//     per-check sharing (2,2,2) 11.6 ms against 16.8 with gw (G = 4
+//     against 2, the most words whose two blocks fit with gw); scalar
+//     sharing as fast as with the CN sums in registers (within 0.6%), with
+//     one strategy less, though the per-check values halve G on MacKay
+//     (3,3,3) and Polar (3,0,3);
+//   - the graph table and each iteration's weights sit in shared memory,
+//     and the quantizer multiplies by 1/step, as in the forward;
+//   - two blocks share an SM: the launch bound caps a thread at 56
+//     registers (576 threads, two blocks), and the wrapper takes the most
+//     words whose two blocks fit the SM's shared memory (wman: G = 4,
+//     80,800 bytes on the base block; 26% faster than one block of G = 8,
+//     which held the SM's registers at 64 a thread).  The forward runs two
+//     blocks per SM as well (kTrain, G = 8 on wman).
+// Every sum runs in a fixed order into [blocks][T][dim] partials, and a
+// second kernel sums the partials over blocks, so two launches on the same
+// inputs give bit-identical gradients.  The launches run on the caller's
+// stream, allocate nothing and do not synchronise.  Rounding follows the
+// scan decoder (rintf; the build uses -fmad=false).
 //
 // B5-SP.  Per lifted check of degree d, one thread, four passes over the
-// check's edges in CN order and back, holding per slot the raw tanh, the
-// prefix product F and the suffix product B in three arrays of kMaxDegSP
-// floats in the thread's local memory (cached in L1; a third [E*z][G]
-// shared array would halve G on most codes), and the inclusive clip mask of
-// each pre-clip message in a 64-bit register:
+// check's edges in CN order and back, reading the V->C stream from device
+// memory (no staging yet), holding per slot the raw tanh, the prefix
+// product F and the suffix product B in three arrays of kMaxDegSP floats in
+// the thread's local memory (cached in L1; a third [E*z][G] shared array
+// would halve G on most codes), and the inclusive clip mask of each pre-clip
+// message in a 64-bit register:
 //   1. forward: x = the clipped message, raw tanh(-x/2), F, exactly the
 //      forward's operations (so p = F*B is the forward's product, bit for
 //      bit, and the product clip's masks are the forward's);
 //   2. backward: B;
 //   3. forward: per edge the clip, -2 atanh, the weighting chain and its
-//      gradient (the per-slot weight gradient to gw, as B5), g_p with the
+//      gradient (the per-slot weight gradient to gw), g_p with the
 //      half-gradient at an exactly hit clip bound; gF = g_p*B kept in B's
 //      place; the suffix recurrence's reverse as a running sum, whose share
 //      of each slot's tanh cotangent waits in the slot's gc;
@@ -83,22 +117,76 @@
 
 namespace {
 
+// How B5 reduces a kind's weight gradient: no weights; one value per slot
+// (gw) or per bit (gv) summed by warps; one value per lifted check and word
+// (scalar and per-check CN modes); register sums (scalar VN mode).
+constexpr int kNoSum = 0;
+constexpr int kPerSlot = 1;
+constexpr int kPerItem = 2;
+constexpr int kInRegs = 3;
+
 struct Cfg {
   int N, M, z, E, T, B, G, target, t0, Dc;
-  int dec_type;
-  float qstep, qclip, clip_llr;
+  Msg ms;
   int cn_mode, ucn, vn_mode, offset_mode, dim_cn, dim_vn;
 
-  __device__ bool qms() const { return dec_type == kQMS; }
-  // The V->C message from its pre-clip value (the forward's v2c_msg).
-  __device__ float msg(float pre) const {
-    return v2c_msg(pre, dec_type, qstep, qclip, clip_llr);
+  __host__ __device__ int cn_sum(bool sp) const {
+    if (cn_mode == 0) return kNoSum;
+    return (sp || cn_mode == 1 || cn_mode == 4) ? kPerSlot : kPerItem;
   }
-  // The clip of a V->C message and of a weighted magnitude: the QMS grid's
-  // or clip_llr.
-  __device__ float msg_clip() const { return qms() ? qclip : clip_llr; }
+  __host__ __device__ int vn_sum(bool sp) const {
+    if (vn_mode == 0) return kNoSum;
+    return (sp || vn_mode != 3) ? kPerSlot : kInRegs;
+  }
+  // check residuals per lifted check and iteration
+  __host__ __device__ int R(bool sp) const {
+    return sp ? (ucn ? 1 : 0) : (ucn ? 4 : 3);
+  }
   __device__ int vn_col(int j) const {
     return (vn_mode == 2 || vn_mode == 5) ? j : 0;
+  }
+};
+
+// Byte offsets of B5's shared memory (ops/fused_train.py::_smem_bwd
+// computes the same): graph table | the mbarrier uint64 (16 bytes) |
+// weights float [2*dim_cn + dim_vn] (rounded to 16 bytes) | not SP: the
+// staged run float [E*z + R*M*z][G] | slot cotangents gc float [E*z][G] |
+// per slot: gw float
+// [E*z][G] | per bit: gv float [N*z][G] | per item: float [2][M*z][G] | per
+// slot: per-edge sums float [2][E] | per bit: per-VN sums float [N] |
+// per-warp sums float [32] | per slot with UCN: UCN masks uint8 [M*z][G].
+// end is the total.
+struct BwdLayout {
+  int bar, w, stage, gc, gw, gv, item, red, red_v, wsum, ucn_s, end;
+
+  __host__ __device__ BwdLayout(const Cfg& c, bool sp) {
+    const int EzG = c.E * c.z * c.G, NzG = c.N * c.z * c.G;
+    const int MzG = c.M * c.z * c.G;
+    const int cs = c.cn_sum(sp), vs = c.vn_sum(sp);
+    int o = table_bytes(c.N, c.M, c.E);
+    bar = o;
+    o += 16;
+    w = o;
+    o += 4 * ((2 * c.dim_cn + c.dim_vn + 3) & ~3);
+    stage = o;
+    o += sp ? 0 : 4 * (EzG + c.R(false) * MzG);
+    gc = o;
+    o += 4 * EzG;
+    gw = o;
+    o += cs == kPerSlot ? 4 * EzG : 0;
+    gv = o;
+    o += vs == kPerSlot ? 4 * NzG : 0;
+    item = o;
+    o += cs == kPerItem ? 8 * MzG : 0;
+    red = o;
+    o += cs == kPerSlot ? 8 * c.E : 0;
+    red_v = o;
+    o += vs == kPerSlot ? 4 * c.N : 0;
+    wsum = o;
+    o += 4 * 32;
+    ucn_s = o;
+    o += (cs == kPerSlot && c.ucn) ? MzG : 0;
+    end = o;
   }
 };
 
@@ -110,36 +198,84 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// B5-SP for lifted check (i, h) of word g (column b) at iteration t: turns
-// the cotangents of its new C->V messages (gc, this thread's slots) into
-// those of its pre-clip V->C messages, and writes the per-slot CN-weight
-// gradient to gw (with CN weights).  u: the check's UCN mask.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The staging of the residual runs, by one thread: arm the mbarrier (one
+// arrival per phase), ...
+__device__ __forceinline__ void init_stage_bar(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(1)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// ... copy one iteration's hist run (hbytes) and cres run (cbytes) of this
+// block into shared memory at dst with Hopper's bulk asynchronous copy,
+// completing on `bar` (sizes multiples of 16 bytes, addresses 16-byte
+// aligned: the wrapper checks).  The proxy fence orders the CN phase's
+// writes into the buffer before the copy overwrites it.
+__device__ __forceinline__ void stage_tiles(float* dst, const float* hist,
+                                            unsigned hbytes, const float* cres,
+                                            unsigned cbytes, uint64_t* bar) {
+  const unsigned b = smem_u32(bar);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b),
+               "r"(hbytes + cbytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(hist), "r"(hbytes), "r"(b)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst + hbytes / 4)),
+      "l"(cres), "r"(cbytes), "r"(b)
+      : "memory");
+}
+
+// ... and every thread waits for the copy's phase `parity` of `bar`.  A copy
+// that never lands fails the launch (after ~2^24 polls, seconds) instead of
+// hanging the card.
+__device__ __forceinline__ void wait_tiles(uint64_t* bar, unsigned parity) {
+  unsigned done = 0, polls = 0;
+  do {
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;"
+        " selp.u32 %0, 1, 0, p; }"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (++polls == (1u << 24)) __trap();
+  } while (!done);
+}
+
+// B5-SP for lifted check (i, h) of word g at iteration t: turns the
+// cotangents of its new C->V messages (gc, this thread's slots) into those
+// of its pre-clip V->C messages, and writes the per-slot CN-weight gradient
+// to gw (with CN weights).  hist_t: this block's V->C run of iteration t
+// ([E*z][G]); wc, wu: the iteration's CN and UCN weights; u: the check's
+// UCN mask.
 __device__ void sp_check_bwd(const Cfg& c, const Graph& gr,
-                             const float* __restrict__ hist,
-                             const float* __restrict__ w_cn,
-                             const float* __restrict__ w_ucn, float* gc,
-                             float* gw, int t, int i, int h, int g, int b,
-                             float u) {
+                             const float* __restrict__ hist_t,
+                             const float* wc, const float* wu, float* gc,
+                             float* gw, int i, int h, int g, float u) {
   float ttr[kMaxDegSP], fp[kMaxDegSP], bs[kMaxDegSP];
   const int k0 = gr.cn_ptr[i], deg = gr.cn_ptr[i + 1] - k0;
-  const int z = c.z;
   const bool cnw = c.cn_mode > 0;
-  const size_t Ez = (size_t)c.E * z;
   auto slot = [&](int n) {  // the shared index of the check's n-th edge
-    const int e = gr.cn_edge[k0 + n];
-    return (e * z + (h + gr.edge_shift[e]) % z) * c.G + g;
+    const int4 sd = gr.slot[k0 + n];
+    return gr.at(sd.x + gr.sub(sd, h), g);
   };
   auto tt_of = [](float v) { return (v == 0.0f) ? 1.0f : v; };
   // 1. the raw tanh of each message and the prefix products F
   unsigned long long inside = 0ull;  // bit n: |pre| <= clip_llr
   float a = 1.0f;
   for (int n = 0; n < deg; ++n) {
-    const int e = gr.cn_edge[k0 + n];
-    const int sl = (h + gr.edge_shift[e]) % z;
-    const float pre =
-        __ldg(hist + ((size_t)t * Ez + (size_t)e * z + sl) * c.B + b);
-    if (fabsf(pre) <= c.clip_llr) inside |= 1ull << n;
-    const float v = tanhf(-0.5f * c.msg(pre));
+    const float pre = __ldg(hist_t + slot(n));
+    if (fabsf(pre) <= c.ms.clip_llr) inside |= 1ull << n;
+    const float v = tanhf(-0.5f * c.ms.v2c(pre));
     ttr[n] = v;
     fp[n] = a;
     a = (n == 0) ? tt_of(v) : a * tt_of(v);
@@ -164,15 +300,11 @@ __device__ void sp_check_bwd(const Cfg& c, const Graph& gr,
     const float so = (out > 0.0f) ? 1.0f : ((out < 0.0f) ? -1.0f : 0.0f);
     float w_eff = 1.0f, r = mag;
     if (cnw) {
-      w_eff = cn_weight(w_cn, t, c.dim_cn, c.cn_mode, i, k0 + n);
-      if (c.ucn) {
-        const float wu = cn_weight(w_ucn, t, c.dim_cn, c.cn_mode, i, k0 + n);
-        w_eff = w_eff * (1.0f - u) + wu * u;
-      }
+      w_eff = cn_w(wc, wu, cn_col(c.cn_mode, i, k0 + n), c.ucn, u);
       r = c.offset_mode ? mag - w_eff : mag * w_eff;
     }
     // ReLU and the inclusive clip mask on the weighted magnitude: 0 < r <= clip
-    const float g_in = (r > 0.0f && r <= c.clip_llr) ? gc[si] * so : 0.0f;
+    const float g_in = (r > 0.0f && r <= c.ms.clip_llr) ? gc[si] * so : 0.0f;
     const float g_mag = (cnw && !c.offset_mode) ? g_in * w_eff : g_in;
     if (cnw) gw[si] = c.offset_mode ? -g_in : g_in * mag;
     // |out| (gradient +1 at 0), -2 atanh, the clip: 1/2 at a hit bound
@@ -212,13 +344,12 @@ __device__ void sp_check_bwd(const Cfg& c, const Graph& gr,
   }
 }
 
-// Shared memory (ops/fused_train.py::_smem_bwd): slot cotangents float
-// [E*z][G] | per-slot CN-weight gradients float [E*z][G] (CN weights) |
-// per-bit VN-weight gradients float [N*z][G] (VN weights) | per-edge sums
-// float [2][E] and per-VN sums float [N] | UCN masks uint8 [M*z][G] (UCN).
-// kSP: the CN phase is SP's (sp_check_bwd).
+// Shared memory: `BwdLayout`.  tab: the training table (the decode table,
+// then edge_cn[E] and edge_shift[E] in VN order for the per-edge sums).
+// kSP: the CN phase is SP's (sp_check_bwd), reading the stream from device
+// memory.
 template <bool kSP>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(kTwoBlockThreads, 2)
 train_bwd_kernel(const float* __restrict__ llr, const float* __restrict__ w_cn,
                  const float* __restrict__ w_ucn,
                  const float* __restrict__ w_vn, const int* __restrict__ tab,
@@ -227,30 +358,52 @@ train_bwd_kernel(const float* __restrict__ llr, const float* __restrict__ w_cn,
                  const float* __restrict__ g_apps, float* __restrict__ part_cn,
                  float* __restrict__ part_ucn, float* __restrict__ part_vn,
                  Cfg c) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const BwdLayout L(c, kSP);
   const int z = c.z, G = c.G, B = c.B, T = c.T;
-  const int NzG = c.N * z * G, MzG = c.M * z * G, EzG = c.E * z * G;
-  const int zG = z * G;
+  const int Nz = c.N * z, Mz = c.M * z, Ez = c.E * z;
+  const int EzG = Ez * G, MzG = Mz * G, zG = z * G;
+  const int R = c.R(kSP);
+  const int cn_sum = c.cn_sum(kSP), vn_sum = c.vn_sum(kSP);
   const bool cnw = c.cn_mode > 0, vnw = c.vn_mode > 0;
-  float* gc = smem;
-  float* gw = gc + EzG;                    // used with CN weights
-  float* gv = gw + (cnw ? EzG : 0);        // used with VN weights
-  float* red_c = gv + (vnw ? NzG : 0);
+  const bool per_edge = c.cn_mode == 1 || c.cn_mode == 4;
+  const Graph gr = stage_table(tab, reinterpret_cast<int*>(smem_raw), c.N,
+                               c.M, c.E, z, G);
+  const int* edge_cn = tab + 4 * c.E + c.N + c.M + 2;  // VN order, device memory
+  const int* edge_shift = edge_cn + c.E;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw + L.bar);
+  float* wc = reinterpret_cast<float*>(smem_raw + L.w);
+  float* wu = wc + c.dim_cn;
+  float* wv = wu + c.dim_cn;
+  float* hs = reinterpret_cast<float*>(smem_raw + L.stage);  // the staged run:
+  const float* cs = hs + EzG;                                 // hist, then cres
+  float* gc = reinterpret_cast<float*>(smem_raw + L.gc);
+  float* gw = reinterpret_cast<float*>(smem_raw + L.gw);
+  float* gv = reinterpret_cast<float*>(smem_raw + L.gv);
+  float* isc = reinterpret_cast<float*>(smem_raw + L.item);  // per item: CN
+  float* isu = isc + MzG;                                     // and UCN
+  float* red_c = reinterpret_cast<float*>(smem_raw + L.red);
   float* red_u = red_c + c.E;
-  float* red_v = red_u + c.E;
-  uint8_t* ucn_s = reinterpret_cast<uint8_t*>(red_v + c.N);
-  const Graph gr(tab, c.N, c.M, c.E, z, G);
-  const size_t Ez = (size_t)c.E * z, Mz = (size_t)c.M * z;
+  float* red_v = reinterpret_cast<float*>(smem_raw + L.red_v);
+  float* wsum = reinterpret_cast<float*>(smem_raw + L.wsum);  // [32]
+  uint8_t* ucn_s = smem_raw + L.ucn_s;
   const size_t Tz = (size_t)c.target * z;
-  const int R = c.ucn ? 4 : 3;
-  const float mclip = c.msg_clip();
+  const float mclip = c.ms.msg_clip();
+  const float kOutside = __int_as_float(0x7f800000);  // +inf: outside the clip
 
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
-  const int gt = tid % G;
+  const int gt = tid & (G - 1);
   const int b = blockIdx.x * G + gt;
   const bool real = b < B;
+  const Rows rows0(tid >> gr.lg, nthr >> gr.lg, z);  // this thread's items
+  // this block's residual runs of iteration t
+  auto hist_t = [&](int t) { return hist + ((size_t)blockIdx.x * T + t) * EzG; };
+  auto cres_t = [&](int t) { return cres + ((size_t)blockIdx.x * T + t) * R * MzG; };
+  auto stage_it = [&](int t) {  // by one thread: iteration t into the buffer
+    stage_tiles(hs, hist_t(t), 4u * EzG, cres_t(t), 4u * R * MzG, bar);
+  };
 
   // cotangent of iteration tt's clipped APP on lifted bit `row` (0 outside
   // the emission window, the target columns, or the clip)
@@ -258,58 +411,67 @@ train_bwd_kernel(const float* __restrict__ llr, const float* __restrict__ w_cn,
     if (tt < c.t0 || row >= c.target * z) return 0.0f;
     const size_t at = ((size_t)(tt - c.t0) * Tz + row) * B + b;
     const float ap = __ldg(apps_pre + at);
-    return (ap >= -c.clip_llr && ap <= c.clip_llr) ? __ldg(g_apps + at) : 0.0f;
+    return (ap >= -c.ms.clip_llr && ap <= c.ms.clip_llr) ? __ldg(g_apps + at)
+                                                         : 0.0f;
   };
 
-  for (int k = tid; k < NzG; k += nthr) {
-    const int row = k / G;
-    const int j = row / z;
-    const int s = row - j * z;
-    const float f = real ? fold(T - 1, row) : 0.0f;
-    for (int e = gr.vn_ptr[j]; e < gr.vn_ptr[j + 1]; ++e)
-      gc[(e * z + s) * G + gt] = f;
+  stage_weights(w_cn, wc, T - 1, c.dim_cn);
+  if (c.ucn) stage_weights(w_ucn, wu, T - 1, c.dim_cn);
+  stage_weights(w_vn, wv, T - 1, c.dim_vn);
+  if (!kSP && tid == 0) {
+    init_stage_bar(bar);
+    stage_it(T - 1);
+  }
+  __syncthreads();  // the table, the weights, the mbarrier
+  for (Rows it = rows0; it.row < Nz; it.next()) {
+    const float f = real ? fold(T - 1, it.row) : 0.0f;
+    for (int e = gr.vn_ptr[it.q], r = e * z + it.r; e < gr.vn_ptr[it.q + 1];
+         ++e, r += z)
+      gc[gr.at(r, gt)] = f;
   }
   __syncthreads();
 
   for (int t = T - 1; t >= 0; --t) {
     // ---- CN phase: per lifted check -----------------------------------
-    for (int k = tid; k < MzG; k += nthr) {
+    if (!kSP) wait_tiles(bar, (T - 1 - t) & 1);  // iteration t's run
+    for (Rows it = rows0; it.row < Mz; it.next()) {
       const int g = gt;
-      const int row = k / G;
-      const int i = row / z;
-      const int h = row - i * z;
+      const int row = it.row, i = it.q, h = it.r;
+      const int k = gr.at(row, g);
       const int k0 = gr.cn_ptr[i], k1 = gr.cn_ptr[i + 1];
       if (!real) {  // a ragged block's missing words contribute nothing
         for (int q = k0; q < k1; ++q) {
-          const int e = gr.cn_edge[q];
-          const int si = (e * z + (h + gr.edge_shift[e]) % z) * G + g;
+          const int4 sd = gr.slot[q];
+          const int si = gr.at(sd.x + gr.sub(sd, h), g);
           gc[si] = 0.0f;
-          if (cnw) gw[si] = 0.0f;
+          if (cn_sum == kPerSlot) gw[si] = 0.0f;
         }
-        if (c.ucn) ucn_s[k] = 0;
+        if (cn_sum == kPerSlot && c.ucn) ucn_s[k] = 0;
+        if (cn_sum == kPerItem) isc[k] = isu[k] = 0.0f;
         continue;
       }
       if (kSP) {
-        const float u =
-            c.ucn ? __ldg(cres + ((size_t)t * Mz + row) * B + b) : 0.0f;
+        const float u = c.ucn ? __ldg(cres_t(t) + k) : 0.0f;
         if (c.ucn) ucn_s[k] = u > 0.5f;
-        sp_check_bwd(c, gr, hist, w_cn, w_ucn, gc, gw, t, i, h, g, b, u);
+        sp_check_bwd(c, gr, hist_t(t), wc, wu, gc, gw, i, h, g, u);
         continue;
       }
-      const size_t r0 = (size_t)t * R * Mz + row;
-      const float m1 = __ldg(cres + r0 * B + b);
-      const float m2 = __ldg(cres + (r0 + Mz) * B + b);
-      const float neg_tot = __ldg(cres + (r0 + 2 * Mz) * B + b);
-      const float u = c.ucn ? __ldg(cres + (r0 + 3 * Mz) * B + b) : 0.0f;
-      if (c.ucn) ucn_s[k] = u > 0.5f;
-      // pass 1: the weighting chain, per edge; tie counts and sums
-      float c1 = 0.0f, c2 = 0.0f, g_above = 0.0f, g_min = 0.0f;
+      const float m1 = cs[k];
+      const float m2 = cs[gr.at(row + Mz, g)];
+      const float neg_tot = cs[gr.at(row + 2 * Mz, g)];
+      const float u = c.ucn ? cs[gr.at(row + 3 * Mz, g)] : 0.0f;
+      if (cn_sum == kPerSlot && c.ucn) ucn_s[k] = u > 0.5f;
+      const float w_chk =
+          (cnw && !per_edge) ? cn_w(wc, wu, cn_col(c.cn_mode, i, 0), c.ucn, u) : 1.0f;
+      // pass 1: the message (kept in the staged slot, +inf outside the
+      // clip), the weighting chain, tie counts and sums
+      float c1 = 0.0f, c2 = 0.0f, g_above = 0.0f, g_min = 0.0f, sw = 0.0f;
       for (int q = k0; q < k1; ++q) {
-        const int e = gr.cn_edge[q];
-        const int sl = (h + gr.edge_shift[e]) % z;
-        const int si = (e * z + sl) * G + g;
-        const float x =
-            c.msg(__ldg(hist + ((size_t)t * Ez + (size_t)e * z + sl) * B + b));
+        const int4 sd = gr.slot[q];
+        const int si = gr.at(sd.x + gr.sub(sd, h), g);
+        const float pre = hs[si];
+        const float x = c.ms.v2c(pre);
+        hs[si] = (fabsf(pre) <= mclip) ? x : kOutside;
         const float a = (x == 0.0f) ? kPadMag : fabsf(x);
         const float sg = (x > 0.0f) ? -1.0f : 1.0f;
         const float mag = (a == m1) ? m2 : m1;
@@ -320,18 +482,20 @@ train_bwd_kernel(const float* __restrict__ llr, const float* __restrict__ w_cn,
             (neg_tot * sg);
         float w_eff = 1.0f, r = magp;
         if (cnw) {
-          w_eff = cn_weight(w_cn, t, c.dim_cn, c.cn_mode, i, q);
-          if (c.ucn) {
-            const float wu = cn_weight(w_ucn, t, c.dim_cn, c.cn_mode, i, q);
-            w_eff = w_eff * (1.0f - u) + wu * u;
-          }
+          w_eff = per_edge ? cn_w(wc, wu, q, c.ucn, u) : w_chk;
           r = c.offset_mode ? magp - w_eff : magp * w_eff;
         }
         // ReLU (gradient 0 at 0) and the inclusive mask of the STE/clip on
         // its output collapse to 0 < r <= clip
         const float g_r = (r > 0.0f && r <= mclip) ? gc[si] * so : 0.0f;
         const float g_mag = (cnw && !c.offset_mode) ? g_r * w_eff : g_r;
-        if (cnw) gw[si] = c.offset_mode ? -g_r : g_r * magp;
+        if (cnw) {
+          const float gwv = c.offset_mode ? -g_r : g_r * magp;
+          if (cn_sum == kPerSlot)
+            gw[si] = gwv;
+          else
+            sw += gwv;
+        }
         gc[si] = g_mag;
         if (a == m1) {
           c1 += 1.0f;
@@ -347,37 +511,50 @@ train_bwd_kernel(const float* __restrict__ llr, const float* __restrict__ w_cn,
       if (m2 == kPadMag) c2 += npad;
       c2 = fmaxf(c2, 1.0f);
       const bool multi = c1 > 1.0f;
+      // the check's shares: of the larger slots' sum to a slot at m1, of the
+      // min slot's to a slot at m2
+      const float to_m1 = multi ? g_above / c1 : g_above;
+      const float to_m2 = multi ? 0.0f : g_min / c2;
+      const float ties = fmaxf(c1 - 1.0f, 1.0f);
       // pass 2: the tie-splitting extrinsic-min backward, |x|, the nudge
       // (gradient 1) and the inclusive mask of the V->C quantizer/clip
       for (int q = k0; q < k1; ++q) {
-        const int e = gr.cn_edge[q];
-        const int sl = (h + gr.edge_shift[e]) % z;
-        const int si = (e * z + sl) * G + g;
-        const float pre =
-            __ldg(hist + ((size_t)t * Ez + (size_t)e * z + sl) * B + b);
-        const float x = c.msg(pre);
+        const int4 sd = gr.slot[q];
+        const int si = gr.at(sd.x + gr.sub(sd, h), g);
+        const float x = hs[si];
+        if (x == kOutside) {
+          gc[si] = 0.0f;
+          continue;
+        }
         const float a = (x == 0.0f) ? kPadMag : fabsf(x);
         float ga = 0.0f;
         if (a == m1)
-          ga = multi ? g_above / c1 + (g_min - gc[si]) / fmaxf(c1 - 1.0f, 1.0f)
-                     : g_above;
+          ga = multi ? to_m1 + (g_min - gc[si]) / ties : to_m1;
         else if (a == m2)
-          ga = multi ? 0.0f : g_min / c2;
-        const float gx = (x >= 0.0f) ? ga : -ga;
-        gc[si] = (fabsf(pre) <= mclip) ? gx : 0.0f;
+          ga = to_m2;
+        gc[si] = (x >= 0.0f) ? ga : -ga;
+      }
+      const bool on_ucn = c.ucn && u > 0.5f;
+      if (cn_sum == kPerItem) {
+        isc[k] = on_ucn ? 0.0f : sw;
+        isu[k] = on_ucn ? sw : 0.0f;
       }
     }
     __syncthreads();
+    // the buffer is free: stage iteration t - 1 into it
+    if (!kSP && tid == 0 && t > 0) stage_it(t - 1);
 
-    // ---- CN-weight sums per edge; VN phase: per lifted bit ------------
-    if (cnw) {
+    // ---- CN-weight sums; VN phase: per lifted bit ---------------------
+    const size_t pb = (size_t)blockIdx.x * T + t;
+    if (cn_sum == kPerSlot) {
       for (int e = warp; e < c.E; e += nwarps) {
-        const int i = gr.edge_cn[e], sh = gr.edge_shift[e];
+        const int i = __ldg(edge_cn + e), sh = __ldg(edge_shift + e);
         float sc = 0.0f, su = 0.0f;
         for (int idx = lane; idx < zG; idx += 32) {
           const float v = gw[e * zG + idx];
-          const int s = idx / G, g = idx - s * G;
-          if (c.ucn && ucn_s[(i * z + (s - sh + z) % z) * G + g])
+          const int s = idx >> gr.lg, g = idx & (G - 1);
+          const int hh = (s >= sh) ? s - sh : s - sh + z;
+          if (c.ucn && ucn_s[gr.at(i * z + hh, g)])
             su += v;
           else
             sc += v;
@@ -389,59 +566,90 @@ train_bwd_kernel(const float* __restrict__ llr, const float* __restrict__ w_cn,
           red_u[e] = su;
         }
       }
+    } else if (cn_sum == kPerItem) {  // one check per warp
+      for (int i = warp; i < c.M; i += nwarps) {
+        float sc = 0.0f, su = 0.0f;
+        for (int idx = lane; idx < zG; idx += 32) {
+          sc += isc[i * zG + idx];
+          su += isu[i * zG + idx];
+        }
+        sc = warp_sum(sc);
+        su = warp_sum(su);
+        if (lane == 0 && c.cn_mode == 3) {  // the check's sums, over its first
+          isc[i * zG] = sc;                 // item (the warp has read them)
+          isu[i * zG] = su;
+        } else if (lane == 0) {
+          part_cn[pb * c.dim_cn + i] = sc;
+          if (c.ucn) part_ucn[pb * c.dim_cn + i] = su;
+        }
+      }
     }
-    for (int k = tid; k < NzG; k += nthr) {
-      const int row = k / G;
-      const int j = row / z;
-      const int s = row - j * z;
+    float acc_v = 0.0f;  // register sum (scalar VN sharing)
+    for (Rows it = rows0; it.row < Nz; it.next()) {
+      const int row = it.row, j = it.q, s = it.r;
+      const int k = gr.at(row, gt);
       const int e0 = gr.vn_ptr[j], e1 = gr.vn_ptr[j + 1];
       if (!real) {
-        for (int e = e0; e < e1; ++e) gc[(e * z + s) * G + gt] = 0.0f;
-        if (vnw) gv[k] = 0.0f;
+        for (int e = e0, r = e0 * z + s; e < e1; ++e, r += z) gc[gr.at(r, gt)] = 0.0f;
+        if (vn_sum == kPerSlot) gv[k] = 0.0f;
         continue;
       }
       const float g_tot = gr.bit_sum(gc, j, s, gt);
       if (vnw) {
         const float x = __ldg(llr + (size_t)row * B + b);
-        const float lw =
-            x * __ldg(w_vn + (size_t)t * c.dim_vn + c.vn_col(j));
-        const bool inside = !c.qms() || fabsf(lw) <= c.qclip;
-        gv[k] = (inside ? g_tot : 0.0f) * x;
+        const float lw = x * wv[c.vn_col(j)];
+        const bool inside = !c.ms.qms() || fabsf(lw) <= c.ms.qclip;
+        const float v = (inside ? g_tot : 0.0f) * x;
+        if (vn_sum == kPerSlot)
+          gv[k] = v;
+        else
+          acc_v += v;
       }
       if (t > 0) {
         const float f = fold(t - 1, row);
-        for (int e = e0; e < e1; ++e) {
-          const int si = (e * z + s) * G + gt;
+        for (int e = e0, r = e0 * z + s; e < e1; ++e, r += z) {
+          const int si = gr.at(r, gt);
           gc[si] = (g_tot - gc[si]) + f;
         }
       }
     }
+    if (vn_sum == kInRegs) {
+      acc_v = warp_sum(acc_v);
+      if (lane == 0) wsum[warp] = acc_v;
+    }
     __syncthreads();
 
     // ---- weight-gradient partials of this block and iteration ---------
-    const size_t pb = (size_t)blockIdx.x * T + t;
-    if (cnw) {
+    if (cn_sum == kPerSlot) {
       for (int d = tid; d < c.dim_cn; d += nthr) {
         float vc, vu;
-        if (c.cn_mode == 1 || c.cn_mode == 4) {
-          vc = red_c[gr.cn_edge[d]];
-          vu = red_u[gr.cn_edge[d]];
+        if (per_edge) {
+          vc = red_c[gr.slot[d].w];
+          vu = red_u[gr.slot[d].w];
         } else {
           const bool per_check = c.cn_mode == 2 || c.cn_mode == 5;
           const int q0 = per_check ? gr.cn_ptr[d] : 0;
           const int q1 = per_check ? gr.cn_ptr[d + 1] : c.E;
-          vc = red_c[gr.cn_edge[q0]];
-          vu = red_u[gr.cn_edge[q0]];
+          vc = red_c[gr.slot[q0].w];
+          vu = red_u[gr.slot[q0].w];
           for (int q = q0 + 1; q < q1; ++q) {
-            vc += red_c[gr.cn_edge[q]];
-            vu += red_u[gr.cn_edge[q]];
+            vc += red_c[gr.slot[q].w];
+            vu += red_u[gr.slot[q].w];
           }
         }
         part_cn[pb * c.dim_cn + d] = vc;
         if (c.ucn) part_ucn[pb * c.dim_cn + d] = vu;
       }
+    } else if (cn_sum == kPerItem && c.cn_mode == 3 && tid == 0) {
+      float vc = isc[0], vu = isu[0];  // scalar: the checks' sums, in order
+      for (int i = 1; i < c.M; ++i) {
+        vc += isc[i * zG];
+        vu += isu[i * zG];
+      }
+      part_cn[pb * c.dim_cn] = vc;
+      if (c.ucn) part_ucn[pb * c.dim_cn] = vu;
     }
-    if (vnw) {
+    if (vn_sum == kPerSlot) {
       for (int j = warp; j < c.N; j += nwarps) {
         float sv = 0.0f;
         for (int idx = lane; idx < zG; idx += 32) sv += gv[j * zG + idx];
@@ -455,6 +663,15 @@ train_bwd_kernel(const float* __restrict__ llr, const float* __restrict__ w_cn,
           for (int j = 1; j < c.N; ++j) v += red_v[j];
         part_vn[pb * c.dim_vn + d] = v;
       }
+    } else if (vn_sum == kInRegs && tid == 0) {
+      float v = wsum[0];  // the warps' sums, in order
+      for (int w = 1; w < nwarps; ++w) v += wsum[w];
+      part_vn[pb * c.dim_vn] = v;
+    }
+    if (t > 0) {  // the next iteration's weights
+      stage_weights(w_cn, wc, t - 1, c.dim_cn);
+      if (c.ucn) stage_weights(w_ucn, wu, t - 1, c.dim_cn);
+      stage_weights(w_vn, wv, t - 1, c.dim_vn);
     }
     __syncthreads();
   }
@@ -488,13 +705,13 @@ int reduce(const void* part, void* out, int nblk, int cols,
 }
 
 Cfg make_cfg(int N, int M, int z, int E, int T, int B, int G, int target,
-             int t0, int Dc, int dec_type, float qstep, float qclip,
-             float clip_llr, int cn_mode, int ucn, int vn_mode,
+             int t0, int Dc, int dec_type, float qstep, float qinv,
+             float qclip, float clip_llr, int cn_mode, int ucn, int vn_mode,
              int offset_mode, int dim_cn, int dim_vn) {
   Cfg c;
   c.N = N; c.M = M; c.z = z; c.E = E; c.T = T; c.B = B; c.G = G;
-  c.target = target; c.t0 = t0; c.Dc = Dc; c.dec_type = dec_type;
-  c.qstep = qstep; c.qclip = qclip; c.clip_llr = clip_llr;
+  c.target = target; c.t0 = t0; c.Dc = Dc;
+  c.ms = Msg{dec_type, qinv, qstep, qclip, clip_llr};
   c.cn_mode = cn_mode; c.ucn = ucn; c.vn_mode = vn_mode;
   c.offset_mode = offset_mode; c.dim_cn = dim_cn; c.dim_vn = dim_vn;
   return c;
@@ -502,47 +719,55 @@ Cfg make_cfg(int N, int M, int z, int E, int T, int B, int G, int target,
 
 }  // namespace
 
-#define TRAIN_CFG_ARGS                                                      \
-  int N, int M, int z, int E, int T, int B, int G, int threads, int smem,   \
-      int target, int t0, int Dc, int dec_type, float qstep, float qclip,   \
-      float clip_llr, int cn_mode, int ucn, int vn_mode, int offset_mode,   \
-      int dim_cn, int dim_vn
-#define TRAIN_CFG                                                           \
-  make_cfg(N, M, z, E, T, B, G, target, t0, Dc, dec_type, qstep, qclip,     \
-           clip_llr, cn_mode, ucn, vn_mode, offset_mode, dim_cn, dim_vn)
+#define TRAIN_CFG_ARGS                                                       \
+  int N, int M, int z, int E, int T, int B, int G, int W, int threads,       \
+      int smem, int target, int t0, int Dc, int dec_type, float qstep,       \
+      float qinv, float qclip, float clip_llr, int cn_mode, int ucn,         \
+      int vn_mode, int offset_mode, int dim_cn, int dim_vn
+#define TRAIN_CFG                                                            \
+  make_cfg(N, M, z, E, T, B, G, target, t0, Dc, dec_type, qstep, qinv,       \
+           qclip, clip_llr, cn_mode, ucn, vn_mode, offset_mode, dim_cn,      \
+           dim_vn)
 
 // B4: fused_nms_kernel<kTrain, SP?>.  Writes apps [T-t0][target*z][B]
-// (pre-clip) and, when hist is not null, hist [T][E*z][B] and cres
-// [T][R*M*z][B] (null for SP without UCN).  `smem` is one block's dynamic
-// shared memory (ops/fused_decoder.py::_smem_bytes).  Returns
+// (pre-clip) and, when hist is not null, hist [tiles][T][E*z][W] and cres
+// [tiles][T][R*M*z][W] (null for SP without UCN), tiles = ceil(B / W), W
+// the backward's G.  `smem` is one block's dynamic shared memory
+// (ops/fused_decoder.py::_smem_bytes); qinv = 1/qstep exactly.  Returns
 // cudaGetLastError() after the launch (0 = launched).
 extern "C" int fused_nms_train_fwd_launch(
     const void* llr, const void* w_cn, const void* w_ucn, const void* w_vn,
     const void* tab, void* apps, void* hist, void* cres, TRAIN_CFG_ARGS,
     void* stream) {
   (void)Dc;
+  const Msg ms{dec_type, qinv, qstep, qclip, clip_llr};
 #define TRAIN_FWD_LAUNCH(SP)                                                  \
   launch<kTrain, SP>(llr, w_cn, w_ucn, w_vn, tab, apps, nullptr, nullptr,     \
-                     nullptr, nullptr, hist, cres, N, M, z, E, T, B, G,       \
-                     threads, smem, target, t0, dec_type, qstep, qclip,       \
-                     clip_llr, cn_mode, ucn, vn_mode, offset_mode, dim_cn,    \
-                     dim_vn, (cudaStream_t)stream)
+                     nullptr, nullptr, hist, cres, N, M, z, E, T, B, G, W,    \
+                     threads, smem, target, t0, ms, cn_mode, ucn, vn_mode,    \
+                     offset_mode, dim_cn, dim_vn, (cudaStream_t)stream)
   return dec_type == kSPDec ? TRAIN_FWD_LAUNCH(true) : TRAIN_FWD_LAUNCH(false);
 #undef TRAIN_FWD_LAUNCH
 }
 
-// B5 (B5-SP for dec_type SP).  Reads the forward's residuals and the APP
-// cotangent g_apps (same layout as apps), writes the partials part_* [blocks][T][dim] (scratch)
-// and the weight gradients g_* [T][dim] (null for a kind without weights).
+// B5 (B5-SP for dec_type SP), G = W words per block.  Reads the forward's
+// residuals and the APP cotangent g_apps (same layout as apps), writes the
+// partials part_* [blocks][T][dim] (scratch) and the weight gradients g_*
+// [T][dim] (null for a kind without weights).  Returns -2 when `smem` is
+// not the layout's size, else cudaGetLastError() after the launches (0 =
+// launched).
 extern "C" int fused_nms_train_bwd_launch(
     const void* llr, const void* w_cn, const void* w_ucn, const void* w_vn,
     const void* tab, const void* hist, const void* cres,
     const void* apps_pre, const void* g_apps, void* part_cn, void* part_ucn,
     void* part_vn, void* g_cn, void* g_ucn, void* g_vn, TRAIN_CFG_ARGS,
     void* stream) {
+  (void)W;
   cudaStream_t s = (cudaStream_t)stream;
-  auto* kernel = dec_type == kSPDec ? train_bwd_kernel<true>
-                                    : train_bwd_kernel<false>;
+  const bool sp = dec_type == kSPDec;
+  const Cfg cfg = TRAIN_CFG;
+  if (BwdLayout(cfg, sp).end != smem) return -2;
+  auto* kernel = sp ? train_bwd_kernel<true> : train_bwd_kernel<false>;
   cudaError_t st = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (st != cudaSuccess) return (int)st;
@@ -551,7 +776,7 @@ extern "C" int fused_nms_train_bwd_launch(
       (const float*)llr, (const float*)w_cn, (const float*)w_ucn,
       (const float*)w_vn, (const int*)tab, (const float*)hist,
       (const float*)cres, (const float*)apps_pre, (const float*)g_apps,
-      (float*)part_cn, (float*)part_ucn, (float*)part_vn, TRAIN_CFG);
+      (float*)part_cn, (float*)part_ucn, (float*)part_vn, cfg);
   int rc = (int)cudaGetLastError();
   if (rc == 0) rc = reduce(part_cn, g_cn, blocks, T * dim_cn, s);
   if (rc == 0) rc = reduce(part_ucn, g_ucn, blocks, T * dim_cn, s);

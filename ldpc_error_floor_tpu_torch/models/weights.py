@@ -18,6 +18,7 @@ float32 tensors (``None`` for disabled kinds).  Temporal sharing stores
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, Mapping, Optional, Tuple
 
@@ -48,6 +49,8 @@ class WeightSpec:
     max_w: float = 2.0
 
     def __post_init__(self):
+        # a tuple, so that a spec hashes (a JSON config gives a list)
+        object.__setattr__(self, "sharing", tuple(self.sharing))
         cn, ucn, vn = self.sharing
         for s in self.sharing:
             if s not in (0, 1, 2, 3, 4, 5):
@@ -163,6 +166,13 @@ def trainable_mask(spec: WeightSpec, train_start: int, train_end: int,
     return masks
 
 
+@functools.lru_cache(maxsize=None)
+def _iter_rows(spec: WeightSpec, kind: str, device: torch.device) -> torch.Tensor:
+    """`spec.iter_to_row(kind)` on `device`, copied there once: a copy from
+    the host waits for the card, which stalled every training step."""
+    return torch.as_tensor(spec.iter_to_row(kind), device=device)
+
+
 def stack_weights(spec: WeightSpec, params: Params) -> Dict[str, Optional[torch.Tensor]]:
     """Expand stored rows to per-iteration [T, dim] tensors (differentiable:
     a row shared by several iterations gathers their gradients)."""
@@ -172,7 +182,7 @@ def stack_weights(spec: WeightSpec, params: Params) -> Dict[str, Optional[torch.
         if v is None:
             out[kind] = None
         else:
-            rows = torch.as_tensor(spec.iter_to_row(kind), device=v.device)
+            rows = _iter_rows(spec, kind, v.device)
             out[kind] = v.index_select(0, rows).contiguous()
     return out
 

@@ -27,6 +27,7 @@ import collections
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -55,6 +56,11 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
                "-Xptxas", "-v")
 _SMEM_LIMIT = 232_448  # dynamic shared memory one H100 block may use
+_SMEM_PER_SM = 233_472  # shared memory of one H100 SM (228 KB)
+_SMEM_RESERVED = 1_024  # of it, reserved for each resident block
+# threads per block of the training pair, built to run two blocks per SM
+# (kTwoBlockThreads of the .cuh: at most 56 registers a thread)
+_TWO_BLOCK_THREADS = 576
 _MAX_DEG_SP = 64  # kMaxDegSP of the .cu: the largest check degree SP takes
 
 # the kernel's modes, in the .cu's numbering, by the name its launches count under
@@ -87,12 +93,12 @@ def build_library(src_path: Path) -> Tuple[ctypes.CDLL, str]:
     """Build one kernel source (once per hash of it, the headers beside it
     and the flags) into `_BUILD_DIR` and load it.  Returns the library and
     the compiler's log (``-Xptxas -v``: registers, shared memory, spills;
-    empty when the build was cached)."""
+    kept beside the library, so a cached build returns it too)."""
     src = src_path.read_bytes() + b"".join(
         h.read_bytes() for h in sorted(src_path.parent.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
     lib_path = _BUILD_DIR / f"{src_path.stem}_{digest}.so"
-    log = ""
+    log_path = lib_path.with_suffix(".log")
     if not lib_path.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
@@ -100,8 +106,9 @@ def build_library(src_path: Path) -> Tuple[ctypes.CDLL, str]:
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        log_path.write_text(res.stderr)
         os.replace(tmp, lib_path)
-        log = res.stderr
+    log = log_path.read_text() if log_path.exists() else ""
     return ctypes.CDLL(str(lib_path)), log
 
 
@@ -111,37 +118,56 @@ def load_library() -> Tuple[ctypes.CDLL, str]:
     lib, log = build_library(_SRC)
     fn = lib.fused_nms_launch
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
-                   + [ctypes.c_float] * 3 + [ctypes.c_int] * 8
+                   + [ctypes.c_float] * 4 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, log
 
 
-def _smem_bytes(N: int, z: int, E: int, G: int, ucn: bool,
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def _table_bytes(N: int, M: int, E: int) -> int:
+    """Bytes of the graph table staged in shared memory (`_graph_table`),
+    rounded up to 16."""
+    return _align16(4 * (4 * E + N + M + 2))
+
+
+def _smem_bytes(N: int, M: int, z: int, E: int, G: int, ucn: bool,
                 deploy: bool = False) -> int:
     """Dynamic shared memory of one block of G words, as the kernel lays it
-    out: C->V float [E*z][G], bit totals float [N*z][G], error counts int
-    [2][G], in deploy mode two more int [G] (frozen flag, last unsatisfied
-    step), then parity bits uint8 [N*z][G] (with UCN or in deploy mode).
-    The launch reserves this."""
-    return ((E * z + N * z) * G * 4 + (4 if deploy else 2) * G * 4
+    out: the graph table (`_table_bytes`), one iteration's weights float
+    [2E + N] (cn, ucn, vn at most; rounded up to 16 bytes), C->V float
+    [E*z][G], bit totals float [N*z][G], error counts int [2][G], in deploy
+    mode two more int [G] (frozen flag, last unsatisfied step), then parity
+    bits uint8 [N*z][G] (with UCN or in deploy mode).  The launch reserves
+    this (and the kernel refuses another size)."""
+    return (_table_bytes(N, M, E) + _align16(4 * (2 * E + N))
+            + (E * z + N * z) * G * 4 + (4 if deploy else 2) * G * 4
             + (N * z * G if ucn or deploy else 0))
 
 
-def pick_launch_shape(graph: TannerGraph,
-                      smem: Callable[[int], int]) -> Tuple[int, int]:
+def pick_launch_shape(graph: TannerGraph, smem: Callable[[int], int],
+                      blocks: int = 1) -> Tuple[int, int]:
     """(G codewords per block, threads per block) of a kernel whose block of
-    G words needs ``smem(G)`` bytes of shared memory: the most words that
-    fit (at most 32, a power of two), and a thread count that is a multiple
-    of G and of the warp, preferring one that splits the check phase's
+    G words needs ``smem(G)`` bytes of shared memory: the most words (at
+    most 32, a power of two) of which `blocks` blocks fit one SM, else of
+    which one block fits, and a thread count that is a multiple of G and of
+    the warp, at most 1024 (`_TWO_BLOCK_THREADS` for the kernels built to
+    run two blocks per SM), preferring one that splits the check phase's
     M*z*G items evenly."""
     code = graph.code
-    G = next((g for g in (32, 16, 8, 4, 2, 1) if smem(g) <= _SMEM_LIMIT), None)
+    words = (32, 16, 8, 4, 2, 1)
+    G = next((g for g in words if smem(g) <= _SMEM_LIMIT
+              and blocks * (smem(g) + _SMEM_RESERVED) <= _SMEM_PER_SM), None)
+    G = G or next((g for g in words if smem(g) <= _SMEM_LIMIT), None)
     if G is None:
         raise ValueError(f"{code.name}: one codeword's state exceeds a "
                          "block's shared memory")
     items = code.M * code.z * G
-    cands = [c for c in range(1024, 127, -32) if c % G == 0]
+    top = 1024 if blocks == 1 else _TWO_BLOCK_THREADS
+    cands = [c for c in range(top, 127, -32) if c % G == 0]
     threads = next((c for c in cands if items % c == 0), 512)
     return G, threads
 
@@ -151,22 +177,40 @@ def launch_shape(graph: TannerGraph, ucn: bool,
     """(G, threads) of the decode kernel (`pick_launch_shape`)."""
     code = graph.code
     return pick_launch_shape(graph, lambda g: _smem_bytes(
-        code.N, code.z, graph.E, g, ucn, deploy))
+        code.N, code.M, code.z, graph.E, g, ucn, deploy))
 
 
 def _graph_table(graph: TannerGraph) -> np.ndarray:
-    """int32 vn_ptr[N+1] | cn_ptr[M+1] | cn_edge[E] | edge_vn[E] |
-    edge_shift[E] (the layout the CUDA kernel reads)."""
+    """The graph table the CUDA kernels stage into shared memory (int32):
+    for each check-order position q, the four ints (e*z, vn*z, shift, e) of
+    its VN-order edge e (one 16-byte load gives a slot's bases and its
+    circulant shift, reduced mod z) | vn_ptr[N+1] | cn_ptr[M+1]."""
     code = graph.code
+    z = code.z
     vn_deg = np.bincount(graph.edge_vn, minlength=code.N)
     cn_deg = np.bincount(graph.edge_cn, minlength=code.M)
     vn_ptr = np.concatenate([[0], np.cumsum(vn_deg)])
     cn_ptr = np.concatenate([[0], np.cumsum(cn_deg)])
     # VN-order edge ids are column-major, so VN j owns [vn_ptr[j], vn_ptr[j+1])
     assert np.array_equal(graph.edge_vn, np.repeat(np.arange(code.N), vn_deg))
-    return np.concatenate([vn_ptr, cn_ptr, graph.edge_of_cn_order,
-                           graph.edge_vn, graph.edge_shift % code.z]
-                          ).astype(np.int32)
+    e = graph.edge_of_cn_order
+    slots = np.stack([e * z, graph.edge_vn[e] * z, graph.edge_shift[e] % z, e],
+                     axis=1)
+    return np.concatenate([slots.ravel(), vn_ptr, cn_ptr]).astype(np.int32)
+
+
+def kernel_grid(cfg: DecoderConfig) -> Tuple[float, float, float]:
+    """(step, 1/step, clip) of the kernels' quantizer: the QMS grid, which
+    must have a power-of-two step (x * (1/step) is then exactly the float
+    x / step, so the kernels multiply where the plain versions divide), or
+    (1, 1, clip_llr) for the other types.  Raises for another step."""
+    if cfg.decoding_type != QMS:
+        return 1.0, 1.0, cfg.clip_llr
+    step, clip = qms_grid(cfg.q_bit)
+    if not (step > 0.0 and math.frexp(step)[0] == 0.5):
+        raise ValueError(f"the kernels' quantizer takes power-of-two steps; "
+                         f"q_bit {cfg.q_bit} has step {step}")
+    return step, 1.0 / step, clip
 
 
 def check_sp_degree(graph: TannerGraph) -> None:
@@ -576,11 +620,11 @@ class FusedNMSKernel:
                      torch.empty(B, dtype=torch.bool, device=dev))
         if B == 0:
             return outs
+        qstep, qinv, qclip = kernel_grid(cfg)
         lib, _ = load_library()
         G, threads = launch_shape(self.graph, spec.ucn_enabled, deploy)
-        smem = _smem_bytes(self.N, self.z, self.E, G, spec.ucn_enabled, deploy)
-        qms = cfg.decoding_type == QMS
-        qstep, qclip = qms_grid(cfg.q_bit) if qms else (1.0, cfg.clip_llr)
+        smem = _smem_bytes(self.N, self.M, self.z, self.E, G, spec.ucn_enabled,
+                           deploy)
         ptr = lambda x: None if x is None else x.data_ptr()
         iters, fail = outs[3:] if deploy else (None, None)
         with torch.cuda.device(dev):
@@ -589,7 +633,7 @@ class FusedNMSKernel:
                 ptr(llr), ptr(w_cn), ptr(w_ucn), ptr(w_vn), ptr(tab),
                 ptr(app), ptr(err), ptr(nerr), ptr(iters), ptr(fail),
                 self.N, self.M, self.z, self.E, self.T, B, G, threads, smem,
-                self.target, cfg.decoding_type, qstep, qclip, cfg.clip_llr,
+                self.target, cfg.decoding_type, qstep, qinv, qclip, cfg.clip_llr,
                 spec.sharing[0], int(spec.ucn_enabled), spec.sharing[2],
                 int(cfg.neural_mode == "offset"), dim_cn, dim_vn, mode,
                 int(sp), stream)

@@ -33,16 +33,15 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ldpc_error_floor_tpu_torch.codes.graph import TannerGraph
-from ldpc_error_floor_tpu_torch.models.nms import QMS, SP, DecoderConfig
+from ldpc_error_floor_tpu_torch.models.nms import SP, DecoderConfig
 from ldpc_error_floor_tpu_torch.models.weights import WeightSpec
 from ldpc_error_floor_tpu_torch.ops import fused_decoder as fd
-from ldpc_error_floor_tpu_torch.ops.ste import qms_grid
 
 _SRC = fd._SRC.parent / "fused_nms_train.cu"
 FWD, BWD = "fused_nms_train_fwd", "fused_nms_train_bwd"
@@ -57,7 +56,7 @@ def load_library() -> Tuple[ctypes.CDLL, str]:
     decode kernel's build directory and load it.  Returns the library and
     the compiler's log (``-Xptxas -v``)."""
     lib, log = fd.build_library(_SRC)
-    cfg = [ctypes.c_int] * 13 + [ctypes.c_float] * 3 + [ctypes.c_int] * 6
+    cfg = [ctypes.c_int] * 14 + [ctypes.c_float] * 4 + [ctypes.c_int] * 6
     lib.fused_nms_train_fwd_launch.argtypes = (
         [ctypes.c_void_p] * 8 + cfg + [ctypes.c_void_p])
     lib.fused_nms_train_bwd_launch.argtypes = (
@@ -67,40 +66,68 @@ def load_library() -> Tuple[ctypes.CDLL, str]:
     return lib, log
 
 
-def _smem_bwd(N: int, M: int, z: int, E: int, G: int, cnw: bool, vnw: bool,
-              ucn: bool) -> int:
-    """B5's dynamic shared memory: slot cotangents float [E*z][G], per-slot
-    CN-weight gradients float [E*z][G] (CN weights), per-bit VN-weight
-    gradients float [N*z][G] (VN weights), per-edge and per-VN sums float
-    [2E + N], UCN masks uint8 [M*z][G] (UCN)."""
-    return ((E * z * G * (2 if cnw else 1) + (N * z * G if vnw else 0)
-             + 2 * E + N) * 4 + (M * z * G if ucn else 0))
-
-
-def train_launch_shape(graph: TannerGraph, spec: WeightSpec,
-                       backward: bool) -> Tuple[int, int, int]:
-    """(G words per block, threads per block, shared bytes) of B4 or B5
-    (`ops/fused_decoder.py::pick_launch_shape`).  B4 lays out its shared
-    memory as the decode kernel does (`ops/fused_decoder.py::_smem_bytes`)."""
+def _smem_bwd(graph: TannerGraph, spec: WeightSpec, G: int, sp: bool) -> int:
+    """B5's dynamic shared memory (`BwdLayout` in the .cu): the graph table,
+    the mbarrier (16 bytes), one iteration's weights float [2*dim_cn +
+    dim_vn] (rounded up to 16 bytes), not SP: the staged residual run float
+    [E*z + R*M*z][G], the slot cotangents float [E*z][G]; for per-slot
+    sums (per-edge CN modes 1 and 4, and SP with CN weights) the per-slot
+    CN-weight gradients float [E*z][G] and per-edge sums float [2][E], UCN
+    masks uint8 [M*z][G] (with UCN); for per-bit sums (per-VN modes 2 and 5,
+    and SP with VN weights) the per-bit VN-weight gradients float [N*z][G]
+    and per-VN sums float [N]; for the scalar and per-check CN modes 3, 2
+    and 5 one CN and one UCN sum per lifted check and word float
+    [2][M*z][G]; per-warp sums float [32] (scalar VN mode 3 sums in
+    registers)."""
     code = graph.code
     N, M, z, E = code.N, code.M, code.z, graph.E
+    cn, vn = spec.sharing[0], spec.sharing[2]
     ucn = spec.ucn_enabled
+    cn_sum = 0 if cn == 0 else ("slot" if sp or cn in (1, 4) else "item")
+    vn_sum = 0 if vn == 0 else ("bit" if sp or vn != 3 else "regs")
+    dims = 2 * spec.dim("cn", graph) + spec.dim("vn", graph)
+    R = 4 if ucn else 3
+    EzG, NzG, MzG = E * z * G, N * z * G, M * z * G
+    return (fd._table_bytes(N, M, E) + 16 + fd._align16(4 * dims)
+            + (0 if sp else 4 * (EzG + R * MzG)) + 4 * EzG
+            + (4 * EzG + 8 * E + (MzG if ucn else 0) if cn_sum == "slot" else 0)
+            + (4 * NzG + 4 * N if vn_sum == "bit" else 0)
+            + (8 * MzG if cn_sum == "item" else 0) + 4 * 32)
+
+
+def train_launch_shape(graph: TannerGraph, spec: WeightSpec, backward: bool,
+                       sp: bool = False) -> Tuple[int, int, int]:
+    """(G words per block, threads per block, shared bytes) of B4 or B5 (of
+    B4-SP or B5-SP with `sp`), two blocks per SM
+    (`ops/fused_decoder.py::pick_launch_shape`).  B4 lays out its shared
+    memory as the decode kernel does (`ops/fused_decoder.py::_smem_bytes`);
+    B5's G is also the tile width W of the residual streams."""
+    code = graph.code
 
     def smem(g):
         if backward:
-            return _smem_bwd(N, M, z, E, g, spec.sharing[0] > 0,
-                             spec.sharing[2] > 0, ucn)
-        return fd._smem_bytes(N, z, E, g, ucn)  # B4 is the decode loop's kTrain
+            return _smem_bwd(graph, spec, g, sp)
+        return fd._smem_bytes(code.N, code.M, code.z, graph.E, g, spec.ucn_enabled)
 
-    G, threads = fd.pick_launch_shape(graph, smem)
+    G, threads = fd.pick_launch_shape(graph, smem, blocks=2)
     return G, threads, smem(G)
 
 
+class LaunchPlan(NamedTuple):
+    """One `FusedTrainKernel`'s launches: B4's and B5's (G, threads, shared
+    bytes), B5's G being the streams' tile width, and the quantizer's
+    (step, 1/step, clip)."""
+    fwd: Tuple[int, int, int]
+    bwd: Tuple[int, int, int]
+    grid: Tuple[float, float, float]
+
+
 def _train_table(graph: TannerGraph) -> np.ndarray:
-    """The decode kernel's graph table plus edge_cn[E] (the check of each
-    VN-order edge)."""
-    return np.concatenate([fd._graph_table(graph),
-                           graph.edge_cn.astype(np.int32)]).astype(np.int32)
+    """The decode kernel's graph table plus, in VN order, edge_cn[E] (the
+    check of each edge) and edge_shift[E] (its shift mod z), which B5's
+    per-edge weight sums read."""
+    return np.concatenate([fd._graph_table(graph), graph.edge_cn,
+                           graph.edge_shift % graph.code.z]).astype(np.int32)
 
 
 # ----- plain PyTorch version -----------------------------------------------------
@@ -210,16 +237,47 @@ class FusedTrainKernel:
     def _weights(self, w: Optional[torch.Tensor], kind: str, device) -> int:
         return fd.check_weights(self.graph, self.spec, kind, w, device)
 
-    def _cfg_args(self, B: int, G: int, threads: int, smem: int,
+    def _cfg_args(self, B: int, G: int, W: int, threads: int, smem: int,
                   dim_cn: int, dim_vn: int):
         cfg, spec = self.cfg, self.spec
-        qms = cfg.decoding_type == QMS
-        qstep, qclip = qms_grid(cfg.q_bit) if qms else (1.0, cfg.clip_llr)
-        return (self.N, self.M, self.z, self.E, self.T, B, G, threads, smem,
+        qstep, qinv, qclip = self.plan.grid
+        return (self.N, self.M, self.z, self.E, self.T, B, G, W, threads, smem,
                 self.target, self.t0, self.graph.Dc, cfg.decoding_type,
-                qstep, qclip, cfg.clip_llr, spec.sharing[0],
+                qstep, qinv, qclip, cfg.clip_llr, spec.sharing[0],
                 int(spec.ucn_enabled), spec.sharing[2],
                 int(cfg.neural_mode == "offset"), dim_cn, dim_vn)
+
+    @functools.cached_property
+    def plan(self) -> LaunchPlan:
+        """The launch plan, computed at the first launch or allocation and
+        kept: B4's and B5's (G, threads, shared bytes) and the quantizer's
+        grid (raises for a QMS step that is not a power of two)."""
+        sp = self.cfg.decoding_type == SP
+        return LaunchPlan(train_launch_shape(self.graph, self.spec, False),
+                          train_launch_shape(self.graph, self.spec, True, sp),
+                          fd.kernel_grid(self.cfg))
+
+    @property
+    def tile_width(self) -> int:
+        """W, the words of one tile of the residual streams: B5's G."""
+        return self.plan.bwd[0]
+
+    def streams(self, B: int, device, stream: bool):
+        """Allocate B4's outputs for B words: apps [T-t0, target*z, B] and,
+        with `stream`, the residual streams in the pair's tile-major layout,
+        hist [tiles, T, E*z, W] and cres [tiles, T, R*M*z, W] (None for SP
+        without UCN), tiles = ceil(B / W), W = `tile_width`; the last tile's
+        words past B are padding that neither kernel touches."""
+        empty = functools.partial(torch.empty, dtype=torch.float32, device=device)
+        apps = empty((self.T - self.t0, self.target * self.z, B))
+        if not stream:
+            return apps, None, None
+        W = self.tile_width
+        tiles = -(-B // W)
+        R = self.cres_rows
+        hist = empty((tiles, self.T, self.E * self.z, W))
+        cres = empty((tiles, self.T, R * self.M * self.z, W)) if R else None
+        return apps, hist, cres
 
     def _table(self, dev) -> torch.Tensor:
         tab = self._graph_tabs.get(dev)
@@ -229,8 +287,9 @@ class FusedTrainKernel:
         return tab
 
     def _forward(self, weights, llr: torch.Tensor, stream: bool):
-        """Launch B4: (apps_pre [T-t0, target*z, B], hist [T, E*z, B] or
-        None, cres [T, R*M*z, B] or None; `cres_rows` gives R)."""
+        """Launch B4: (apps_pre [T-t0, target*z, B], hist or None, cres or
+        None), the residual streams tile-major as `streams` allocates them
+        (`cres_rows` gives R); only the pair reads them."""
         Nz = self.N * self.z
         if (llr.dtype != torch.float32 or llr.dim() != 2 or llr.shape[0] != Nz
                 or not llr.is_contiguous()):
@@ -241,21 +300,18 @@ class FusedTrainKernel:
         dim_vn = self._weights(w_vn, "vn", dev)
         if self.spec.ucn_enabled:
             self._weights(w_ucn, "ucn", dev)
-        R = self.cres_rows
-        empty = functools.partial(torch.empty, dtype=torch.float32, device=dev)
-        apps = empty((self.T - self.t0, self.target * self.z, B))
-        hist = empty((self.T, self.E * self.z, B)) if stream else None
-        cres = empty((self.T, R * self.M * self.z, B)) if stream and R else None
+        apps, hist, cres = self.streams(B, dev, stream)
         if B == 0:
             return apps, hist, cres
         lib, _ = load_library()
-        G, threads, smem = train_launch_shape(self.graph, self.spec, False)
+        G, threads, smem = self.plan.fwd
         ptr = lambda x: None if x is None else x.data_ptr()
         with torch.cuda.device(dev):
             rc = lib.fused_nms_train_fwd_launch(
                 ptr(llr), ptr(w_cn), ptr(w_ucn), ptr(w_vn), ptr(self._table(dev)),
                 ptr(apps), ptr(hist), ptr(cres),
-                *self._cfg_args(B, G, threads, smem, dim_cn, dim_vn),
+                *self._cfg_args(B, G, self.tile_width, threads, smem, dim_cn,
+                                dim_vn),
                 torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"fused_nms_train_fwd_launch failed: CUDA error {rc}")
@@ -263,8 +319,9 @@ class FusedTrainKernel:
         return apps, hist, cres
 
     def _backward(self, weights, llr, hist, cres, apps_pre, g_apps):
-        """Launch B5: the [T, dim] gradients of cn, ucn and vn (None for a
-        kind without weights)."""
+        """Launch B5 on B4's outputs (hist and cres tile-major, apps_pre and
+        g_apps [T-t0, target*z, B]): the [T, dim] gradients of cn, ucn and vn
+        (None for a kind without weights)."""
         if hist is None:
             raise RuntimeError("the forward streamed no residuals (no weight "
                                "required a gradient)")
@@ -279,8 +336,16 @@ class FusedTrainKernel:
         g_vn = empty((self.T, dim_vn)) if dim_vn else None
         if B == 0:
             return tuple(None if g is None else g.zero_() for g in (g_cn, g_ucn, g_vn))
+        G, threads, smem = self.plan.bwd
+        if hist.shape[-1] != G:
+            raise ValueError(f"the streams' tiles hold {hist.shape[-1]} words, "
+                             f"B5 takes {G}")
+        Ez, RMz = self.E * self.z, self.cres_rows * self.M * self.z
+        if self.cfg.decoding_type != SP and (Ez * G % 4 or RMz * G % 4):
+            raise ValueError(f"{self.graph.code.name}: a staged residual run "
+                             f"({Ez} + {RMz} rows of {G} words) is not a "
+                             "multiple of 16 bytes")
         lib, _ = load_library()
-        G, threads, smem = train_launch_shape(self.graph, self.spec, True)
         blocks = -(-B // G)
         part = lambda g: None if g is None else empty((blocks,) + tuple(g.shape))
         parts = (part(g_cn), part(g_ucn), part(g_vn))
@@ -290,7 +355,7 @@ class FusedTrainKernel:
                 ptr(llr), ptr(w_cn), ptr(w_ucn), ptr(w_vn), ptr(self._table(dev)),
                 ptr(hist), ptr(cres), ptr(apps_pre), ptr(g_apps),
                 *[ptr(p) for p in parts], ptr(g_cn), ptr(g_ucn), ptr(g_vn),
-                *self._cfg_args(B, G, threads, smem, dim_cn, dim_vn),
+                *self._cfg_args(B, G, G, threads, smem, dim_cn, dim_vn),
                 torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"fused_nms_train_bwd_launch failed: CUDA error {rc}")

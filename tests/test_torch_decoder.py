@@ -29,6 +29,7 @@ from ldpc_error_floor_tpu_torch.ops.fused_decoder import (_SMEM_LIMIT,
                                                           FusedNMSKernel,
                                                           _graph_table,
                                                           _smem_bytes,
+                                                          _table_bytes,
                                                           launch_shape,
                                                           load_library)
 
@@ -197,13 +198,22 @@ def test_launch_shape_and_graph_table(name):
             G, threads = launch_shape(graph, ucn, deploy)
             assert G in (1, 2, 4, 8, 16, 32) and threads % 32 == 0
             assert threads % G == 0 and threads <= 1024
-            assert _smem_bytes(code.N, code.z, graph.E, G, ucn,
-                               deploy) <= _SMEM_LIMIT
-    N, M, E = code.N, code.M, graph.E
+            smem = _smem_bytes(code.N, code.M, code.z, graph.E, G, ucn, deploy)
+            assert smem <= _SMEM_LIMIT
+            # the staged table and weights (16-byte aligned), then the [row][G]
+            # state: C->V and bit totals, counts, parity bits
+            head = _table_bytes(code.N, code.M, graph.E)
+            assert head % 16 == 0 and head >= 4 * (4 * graph.E + code.N + code.M + 2)
+            head += -(-4 * (2 * graph.E + code.N) // 16) * 16
+            assert smem == (head + 4 * (graph.E + code.N) * code.z * G
+                            + 4 * (4 if deploy else 2) * G
+                            + (code.N * code.z * G if ucn or deploy else 0))
+    N, M, E, z = code.N, code.M, graph.E, code.z
     tab = _graph_table(graph)
-    assert tab.dtype == np.int32 and tab.shape == (N + 1 + M + 1 + 3 * E,)
-    vn_ptr, cn_ptr = tab[:N + 1], tab[N + 1:N + M + 2]
-    cn_edge, edge_vn, shift = np.split(tab[N + M + 2:], 3)
+    assert tab.dtype == np.int32 and tab.shape == (4 * E + N + 1 + M + 1,)
+    slots = tab[:4 * E].reshape(E, 4)   # per check-order position q
+    vn_ptr, cn_ptr = tab[4 * E:4 * E + N + 1], tab[4 * E + N + 1:]
+    cn_edge = slots[:, 3]
     for j in range(N):  # VN j owns a contiguous range of VN-order edges
         assert (graph.edge_vn[vn_ptr[j]:vn_ptr[j + 1]] == j).all()
     for i in range(M):  # check i lists its edges in CN order
@@ -211,5 +221,7 @@ def test_launch_shape_and_graph_table(name):
         assert (graph.edge_cn[edges] == i).all()
         np.testing.assert_array_equal(graph.cn_order_of_edge[edges],
                                       np.arange(cn_ptr[i], cn_ptr[i + 1]))
-    np.testing.assert_array_equal(edge_vn, graph.edge_vn)
-    np.testing.assert_array_equal(shift, graph.edge_shift % code.z)
+    np.testing.assert_array_equal(slots[:, 0], cn_edge * z)
+    np.testing.assert_array_equal(slots[:, 1], graph.edge_vn[cn_edge] * z)
+    np.testing.assert_array_equal(slots[:, 2], graph.edge_shift[cn_edge] % z)
+    assert ((slots[:, 2] >= 0) & (slots[:, 2] < z)).all()

@@ -20,7 +20,8 @@ B1-SP, against the plain forward, and the streaming launch's bit-equal to
 the no_grad launch's; B4-SP's last APP bit-equal to B1-SP's (the same loop
 and arithmetic); B5's (and B5-SP's) weight gradients against autograd
 through the plain version within rtol 1e-4 and atol 1e-5 x max|g|, and
-bit-identical over two launches.
+bit-identical over two launches, also for ragged batches (the residual
+streams' last tile padded).
 """
 
 import pytest
@@ -283,6 +284,49 @@ def test_train_backward_matches_autograd_on_card(case):
         scale = max(float(g_ref.abs().max()), 1e-8)
         torch.testing.assert_close(grads[0][k], g_ref, rtol=1e-4, atol=1e-5 * scale)
         assert float(grads[0][k].abs().max()) > 0.0
+
+
+def _grads(kern, stacked, llr, loss_type, etha, plain=False):
+    ws = {k: None if v is None else v.clone().requires_grad_(True)
+          for k, v in stacked.items()}
+    apps = kern.apps_plain(ws, llr) if plain else kern.apps(ws, llr)
+    labels = torch.zeros((kern.target * kern.z, llr.shape[1]), device=llr.device)
+    multi_iteration_loss(apps, labels, loss_type, etha).backward()
+    return {k: v.grad for k, v in ws.items() if v is not None}
+
+
+# ragged batches through the tile-major streams: scalar (register sums),
+# scalar with UCN, per-edge (gw), per-check (per-item sums), and the SP pair
+RAGGED_CASES = [c for i, c in enumerate(TRAIN_CASES) if i in (0, 1, 3, 4, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RAGGED_CASES, ids=lambda c: f"{c[0][:6]}_{c[1]}_{c[2]}")
+def test_train_ragged_batch_on_card(case):
+    """B not a multiple of the tile width W (B5's G) nor of 4: the last tile
+    of the residual streams is padded, B4's APPs hold to the plain forward
+    and B5's gradients to autograd through it, bit-identical over two
+    launches."""
+    dev = _cuda()
+    loss_type, etha = case[4], case[5]
+    for B in (3, 1001):
+        kern, stacked, llr = _train_setup(dev, case, B=B, app_t0=0)
+        W = kern.tile_width
+        assert B % W and B % 4
+        ws = {k: None if v is None else v.clone().requires_grad_(True)
+              for k, v in stacked.items()}
+        _, hist, cres = kern._forward((ws["cn"], ws["ucn"], ws["vn"]), llr, True)
+        assert hist.shape == (-(-B // W), kern.T, kern.E * kern.z, W)
+        with torch.no_grad():
+            apps = kern.apps(stacked, llr)
+        _assert_train_apps(apps, kern.apps_plain(stacked, llr), case[2])
+        g1, g2 = (_grads(kern, stacked, llr, loss_type, etha) for _ in range(2))
+        ref = _grads(kern, stacked, llr, loss_type, etha, plain=True)
+        torch.cuda.synchronize()
+        for k, g_ref in ref.items():
+            assert torch.equal(g1[k], g2[k])
+            scale = max(float(g_ref.abs().max()), 1e-8)
+            torch.testing.assert_close(g1[k], g_ref, rtol=1e-4, atol=1e-5 * scale)
 
 
 @pytest.mark.cuda

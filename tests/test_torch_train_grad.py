@@ -37,11 +37,18 @@ from ldpc_error_floor_tpu.training.losses import \
 from ldpc_error_floor_tpu_torch.codes import TannerGraph, available_codes, get_code
 from ldpc_error_floor_tpu_torch.models import (DecoderConfig, NMSDecoder,
                                                WeightSpec, params_from_numpy)
-from ldpc_error_floor_tpu_torch.ops.fused_decoder import (_SMEM_LIMIT, _ExtMin,
+from ldpc_error_floor_tpu_torch.ops.fused_decoder import (_SMEM_LIMIT,
+                                                          _SMEM_PER_SM,
+                                                          _SMEM_RESERVED,
+                                                          _TWO_BLOCK_THREADS,
+                                                          _ExtMin,
+                                                          _graph_table,
+                                                          _smem_bytes,
                                                           check_sp_degree,
                                                           ext_min_bwd,
                                                           launch_shape)
 from ldpc_error_floor_tpu_torch.ops.fused_train import (FusedTrainKernel,
+                                                        _smem_bwd,
                                                         _train_table,
                                                         train_launch_shape)
 from ldpc_error_floor_tpu_torch.training.losses import multi_iteration_loss
@@ -222,17 +229,42 @@ def test_train_launch_shape_and_table(name):
     (the parts of the CUDA path that run on the host)."""
     code = get_code(name)
     graph = TannerGraph(code)
+    N, M, z, E = code.N, code.M, code.z, graph.E
+
+    def two_fit(nbytes):  # two blocks of nbytes share one SM
+        return 2 * (nbytes + _SMEM_RESERVED) <= _SMEM_PER_SM
+
     for sharing in ((3, 3, 3), (1, 1, 2), (3, 0, 0), (0, 0, 0)):
         spec = WeightSpec(sharing=sharing, n_iters=2)
         for backward in (False, True):
             G, threads, smem = train_launch_shape(graph, spec, backward)
             assert G in (1, 2, 4, 8, 16, 32) and threads % 32 == 0
-            assert threads % G == 0 and threads <= 1024 and smem <= _SMEM_LIMIT
-            if not backward:  # B4 is the decode loop's kTrain: the same blocks
-                assert (G, threads) == launch_shape(graph, spec.ucn_enabled)
+            assert threads % G == 0 and smem <= _SMEM_LIMIT
+            # the pair runs two blocks per SM: the most words whose two
+            # blocks fit (else whose one block fits), at most the kernels'
+            # launch bound of threads
+            assert threads <= _TWO_BLOCK_THREADS
+            smem_of = ((lambda g: _smem_bwd(graph, spec, g, False)) if backward else
+                       (lambda g: _smem_bytes(N, M, z, E, g, spec.ucn_enabled)))
+            fits = two_fit if two_fit(smem_of(1)) else (lambda s: s <= _SMEM_LIMIT)
+            assert smem == smem_of(G) and fits(smem)
+            assert G == 32 or not fits(smem_of(2 * G))
+            if not backward:  # B4 lays out its memory as the decode loop does
+                assert launch_shape(graph, spec.ucn_enabled)[0] >= G
+                continue
+            # B5 stages one residual run, a multiple of 16 bytes, into shared
+            # memory beside the slot cotangents; SP stages none
+            R = 4 if spec.ucn_enabled else 3
+            assert E * z * G % 4 == 0 and R * M * z * G % 4 == 0
+            assert smem == _smem_bwd(graph, spec, G, False)
+            assert smem >= 4 * (2 * E * z + R * M * z) * G
+            G_sp, _, smem_sp = train_launch_shape(graph, spec, True, sp=True)
+            assert smem_sp == _smem_bwd(graph, spec, G_sp, True) <= _SMEM_LIMIT
     tab = _train_table(graph)
-    assert tab.dtype == np.int32
-    np.testing.assert_array_equal(tab[-graph.E:], graph.edge_cn)
+    assert tab.dtype == np.int32 and tab.shape == (4 * E + N + M + 2 + 2 * E,)
+    np.testing.assert_array_equal(tab[:-2 * E], _graph_table(graph))
+    np.testing.assert_array_equal(tab[-2 * E:-E], graph.edge_cn)
+    np.testing.assert_array_equal(tab[-E:], graph.edge_shift % z)
 
 
 def test_train_kernel_build_and_window_checks(monkeypatch, tmp_path):

@@ -76,6 +76,25 @@ def test_stack_weights_equal(sharing):
             np.testing.assert_array_equal(ours[k].numpy(), np.asarray(ref[k]))
 
 
+def test_stack_weights_copies_the_row_index_once():
+    """The row index reaches the device once per (spec, kind, device): a copy
+    from the host on every call would make each training step wait for the
+    card.  A spec built from a JSON list equals and hashes as one built
+    from a tuple."""
+    from ldpc_error_floor_tpu_torch.models.weights import _iter_rows
+    spec = WeightSpec(sharing=[4, 4, 5], n_iters=6, fixed_iter=2)
+    same = WeightSpec(sharing=(4, 4, 5), n_iters=6, fixed_iter=2)
+    assert spec == same and hash(spec) == hash(same)
+    params = init_weights(spec, TannerGraph(get_code(WMAN)), device="cpu")
+    first = stack_weights(spec, params)
+    rows = _iter_rows(spec, "cn", torch.device("cpu"))
+    second = stack_weights(spec, params)
+    assert _iter_rows(same, "cn", torch.device("cpu")) is rows
+    assert rows.tolist() == spec.iter_to_row("cn").tolist()
+    for k in ("cn", "ucn", "vn"):
+        assert torch.equal(first[k], second[k])
+
+
 def test_params_from_numpy_round_trip():
     rng = np.random.default_rng(1)
     params = {"cn": rng.standard_normal((4, 6)).astype(np.float32),

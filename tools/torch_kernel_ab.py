@@ -1,0 +1,292 @@
+#!/usr/bin/env python3
+"""Time the CUDA kernels of several copies of the PyTorch port against each
+other on one card, in turns, on the same inputs.
+
+    python tools/torch_kernel_ab.py --tree new=. --tree old=build/parent \
+        --order old,new,new,old [--kernels all|train] [--sass] \
+        [--out build/kernel_ab.json]
+
+A tree is a directory that holds a copy of `ldpc_error_floor_tpu_torch/`
+(and, for the build directory, a `pyproject.toml`; `git archive <commit>
+ldpc_error_floor_tpu_torch pyproject.toml` gives one).  Each entry of
+`--order` runs in a process of its own, so one package is imported per
+process; it builds that tree's kernels, makes the inputs from fixed seeds
+(the same words and weights in every tree) and times, with CUDA events:
+
+- train: B4 and B5 (`FusedTrainKernel._forward` with the residual streams,
+  `_backward`) at batch 32768 on the base block (wman (3,0,3), T=20, QMS
+  q_bit 5, APP window t0=19), the post block ((3,3,3) with UCN, T=30,
+  t0=29) and a per-check block ((2,2,2) with UCN, T=20, t0=19), and
+  B4-SP/B5-SP on the neural BP base block (the base block with SP); then
+  one whole train step on the base block (`make_epoch_step`: sampling, B4,
+  loss, B5, Adam, clip), its host time (the time to issue a step, before
+  the card is waited for), a `torch.profiler` trace of it (the card's time
+  per kernel, the host's time in CUDA runtime calls) and the PyTorch
+  operations in it that wait for the card (`torch.cuda.set_sync_debug_mode`);
+- all: also B1 (fixed T=20, base20 weights), B2 (genie early stop, T=30,
+  boosted30 weights), B3 (syndrome stop, T=20) and B1-SP (BP, T=20), each
+  at batch 65536 and 4.0 dB.
+
+Each run prints one JSON line: the times, the ptxas report of each library
+it built, and a digest of every output (B4's APPs and the decode outputs
+must agree between trees that decode alike; B5's gradients are summarised
+by their sums).  `--sass` also writes `cuobjdump -sass` of each tree's
+training library to the output directory.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import hashlib
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+import warnings
+from pathlib import Path
+
+WMAN = "wman_N0576_R34_z24"
+TRAIN_B = 32768
+DECODE_B = 65536
+STEPS = 5  # train steps per timed epoch
+
+
+# ----- one run, in its own process ------------------------------------------------
+
+def digest(x) -> str:
+    return hashlib.sha256(x.detach().contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def worker(tree: Path, kernels: str, sass_dir: str) -> dict:
+    import torch
+    sys.path.insert(0, str(tree))
+    import ldpc_error_floor_tpu_torch as pkg
+    assert Path(pkg.__file__).resolve().is_relative_to(tree.resolve()), pkg.__file__
+    from ldpc_error_floor_tpu_torch.channel import AWGNChannel
+    from ldpc_error_floor_tpu_torch.channel.awgn import mix_sigma_lanes
+    from ldpc_error_floor_tpu_torch.codes import TannerGraph, get_code
+    from ldpc_error_floor_tpu_torch.models import (DecoderConfig, NMSDecoder,
+                                                   WeightSpec,
+                                                   compose_boosted_params,
+                                                   init_weights, load_params,
+                                                   stack_weights)
+    from ldpc_error_floor_tpu_torch.ops import fused_decoder, fused_train
+    from ldpc_error_floor_tpu_torch.pipelines import base_config_wman
+    from ldpc_error_floor_tpu_torch.training import (make_epoch_step,
+                                                     make_optimizer,
+                                                     multi_iteration_loss)
+
+    dev = torch.device("cuda")
+    out = {"tree": str(tree), "times_ms": {}, "digests": {}, "grad_sums": {}}
+    t_build = time.perf_counter()
+    libs = [("fused_nms_train.cu", fused_train.load_library)]
+    if kernels == "all":
+        libs.append(("fused_nms_stats.cu", fused_decoder.load_library))
+    out["ptxas"] = {}
+    for src, load in libs:
+        lib, log = load()
+        out["ptxas"][src] = [ln.strip() for ln in log.splitlines()
+                             if "Compiling entry" in ln or "registers" in ln
+                             or "spill" in ln]
+        if sass_dir and src == "fused_nms_train.cu":
+            cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+            res = subprocess.run([cuobjdump, "-sass", lib._name], capture_output=True,
+                                 text=True)
+            name = Path(tree).resolve().name or "tree"
+            Path(sass_dir, f"sass_{name}_{Path(lib._name).stem}.txt").write_text(
+                res.stdout + res.stderr)
+    out["build_s"] = time.perf_counter() - t_build
+
+    def time_ms(fn, reps, warmup=2):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / reps
+
+    wman = get_code(WMAN)
+    graph = TannerGraph(wman)
+    gen = torch.Generator(device=dev).manual_seed(2024)
+
+    def rand_weights(spec, lo=0.7, hi=1.3):
+        return {k: None if spec.dim(k, graph) == 0 else
+                (lo + (hi - lo) * torch.rand((spec.n_iters, spec.dim(k, graph)),
+                                             generator=gen, device=dev)).contiguous()
+                for k in ("cn", "ucn", "vn")}
+
+    sig_train = torch.as_tensor(
+        mix_sigma_lanes(wman.snr_sigmas(base_config_wman().snrs), TRAIN_B), device=dev)
+    blocks = {  # name: (spec, decoding type)
+        "base": (WeightSpec(sharing=(3, 0, 3), n_iters=20), 2),
+        "post": (WeightSpec(sharing=(3, 3, 3), n_iters=30, fixed_iter=20), 2),
+        "pcheck": (WeightSpec(sharing=(2, 2, 2), n_iters=20), 2),
+        "base_sp": (WeightSpec(sharing=(3, 0, 3), n_iters=20), 0),
+    }
+    for bname, (spec, dt) in blocks.items():
+        T = spec.n_iters
+        kern = fused_train.FusedTrainKernel(
+            graph, DecoderConfig(decoding_type=dt, app_t0=T - 1), spec)
+        ws = rand_weights(spec)
+        w3 = (ws["cn"], ws["ucn"], ws["vn"])
+        llr = AWGNChannel(wman, decoding_type=dt, device=dev).sample(gen, sig_train)
+        out["times_ms"][f"{bname}_fwd"] = time_ms(lambda: kern._forward(w3, llr, True), 5)
+        apps_pre, hist, cres = kern._forward(w3, llr, True)
+        out["digests"][f"{bname}_fwd_apps"] = digest(apps_pre)
+        a = torch.clamp(apps_pre, -20.0, 20.0).requires_grad_(True)
+        multi_iteration_loss(a, torch.zeros((wman.n_full, TRAIN_B), device=dev), 2,
+                             0.0).backward()
+        g_apps = a.grad.contiguous()
+        out["times_ms"][f"{bname}_bwd"] = time_ms(
+            lambda: kern._backward(w3, llr, hist, cres, apps_pre, g_apps), 5)
+        grads = kern._backward(w3, llr, hist, cres, apps_pre, g_apps)
+        out["grad_sums"][bname] = [None if g is None else float(g.double().sum())
+                                   for g in grads]
+        del hist, cres, apps_pre, a, g_apps
+        torch.cuda.empty_cache()
+
+    # one whole train step on the base block, as chip_smoke.py times it
+    spec, T = blocks["base"][0], blocks["base"][0].n_iters
+    dec = NMSDecoder(wman, DecoderConfig(decoding_type=2, app_t0=T - 1), spec,
+                     graph=graph, device=dev)
+    params = init_weights(spec, graph, device=dev)
+    opt = make_optimizer(params, 1e-2)
+    epoch = make_epoch_step(dec, spec, 2, 0, T, 0, n_steps=STEPS,
+                            labels=torch.zeros((wman.n_full, TRAIN_B), device=dev),
+                            channel=AWGNChannel(wman, device=dev), sigmas=sig_train,
+                            static_etha=0.0)
+    out["times_ms"]["base_step"] = time_ms(lambda: epoch(params, opt, gen, 0.0), 2,
+                                           warmup=1) / STEPS
+    torch.cuda.synchronize()
+    t_host = time.perf_counter()
+    epoch(params, opt, gen, 0.0)
+    out["times_ms"]["base_step_host"] = (time.perf_counter() - t_host) * 1e3 / STEPS
+    torch.cuda.synchronize()
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            epoch(params, opt, gen, 0.0)
+            torch.cuda.synchronize()
+        per, api = collections.Counter(), collections.Counter()
+        for evt in prof.events():
+            ms = evt.time_range.elapsed_us() / 1e3 / STEPS
+            if evt.device_type == DeviceType.CUDA:
+                per[evt.name[:72]] += ms
+            elif evt.name.startswith("cuda"):  # the host's CUDA runtime calls
+                api[evt.name] += ms
+        out["base_step_trace_ms"] = {
+            "device_busy": sum(per.values()),
+            "kernels": dict(per.most_common(16)),
+            "host_cuda_calls": dict(api.most_common(8)),
+        }
+    except Exception as exc:  # the trace is extra: a failure leaves the timings
+        out["base_step_trace_ms"] = {"error": repr(exc)[:300]}
+    # the PyTorch operations of a step that make the host wait for the card
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            epoch(params, opt, gen, 0.0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    out["base_step_syncs"] = sorted({f"{Path(w.filename).name}:{w.lineno}: "
+                                     f"{str(w.message)[:60]}" for w in caught})
+    torch.cuda.synchronize()
+
+    if kernels == "all":
+        spec20 = WeightSpec(sharing=(3, 3, 3), n_iters=20)
+        spec30 = WeightSpec(sharing=(3, 3, 3), n_iters=30)
+        base20 = load_params(spec20, graph, f"{WMAN}_base20", device=dev)
+        boosted30 = compose_boosted_params(
+            graph, spec20, base20, spec30,
+            load_params(spec30, graph, f"{WMAN}_boosted30", device=dev))
+        st20, st30 = stack_weights(spec20, base20), stack_weights(spec30, boosted30)
+        spec_bp = WeightSpec(sharing=(0, 0, 0), n_iters=20)
+        st_bp = stack_weights(spec_bp, init_weights(spec_bp, graph, device=dev))
+        sig = torch.full((DECODE_B,), float(wman.snr_sigmas([4.0])[0]), device=dev)
+        llr = AWGNChannel(wman, device=dev).sample(gen, sig)
+        llr_sp = AWGNChannel(wman, decoding_type=0, device=dev).sample(gen, sig)
+        K = fused_decoder.FusedNMSKernel
+        runs = {
+            "b1_fixed20": (K(graph, DecoderConfig(), spec20), st20, llr, False),
+            "b2_early_stop30": (K(graph, DecoderConfig(early_stop=True), spec30), st30,
+                                llr, False),
+            "b3_deploy20": (K(graph, DecoderConfig(), spec20), st20, llr, True),
+            "b1sp_bp20": (K(graph, DecoderConfig(decoding_type=0), spec_bp), st_bp,
+                          llr_sp, False),
+        }
+        for name, (kern, st, x, deploy) in runs.items():
+            fn = (lambda: kern.decode_deploy(st, x)) if deploy else (
+                lambda: kern.decode_stats(st, x))
+            out["times_ms"][name] = time_ms(fn, 10)
+            out["digests"][name] = [digest(o) for o in fn()]
+    return out
+
+
+# ----- the runs, in turns ----------------------------------------------------------
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", action="append", default=[],
+                    help="NAME=DIR, a directory holding a copy of the package")
+    ap.add_argument("--order", default=None,
+                    help="comma-separated tree names, run in this order")
+    ap.add_argument("--kernels", choices=("all", "train"), default="all")
+    ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--out", default="build/kernel_ab.json")
+    ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+
+    if args.worker:
+        print(json.dumps(worker(Path(args.worker), args.kernels,
+                                os.path.dirname(args.out) if args.sass else "")))
+        return 0
+
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    trees = dict(t.split("=", 1) for t in args.tree)
+    trees = {k: Path(v).resolve() for k, v in trees.items()}
+    order = args.order.split(",") if args.order else list(trees)
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    runs = []
+    for name in order:
+        cmd = [sys.executable, __file__, "--worker", str(trees[name]),
+               "--kernels", args.kernels, "--out", args.out] + (
+                   ["--sass"] if args.sass else [])
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            print(res.stdout, res.stderr, file=sys.stderr)
+            raise RuntimeError(f"run of tree {name} failed ({res.returncode})")
+        row = {"name": name, **json.loads(res.stdout.strip().splitlines()[-1])}
+        print(json.dumps({k: row[k] for k in ("name", "times_ms", "digests",
+                                               "grad_sums", "build_s",
+                                               "base_step_trace_ms",
+                                               "base_step_syncs")}), flush=True)
+        runs.append(row)
+    summary = {}
+    for name in dict.fromkeys(order):
+        rows = [r["times_ms"] for r in runs if r["name"] == name]
+        summary[name] = {k: sum(r[k] for r in rows) / len(rows) for k in rows[0]}
+    result = {"card": smi, "order": order, "mean_ms": summary, "runs": runs}
+    Path(args.out).write_text(json.dumps(result, indent=1))
+    print(json.dumps({"card": smi, "mean_ms": summary}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
