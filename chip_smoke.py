@@ -63,6 +63,11 @@ exits non-zero:
      FER_undetected <= FER_last, mean iterations in [3.05, 3.35];
    - belief propagation (SP, no weights, T=20): FER_genie at most plain
      min-sum's;
+   - the deep error-floor anchor: base20 with the early stop at 5.5 dB,
+     seed 0, over 2^25 frames: its genie error count consistent with the
+     JAX package's 32 errors over 22,020,096 frames
+     (benchmarks/runs/boosted_wman_full/DEEP_FLOOR.json, "base", 5.5 dB)
+     under a two-sample conditional binomial test at p >= 0.01;
 5. harvest: `run_collection` with base20 and the early stop at 4.2 dB
    collects 256 words into a temporary Uncor file; the fixed-T kernel finds
    every one wrong at every iteration, boosted30 rescues at least 25%, and
@@ -84,8 +89,11 @@ exits non-zero:
      rows moved, and the valid FER_last sum at epoch 2 is at most 5% above
      epoch 0's (plain BP: neural BP gains little over BP on this code);
 7. timing with CUDA events at batch 65536 unless noted: each kernel and its
-   plain version, the early stop at 4.0 and 5.0 dB against the fixed-T
-   kernel on the same LLRs, SP at 16384 too, run_point frames/s; B4 and B5
+   plain version, the early stop at 4.0, 5.0 and 5.5 dB against the
+   fixed-T kernel on the same LLRs with the distribution of iterations per
+   tile of G words (mean, max, share that runs all T), SP at 16384 too,
+   run_point frames/s, each decode instance's launch shape and resident
+   blocks per SM; B4 and B5
    at batch 32768 on the base and post blocks against the plain version on
    the same inputs (in chunks of 4096), each one's achieved device-memory
    rate and multiple of its bound, one whole train step (sampling, B4,
@@ -117,6 +125,8 @@ TRAIN_B = 32768          # the base block's training batch
 TRAIN_CHECK_B = 4096     # kernel-vs-plain checks of B4/B5 (autograd memory)
 FER_DROP = 0.05          # the base block's valid FER_last must fall by this
 PR1_FER_GENIE = 211 / 2 ** 20  # 2.0122528e-4: base20, fixed T, seed 0
+DEEP_SNR, DEEP_FRAMES = 5.5, 2 ** 25  # the deep error-floor anchor
+JAX_DEEP = (32, 22_020_096)  # JAX: base20 genie errors, frames at 5.5 dB
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_SIMPLE_OPS_PER_S = 33.5e12  # 67 TFLOP/s f32 counts an FMA as 2; adds,
 #                                  compares and selects issue at half that
@@ -309,6 +319,34 @@ def early_stop_word_iters(err, G: int) -> int:
     return int(iters.sum()) * G
 
 
+def tile_iters(err, G: int) -> dict:
+    """Iterations each tile of G words ran under the early stop (from its
+    flags [T, B], the last tile ragged): mean, max and the share of tiles
+    that ran all T."""
+    import torch
+    T, B = err.shape
+    still = torch.cumprod(err.to(torch.int32), dim=0).bool()
+    still = torch.cat([still, still.new_zeros((T, -B % G))], dim=1)
+    iters = (1 + still.view(T, -1, G).any(dim=2)[:-1].sum(dim=0)).float()
+    return {"tiles": iters.numel(), "mean": float(iters.mean()), "max": int(iters.max()),
+            "share_all_T": float((iters == T).float().mean())}
+
+
+def binomial_two_sample_p(k1: int, n1: int, k2: int, n2: int) -> float:
+    """Two-sided p-value of equal rates for k1 events in n1 trials against
+    k2 in n2, conditional on k1 + k2: k1 ~ Binomial(k1 + k2, n1 / (n1 + n2))
+    under the null; the p-value sums the outcomes no likelier than k1."""
+    import math
+    k, q = k1 + k2, n1 / (n1 + n2)
+
+    def logpmf(i):
+        return (math.lgamma(k + 1) - math.lgamma(i + 1) - math.lgamma(k - i + 1)
+                + i * math.log(q) + (k - i) * math.log1p(-q))
+    obs = logpmf(k1)
+    return min(1.0, sum(math.exp(logpmf(i)) for i in range(k + 1)
+                        if logpmf(i) <= obs + 1e-9))
+
+
 def deploy_word_iters(iters, G: int) -> int:
     """(word, iteration) pairs the syndrome-stop kernel ran: a block of G
     words runs until its last word's syndrome holds, or T."""
@@ -333,9 +371,10 @@ def main() -> int:
                                                    init_weights, load_params,
                                                    stack_weights)
     from ldpc_error_floor_tpu_torch.ops import fused_train
-    from ldpc_error_floor_tpu_torch.ops.fused_decoder import (FusedNMSKernel,
-                                                              launch_shape,
+    from ldpc_error_floor_tpu_torch.ops.fused_decoder import (DEPLOY, EARLY_STOP, FIXED,
+                                                              FusedNMSKernel,
                                                               load_library)
+    from ldpc_error_floor_tpu_torch.ops.fused_decoder import kernel_name as kern_name
     from ldpc_error_floor_tpu_torch.pipelines import (ExperimentConfig,
                                                       run_collection)
     from ldpc_error_floor_tpu_torch.sim import FERSimulator
@@ -438,7 +477,7 @@ def main() -> int:
         app_p, err_p, nerr_p = kern.decode_stats_plain(stacked, llr)
         torch.cuda.synchronize()
         row = {"phase": "kernel_vs_plain", "kernel": "fused_nms_stats", "case": cid,
-               "B": B, "T": T, "launch_shape": list(launch_shape(graph, spec.ucn_enabled)),
+               "B": B, "T": T, "launch_shape": list(kern.launch_shape(FIXED)),
                "max_abs_app_diff": app_check(cid, dec, app, app_p, "fused_nms_stats"),
                "app_mismatches": int((app != app_p).sum()),
                "err_mismatches": int((err != err_p).sum()),
@@ -743,6 +782,24 @@ def main() -> int:
     check(pt_sp.fer_genie <= pt_ms.fer_genie,
           f"SP FER_genie {pt_sp.fer_genie} above plain min-sum's {pt_ms.fer_genie}")
 
+    # the deep error-floor anchor: B2 where the deep runs use it
+    sim_deep = simulator(spec20, DecoderConfig(early_stop=True))
+    sim_deep.decoder.kernel.launches.clear()
+    pt_deep = sim_deep.run_point(base20, DEEP_SNR, torch.Generator(device=dev).manual_seed(0),
+                                 max_frames=DEEP_FRAMES, target_frame_errors=None)
+    deep_launches = dict(sim_deep.decoder.kernel.launches)
+    deep_errors = round(pt_deep.fer_genie * pt_deep.frames)
+    deep_p = binomial_two_sample_p(deep_errors, pt_deep.frames, *JAX_DEEP)
+    emit({"phase": "end_to_end", "path": f"base20 early stop, deep anchor at {DEEP_SNR} dB",
+          **vars(pt_deep), "genie_errors": deep_errors, "jax_genie_errors": JAX_DEEP[0],
+          "jax_frames": JAX_DEEP[1], "two_sample_binomial_p": deep_p,
+          "kernel_launches": deep_launches})
+    check(pt_deep.frames == DEEP_FRAMES, f"deep anchor: {pt_deep.frames} frames")
+    check(deep_launches == {"fused_nms_early_stop": DEEP_FRAMES // MAIN_B},
+          f"deep anchor launches {deep_launches}")
+    check(deep_p >= 0.01, f"deep anchor: {deep_errors} genie errors over {DEEP_FRAMES} "
+                          f"frames against JAX's {JAX_DEEP[0]} over {JAX_DEEP[1]} (p {deep_p})")
+
     # ---- 5. harvest ------------------------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
         out_file = os.path.join(tmp, "Uncor.txt")
@@ -895,24 +952,33 @@ def main() -> int:
                                          reps=2, warmup=1)
     bounds["fused_nms_stats"] = bound(wman_graph, spec20, MAIN_B)
 
-    for snr in (4.0, 5.0):  # B2 against B1 on the same LLRs (base20, T=20)
+    for snr in (4.0, 5.0, DEEP_SNR):  # B2 against B1 on the same LLRs (base20, T=20)
         llr = llr_at(snr)
         timing[f"early_stop20_ms_{snr}dB"] = time_ms(lambda: es20.decode_stats(st20, llr), reps=10)
         timing[f"fixed20_ms_{snr}dB"] = time_ms(lambda: fixed20.decode_stats(st20, llr), reps=10)
-        timing[f"early_stop20_word_iters_{snr}dB"] = early_stop_word_iters(
-            es20.decode_stats(st20, llr)[1], G)
+        err_es = es20.decode_stats(st20, llr)[1]
+        timing[f"early_stop20_word_iters_{snr}dB"] = early_stop_word_iters(err_es, G)
+        timing[f"early_stop20_tile_iters_{snr}dB"] = tile_iters(err_es, G)
     llr = llr_at(4.0)  # B2 on its main path: boosted30, T=30
     timing["early_stop30_ms"] = time_ms(lambda: es30.decode_stats(st30, llr), reps=10)
     timing["early_stop30_plain_ms"] = time_ms(lambda: es30.decode_stats_plain(st30, llr),
                                               reps=2, warmup=1)
-    wi = early_stop_word_iters(es30.decode_stats(st30, llr)[1], G)
+    err_es = es30.decode_stats(st30, llr)[1]
+    wi = early_stop_word_iters(err_es, G)
+    timing["early_stop30_word_iters"] = wi
+    timing["early_stop30_tile_iters"] = tile_iters(err_es, G)
+    # the bound had B2 kept the fixed-T kernel's G of 16 words on wman (a
+    # word's flags up to its first decode are the same under any G)
+    timing["early_stop30_word_iters_G16"] = early_stop_word_iters(err_es, 16)
+    bounds["fused_nms_early_stop_at_G16"] = bound(
+        wman_graph, spec30, MAIN_B, word_iters=timing["early_stop30_word_iters_G16"])
     bounds["fused_nms_early_stop"] = bound(wman_graph, spec30, MAIN_B, word_iters=wi)
 
     llr = llr_at(4.0)  # B3 on its main path: base20, T=20
     timing["deploy20_ms"] = time_ms(lambda: dep20.decode_deploy(st20, llr), reps=10)
     timing["deploy20_plain_ms"] = time_ms(lambda: dep20.decode_deploy_plain(st20, llr),
                                           reps=2, warmup=1)
-    G_dep = launch_shape(wman_graph, True, deploy=True)[0]
+    G_dep = dep20.launch_shape(DEPLOY)[0]
     wi = deploy_word_iters(dep20.decode_deploy(st20, llr)[3], G_dep)
     bounds["fused_nms_deploy"] = bound(wman_graph, spec20, MAIN_B, word_iters=wi,
                                        out_bytes_per_word=1 + 4 + 4 + 1, syndrome=True)
@@ -923,7 +989,11 @@ def main() -> int:
         timing[f"sp20_plain_ms_B{B}"] = time_ms(lambda: sp20.decode_stats_plain(st_bp, llr),
                                                 reps=2, warmup=1)
     bounds["fused_nms_stats_sp"] = bound(wman_graph, spec_bp, MAIN_B, sp=True)
-    G_fixed, threads = launch_shape(wman_graph, True)
+    G_fixed, threads, _ = fixed20.launch_shape(FIXED)
+    launch_shapes = {kern_name(mode, k.cfg.decoding_type == 0): {"G_threads_smem": list(k.launch_shape(mode)),
+                                          "resident_blocks_per_sm": k.resident_blocks(mode)}
+                     for k, mode in ((fixed20, FIXED), (es30, EARLY_STOP), (dep20, DEPLOY),
+                                     (sp20, FIXED))}
     smem_traffic = (T_MAIN * MAIN_B * 4 * wman_graph.E * wman.z * 6)  # bytes
     emit({"phase": "timing", "card": smi, **timing,
           "run_point_frames_per_sec": {"base20_fixed": pt.frames_per_sec,
@@ -933,7 +1003,7 @@ def main() -> int:
                                        "base20_syndrome": pt_d.frames_per_sec,
                                        "bp_sp": pt_sp.frames_per_sec},
           "bounds": bounds, "words_per_block": G_fixed, "threads": threads,
-          "words_per_block_deploy": G_dep,
+          "words_per_block_deploy": G_dep, "launch_shapes": launch_shapes,
           "smem_ms_this_design_fixed20": smem_traffic / SMEM_BYTES_PER_S * 1e3})
 
     # B4 and B5 at the training batch on the base block ((3,0,3), T=20) and

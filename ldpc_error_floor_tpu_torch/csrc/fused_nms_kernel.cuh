@@ -41,9 +41,43 @@
 //     division;
 //   - kTrain (B4) runs two blocks per SM, under a launch bound of 576
 //     threads and 56 registers, with the most words whose two blocks fit
-//     (G = 8 on wman, where one block of 16 was 7.7% slower); the decode
-//     modes keep one block of up to 1024 threads (their early-stop and SP
-//     instances need more than 56 registers).
+//     (G = 8 on wman, where one block of 16 was 7.7% slower); the float
+//     decode instances (MS, MS_RAW, SP) keep one block of up to 1024
+//     threads.
+// Under QMS the decode instances (kCode: B1, B2, B3) keep their state in
+// integer codes: every stored value is a whole number of u, the largest
+// power of two dividing the grid's step and clip (0.5 for q_bit 5), so a
+// word needs 3.2 KB instead of 11.3 on wman and three blocks of up to 384
+// threads share an SM (kCodeThreads, kCodeBlocks: 56 registers; four under
+// the early stop, G = 8 on wman), so one block's barrier leaves the SM
+// others to issue:
+//   - a C->V message is one byte, its code as 7-bit two's complement, with
+//     bit 7 flagging -0 (a negative message whose weighted magnitude
+//     rounds to 0); a bit total is an int16, twice its code plus the bit's
+//     hard decision (so phase B reads the UCN and syndrome parity with the
+//     total it already loads); a V->C message, kept in its C->V slot
+//     between phase B's passes, is a sign-magnitude byte whose magnitude 0
+//     stands for +kEps (0 is always nudged to +kEps);
+//   - phase A sums a bit's codes as integers (one sign extension a slot)
+//     and converts the sum once; a zero sum is -0, as the float sum would
+//     be, when every term is -0, which only matters, and is only checked,
+//     where an APP is written (a -0 APP needs a -0 channel value);
+//   - a lifted slot table (`stage_lifted`, 8 bytes per lifted edge) gives
+//     each slot's two row offsets in one load, with no modular arithmetic;
+//   - pass 1 derives each V->C code in integers (quantize_code: a clamp,
+//     and for q_bit 6 a half-to-even shift, in its own copy of the loop)
+//     with min1/min2 over the magnitudes and the parity of the negatives;
+//     the CN/UCN weight, ReLU and quantizer run in float once per check
+//     and extrinsic magnitude, or, for scalar or no CN weights, once per
+//     block and iteration into a table of output bytes for every
+//     magnitude code and UCN mask (`code_out_bytes`); each gives four
+//     bytes (either magnitude, either sign), and pass 2 picks a slot's by
+//     its min1 flag and sign (one byte permute); per-edge weights per slot.
+// The code state gives the float loop's outputs bit for bit (the sign of
+// every APP included): the integer steps are exact, and a CPU test
+// (tests/test_torch_kernel_layout.py) holds each to the float loop.
+// Measured and not kept: a persistent grid (blocks taking tiles from a
+// counter) ran no faster than one block per G words, 5% slower at 5.5 dB.
 // The stops end a block's loop, never a thread's: early stop decides with
 // __syncthreads_or after the statistics of an iteration, deploy after phase
 // B, from shared flags that every thread reads alike.  A block of G words
@@ -90,16 +124,28 @@ constexpr int kTrain = 3;
 // blocks per SM: at most 65,536 / (2 * 576) = 56 registers a thread
 // (ops/fused_decoder.py::_TWO_BLOCK_THREADS).
 constexpr int kTwoBlockThreads = 576;
+// The launch bound of the code-domain decode instances (QMS B1, B2, B3):
+// kCodeBlocks blocks of at most kCodeThreads threads per SM (56
+// registers), kEarlyStopBlocks for the genie early stop (40 registers; its
+// G halves, so a block runs fewer iterations for its slowest word)
+// (ops/fused_decoder.py::_CODE_THREADS, _CODE_BLOCKS, _EARLY_STOP_BLOCKS).
+constexpr int kCodeThreads = 384;
+constexpr int kCodeBlocks = 3;
+constexpr int kEarlyStopBlocks = 4;
 
 __device__ __forceinline__ float clip(float x, float lim) {
   return fminf(fmaxf(x, -lim), lim);
 }
 
 // The message arithmetic of one decoding type: the QMS grid (step, its
-// exact reciprocal, clip) or the LLR clip.
+// exact reciprocal, clip) or the LLR clip; with the code-domain state
+// (kCode, QMS only) also the code unit u (the largest power of two that
+// divides both step and clip), 1/u, the clip in units of u, and log2(step/u).
 struct Msg {
   int dec_type;
   float qinv, qstep, qclip, clip_llr;
+  float u, uinv;
+  int clipc, qshift;
 
   __device__ bool qms() const { return dec_type == kQMS; }
   // Round to the QMS grid, then clip: x * qinv is exactly the float
@@ -121,7 +167,60 @@ struct Msg {
   }
   // The clip of a V->C message and of a weighted magnitude.
   __device__ float msg_clip() const { return qms() ? qclip : clip_llr; }
+
+  // Code domain: a grid value v is the integer v / u, exactly.
+  __device__ __forceinline__ int to_code(float v) const {
+    return __float2int_rn(v * uinv);
+  }
+  // `quantize` of the value pre * u, in units of u: round half to even at
+  // the step (2^qshift units; kShift: qshift > 0, else a clip alone), then
+  // clip.  Exact in integers (a CPU test, tests/test_torch_kernel_layout.py,
+  // holds it to the float quantizer).
+  template <bool kShift>
+  __device__ __forceinline__ int quantize_code(int pre) const {
+    int x = pre;
+    if (kShift)
+      x = ((pre + (1 << (qshift - 1)) - 1 + ((pre >> qshift) & 1)) >> qshift)
+          << qshift;
+    return min(max(x, -clipc), clipc);
+  }
 };
+
+// The code-domain C->V byte: the value's code k (|k| <= 63) as 7-bit two's
+// complement in bits 0-6, and bit 7 set only for -0 (k = 0 with the sign
+// bit; a C->V message is -0 when a negative message's weighted magnitude
+// rounds to 0).  One sign extension of bits 0-6 gives k, and -0 reads 0.
+constexpr uint8_t kNegZero = 0x80;
+__device__ __forceinline__ int c2v_code(uint8_t b) {
+  return ((int)((unsigned)b << 25)) >> 25;
+}
+// (The V->C byte kept in a C->V slot between the two passes of phase B is
+// sign-magnitude: bit 7 the sign, bits 0-6 |k|; magnitude 0 is kEps, since
+// a V->C message is never 0: 0 is nudged to +kEps.)
+constexpr int kPadC = 1 << 30;  // the extrinsic min's sentinel, in codes
+// Entries of the per-iteration table of output bytes (code state, scalar or
+// no CN weights): [UCN mask 0/1][extrinsic magnitude code 0..clipc, then
+// the sentinel], clipc <= 63.
+constexpr int kLutRow = 66;
+constexpr int kLutInts = 2 * kLutRow;
+
+// The C->V bytes of a check slot whose extrinsic magnitude is the code mc
+// (kPadC: the sentinel), under the CN weight w (the float loop's chain:
+// the eps fix, weight, ReLU, quantizer), positive in bits 0-7 and negative
+// in bits 8-15; 0 when the magnitude fixes to 0 (the message's sign is then
+// 0 and the message +0).
+__device__ __forceinline__ int code_out_bytes(const Msg& ms, int mc, float w,
+                                              int cn_mode, int offset_mode) {
+  float mag = mc >= kPadC ? kPadMag : (mc == 0 ? kEps : __int2float_rn(mc) * ms.u);
+  mag = (mag <= kEps) ? mag - kEps : mag;
+  float wmag = mag;
+  if (cn_mode > 0) wmag = offset_mode ? mag - w : mag * w;
+  wmag = (wmag > 0.0f) ? wmag : 0.0f;
+  wmag = ms.out(wmag);
+  if (mag == 0.0f) return 0;
+  const int wcode = ms.to_code(wmag);
+  return wcode | ((wcode ? ((-wcode) & 0x7f) : kNegZero) << 8);
+}
 
 // The graph table as the wrappers lay it out (int32): per check-order
 // position q an int4 {e*z, vn*z, shift, e} of its edge e (E of them, so the
@@ -134,7 +233,7 @@ struct Graph {
   const int4* slot;
   const int* vn_ptr;
   const int* cn_ptr;
-  int z, lg;
+  int z, lg, zG;  // zG = z << lg
 
   // Shared index of the lifted bit / check / edge row `r` of word g.
   __device__ __forceinline__ int at(int r, int g) const { return (r << lg) + g; }
@@ -157,6 +256,39 @@ struct Graph {
       S = (e == e0) ? c : S + c;
     }
     return S;
+  }
+
+  // The code-domain twin of `bit_sum`: the sum of the C->V codes of lifted
+  // bit (j, s), word g (exact; the float sum is it times u, up to the sign
+  // of a zero sum, which `all_neg_zero` settles).
+  __device__ __forceinline__ int code_sum(const uint8_t* a, int j, int s,
+                                          int g) const {
+    int S = 0;
+    const int e0 = vn_ptr[j], e1 = vn_ptr[j + 1];
+    const uint8_t* p = a + at(e0 * z + s, g);
+    for (int e = e0; e < e1; ++e, p += zG) S += c2v_code(*p);
+    return S;
+  }
+
+  // Parity of the hard decisions (bit 0 of the packed totals `tot` of
+  // word g) on the bits of lifted check (i, h), through the lifted slot
+  // table `lt` (`stage_lifted`).
+  __device__ __forceinline__ int code_parity(const int2* lt, const short* tot,
+                                             int i, int h) const {
+    int par = 0;
+    const int2* o = lt + cn_ptr[i] * z + h;
+    for (int q = cn_ptr[i]; q < cn_ptr[i + 1]; ++q, o += z) par ^= tot[o->y];
+    return par & 1;
+  }
+
+  // Whether every C->V message of lifted bit (j, s), word g, is -0: then,
+  // and only then, their slot-order float sum is -0.
+  __device__ bool all_neg_zero(const uint8_t* a, int j, int s, int g) const {
+    bool all = true;
+    const int e0 = vn_ptr[j], e1 = vn_ptr[j + 1];
+    int r = e0 * z + s;
+    for (int e = e0; e < e1; ++e, r += z) all = all && a[at(r, g)] == kNegZero;
+    return all;
   }
 
   // Parity of the hard decisions on the bits of lifted check (i, h), word g.
@@ -189,6 +321,7 @@ __device__ Graph stage_table(const int* __restrict__ tab, int* dst, int N,
   gr.cn_ptr = dst + 4 * E + N + 1;
   gr.z = z;
   gr.lg = __ffs(G) - 1;
+  gr.zG = z << gr.lg;
   return gr;
 }
 
@@ -211,14 +344,35 @@ struct Rows {
   }
 };
 
-// Bytes of the decode kernel's shared memory (the layout below;
+// The code state's lifted slot table: for each check-order slot q and
+// lifted check h, at q*z + h, the row offsets (row << lg, word 0) of the
+// slot's C->V message and of its bit's total, {(e*z + sl) << lg, (vn*z +
+// sl) << lg} with sl = (h + shift) mod z, built from the graph table in
+// device memory (the caller synchronises before use).
+__device__ void stage_lifted(const int* __restrict__ tab, int2* dst, int E,
+                             int z, int lg) {
+  const int4* slot = reinterpret_cast<const int4*>(tab);
+  for (int k = threadIdx.x; k < E * z; k += blockDim.x) {
+    const int q = k / z, h = k - q * z;
+    const int4 sd = __ldg(slot + q);
+    const int sl = h + sd.z >= z ? h + sd.z - z : h + sd.z;
+    dst[k] = make_int2((sd.x + sl) << lg, (sd.y + sl) << lg);
+  }
+}
+
+// Bytes of the decode kernel's shared memory (the layouts below;
 // ops/fused_decoder.py::_smem_bytes computes the same).
 __host__ __device__ __forceinline__ int decode_smem_bytes(int N, int M, int z,
                                                           int E, int G,
-                                                          int ucn, bool deploy) {
-  return table_bytes(N, M, E) + 4 * ((2 * E + N + 3) & ~3) +
-         4 * (E * z + N * z) * G + 4 * (deploy ? 4 : 2) * G +
-         ((ucn || deploy) ? N * z * G : 0);
+                                                          int ucn, bool deploy,
+                                                          bool code) {
+  const int head = table_bytes(N, M, E) + 4 * ((2 * E + N + 3) & ~3);
+  const int cnt = (deploy ? 4 : 2) * G;
+  const int bits = (ucn || deploy) ? N * z * G : 0;
+  if (code)  // no parity bits: each is bit 0 of its bit's packed total
+    return head + 4 * ((cnt + kLutInts + 3) & ~3) + 8 * E * z + 2 * N * z * G +
+           E * z * G;
+  return head + 4 * (E * z + N * z) * G + 4 * cnt + bits;
 }
 
 // Copy the weights of iteration t into shared memory: cn, ucn [dim_cn] and
@@ -247,18 +401,64 @@ __device__ __forceinline__ float cn_w(const float* wc, const float* wu,
 
 // Shared memory of one block (ops/fused_decoder.py::_smem_bytes computes its
 // size): graph table (`table_bytes`) | weights float [2E + N] (rounded to
-// 16 bytes; cn, ucn and vn of one iteration) | C->V float [E*z][G] | bit
-// totals float [N*z][G] | error counts int [2][G] | deploy only: frozen int
-// [G], last unsatisfied step int [G] | parity bits uint8 [N*z][G] (with UCN
-// or in deploy mode).
+// 16 bytes; cn, ucn and vn of one iteration), then the state of G words:
+//   float state: C->V float [E*z][G] | bit totals float [N*z][G] | error
+//     counts int [2][G] | deploy only: frozen int [G], last unsatisfied step
+//     int [G] | parity bits uint8 [N*z][G] (with UCN or in deploy mode);
+//   code state (kCode): error counts int [2][G] | deploy: frozen, last
+//     unsatisfied step int [G] each | the output-byte table int
+//     [kLutInts], padded to 16 bytes | the lifted slot table int2 [E*z] |
+//     bit totals int16 [N*z][G] (2 * code + the bit's hard decision) |
+//     C->V uint8 [E*z][G] (C->V bytes, V->C bytes between the passes).
 // Outputs: stats modes app [N*z][B] (clipped), err uint8 [T][B], nerr int
 // [T][B]; deploy app, err uint8 [B], nerr int [B], iters int [B], fail uint8
 // [B]; kTrain app [T-t0][target*z][B] (pre-clip) and, with hist_out, hist
 // [tiles][T][E*z][W] and cres [tiles][T][R*M*z][W] (min-sum: R = 4 with
 // UCN, else 3; SP: R = 1 with UCN, else no cres), tiles = ceil(B / W).
-template <int kMode, bool kSP>
-__global__ void __launch_bounds__(kMode == kTrain ? kTwoBlockThreads : 1024,
-                                  kMode == kTrain ? 2 : 1)
+// Pass 1 of phase B in the code state for lifted check (i, h) of word g
+// (its check-order slots [k0, k1); `lt` the lifted slot table at k0*z + h,
+// c2v8 and tot16 offset to word g): each V->C message in codes, derived
+// once (at the first iteration every C->V message is 0) and kept as a
+// sign-magnitude byte in its own C->V slot; min1/min2 of the magnitudes
+// (code 0, kEps, the smallest), the XOR of the messages (bit 31: the
+// parity of the negative ones) and of the packed totals (bit 0: the parity
+// of the check's hard decisions).
+struct CodePass1 {
+  int m1, m2, nneg, par;
+};
+
+template <bool kShift>
+__device__ __forceinline__ CodePass1 code_pass1(const Msg& ms, const int2* lt,
+                                                uint8_t* c2v8, const short* tot16,
+                                                int k0, int k1, int z, bool first) {
+  CodePass1 r{kPadC, kPadC, 0, 0};
+  for (int q = k0; q < k1; ++q, lt += z) {
+    const int2 o = *lt;
+    uint8_t* c = c2v8 + o.x;
+    const int tv = tot16[o.y];
+    const int x = ms.quantize_code<kShift>((tv >> 1) - (first ? 0 : c2v_code(*c)));
+    const int a = abs(x);
+    *c = (uint8_t)(a | ((x >> 24) & 0x80));
+    r.m2 = min(r.m2, max(r.m1, a));
+    r.m1 = min(r.m1, a);
+    r.nneg ^= x;
+    r.par ^= tv;
+  }
+  return r;
+}
+
+template <int kMode, bool kSP, bool kCode>
+struct LaunchBound {
+  static constexpr int threads =
+      kMode == kTrain ? kTwoBlockThreads : (kCode ? kCodeThreads : 1024);
+  static constexpr int blocks =
+      kMode == kTrain ? 2
+                      : (kCode ? (kMode == kEarlyStop ? kEarlyStopBlocks : kCodeBlocks) : 1);
+};
+
+template <int kMode, bool kSP, bool kCode>
+__global__ void __launch_bounds__(LaunchBound<kMode, kSP, kCode>::threads,
+                                  LaunchBound<kMode, kSP, kCode>::blocks)
 fused_nms_kernel(const float* __restrict__ llr,
                  const float* __restrict__ w_cn,
                  const float* __restrict__ w_ucn,
@@ -276,6 +476,7 @@ fused_nms_kernel(const float* __restrict__ llr,
                  int vn_mode, int offset_mode, int dim_cn, int dim_vn) {
   constexpr bool kDep = kMode == kDeploy;
   constexpr bool kTr = kMode == kTrain;
+  static_assert(!kCode || (!kSP && !kTr), "the code state is QMS decode only");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int Nz = N * z, Mz = M * z, Ez = E * z;
   const Graph gr = stage_table(tab, reinterpret_cast<int*>(smem_raw), N, M,
@@ -283,15 +484,25 @@ fused_nms_kernel(const float* __restrict__ llr,
   float* wc = reinterpret_cast<float*>(smem_raw + table_bytes(N, M, E));
   float* wu = wc + dim_cn;
   float* wv = wu + dim_cn;
-  float* c2v = wc + ((2 * E + N + 3) & ~3);
+  float* state = wc + ((2 * E + N + 3) & ~3);
+  const int ncnt = (kDep ? 4 : 2) * G;
+  // float state
+  float* c2v = state;
   float* tot = c2v + Ez * G;
-  int* cnt = reinterpret_cast<int*>(tot + Nz * G);
+  // code state
+  int* ctl = reinterpret_cast<int*>(state);
+  int2* ltab = reinterpret_cast<int2*>(ctl + ((ncnt + kLutInts + 3) & ~3));
+  short* tot16 = reinterpret_cast<short*>(ltab + Ez);
+  uint8_t* c2v8 = reinterpret_cast<uint8_t*>(tot16 + Nz * G);
+  int* cnt = kCode ? ctl : reinterpret_cast<int*>(tot + Nz * G);
+  int* lut = cnt + ncnt;  // code state only
+  if (kCode) stage_lifted(tab, ltab, E, z, gr.lg);
   // deploy: frozen[g] = word g's syndrome held at an iteration <= t-3 (as of
   // phase A of step t); unsat_at[g] = the last step whose phase B found an
   // unsatisfied check of word g (step s tests iteration s-1's decisions)
   int* frozen = cnt + 2 * G;
   int* unsat_at = frozen + G;
-  uint8_t* bits = reinterpret_cast<uint8_t*>(cnt + (kDep ? 4 : 2) * G);
+  uint8_t* bits = reinterpret_cast<uint8_t*>(cnt + ncnt);  // float state only
   const bool need_bits = ucn || kDep;
   const bool stream = kTr && hist_out != nullptr;
   const int R = kSP ? 1 : (ucn ? 4 : 3);
@@ -299,24 +510,31 @@ fused_nms_kernel(const float* __restrict__ llr,
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
   const int lg = gr.lg;
-  const int b0 = blockIdx.x * G;
   const bool qms = ms.qms();
   const int gt = tid & (G - 1);  // blockDim.x % G == 0: a thread keeps its word
+  const int lgW = __ffs(W) - 1;
+  const Rows rows0(tid >> lg, nthr >> lg, z);  // this thread's items
+  const bool per_edge = cn_mode == 1 || cn_mode == 4;
+  const int vn_per_bit = vn_mode == 2 || vn_mode == 5;
+  // code state: the output bytes from a table per iteration (no or scalar
+  // CN weights), with nlut = clipc + 2 entries per UCN mask
+  const bool use_lut = kCode && (cn_mode == 0 || cn_mode == 3);
+  const int nlut = ms.clipc + 2;
+
+  const int b0 = blockIdx.x * G;
   const int b = b0 + gt;
   bool still_wrong = true;  // early stop, threads tid < G: word tid
   // this word's residual streams: tile b / W, lane b % W of it
-  const int lgW = __ffs(W) - 1;
   const size_t lane_w = (size_t)(b & (W - 1));
   float* hist_w = stream ? hist_out + ((size_t)(b >> lgW) * T * Ez << lgW) + lane_w
                          : nullptr;
   float* cres_w = stream && cres_out != nullptr
                       ? cres_out + ((size_t)(b >> lgW) * T * R * Mz << lgW) + lane_w
                       : nullptr;
-  const Rows rows0(tid >> lg, nthr >> lg, z);  // this thread's items
-  const bool per_edge = cn_mode == 1 || cn_mode == 4;
-  const int vn_per_bit = vn_mode == 2 || vn_mode == 5;
-
-  for (int k = tid; k < Ez * G; k += nthr) c2v[k] = 0.0f;
+  // the float state starts from C->V = 0; the code state never reads a
+  // C->V slot at t = 0
+  if (!kCode)
+    for (int k = tid; k < Ez * G; k += nthr) c2v[k] = 0.0f;
   if (tid < 2 * G) cnt[tid] = 0;
   if (kDep && tid < G) {
     frozen[tid] = 0;
@@ -337,12 +555,30 @@ fused_nms_kernel(const float* __restrict__ llr,
       stage_weights(w_cn, wc, t, dim_cn);
       if (ucn) stage_weights(w_ucn, wu, t, dim_cn);
     }
+    if (use_lut && t < T && tid < 2 * nlut) {  // phase B's output bytes
+      const int um = tid >= nlut, mc = tid - um * nlut;
+      float w = 1.0f;
+      if (cn_mode > 0) {
+        w = __ldg(w_cn + t);
+        if (ucn) w = w * (1.0f - (float)um) + __ldg(w_ucn + t) * (float)um;
+      }
+      lut[um * kLutRow + mc] =
+          code_out_bytes(ms, mc == nlut - 1 ? kPadC : mc, w, cn_mode, offset_mode);
+    }
     int wrong = 0;
     for (Rows it = rows0; it.row < Nz; it.next()) {
       const int row = it.row, j = it.q;
       const int k = gr.at(row, gt);
-      const float S = gr.bit_sum(c2v, j, it.r, gt);
       const float x = (b < B) ? __ldg(llr + (size_t)row * B + b) : 0.0f;
+      float S;
+      int Sc = 0;
+      int dec = 0;  // the hard decision that phase B's parity reads
+      if (kCode) {
+        if (t > 0) Sc = gr.code_sum(c2v8, j, it.r, gt);
+        S = __int2float_rn(Sc) * ms.u;
+      } else {
+        S = gr.bit_sum(c2v, j, it.r, gt);
+      }
       if (t > 0) {  // APP and stats of iteration t-1
         const float base = qms ? ms.quantize(x) : x;
         if (kTr) {  // the pre-clip APP of the window; its sign is the clipped one's
@@ -351,20 +587,33 @@ fused_nms_kernel(const float* __restrict__ llr,
           if (b < B && t - 1 >= t0 && j < target)
             app_out[((size_t)(t - 1 - t0) * target * z + row) * B + b] = app;
         } else {
+          const bool write = b < B && (kDep ? live : t == T);
+          // the float sum is -0 (not +0) only when every term is -0
+          if (kCode && write && Sc == 0 && __float_as_int(base) == (int)0x80000000 &&
+              gr.all_neg_zero(c2v8, j, it.r, gt))
+            S = -0.0f;
           const float app = clip(base + S, ms.clip_llr);
           const bool bit = app >= 0.0f;
           if (j < target) wrong += bit;
-          if (need_bits) bits[k] = bit;
-          if (b < B && (kDep ? live : t == T))
-            app_out[(size_t)row * B + b] = app;
+          if (kCode) {
+            if (t == T && need_bits) tot16[k] = (short)bit;  // the syndrome's
+          } else if (need_bits) {
+            bits[k] = bit;
+          }
+          if (write) app_out[(size_t)row * B + b] = app;
+          dec = bit;
         }
       }
       if (t < T) {
         float lw = x;
         if (vn_mode > 0) lw = x * wv[vn_per_bit ? j : 0];
         if (qms) lw = ms.quantize(lw);
-        tot[k] = lw + S;
-        if (ucn && t == 0) bits[k] = lw >= 0.0f;
+        if (ucn && t == 0) dec = lw >= 0.0f;
+        if (kCode)
+          tot16[k] = (short)(((ms.to_code(lw) + Sc) << 1) | (dec & need_bits));
+        else
+          tot[k] = lw + S;
+        if (!kCode && ucn && t == 0) bits[k] = dec;
       }
     }
     if (t > 0 && wrong) atomicAdd(&cnt[p * G + gt], wrong);
@@ -397,8 +646,17 @@ fused_nms_kernel(const float* __restrict__ llr,
           if (b < B) {
             const float x = __ldg(llr + (size_t)it.row * B + b);
             const float base = qms ? ms.quantize(x) : x;
-            app_out[(size_t)it.row * B + b] =
-                clip(base + gr.bit_sum(c2v, it.q, it.r, gt), ms.clip_llr);
+            float S;
+            if (kCode) {
+              const int Sc = gr.code_sum(c2v8, it.q, it.r, gt);
+              S = __int2float_rn(Sc) * ms.u;
+              if (Sc == 0 && __float_as_int(base) == (int)0x80000000 &&
+                  gr.all_neg_zero(c2v8, it.q, it.r, gt))
+                S = -0.0f;
+            } else {
+              S = gr.bit_sum(c2v, it.q, it.r, gt);
+            }
+            app_out[(size_t)it.row * B + b] = clip(base + S, ms.clip_llr);
           }
         }
         if (tid < G && b < B)
@@ -417,6 +675,46 @@ fused_nms_kernel(const float* __restrict__ llr,
       const int g = gt;
       const int row = it.row, i = it.q, h = it.r;
       const int k0 = gr.cn_ptr[i], k1 = gr.cn_ptr[i + 1];
+      if (kCode) {
+        const int2* lt = ltab + k0 * z + h;
+        uint8_t* cw = c2v8 + g;
+        const CodePass1 p1 =
+            ms.qshift ? code_pass1<true>(ms, lt, cw, tot16 + g, k0, k1, z, t == 0)
+                      : code_pass1<false>(ms, lt, cw, tot16 + g, k0, k1, z, t == 0);
+        const int par = p1.par & 1;  // UCN mask, or the syndrome in deploy mode
+        if (kDep && t > 0 && par) unsat_at[g] = t;  // all writers store t
+        // an outgoing message is negative when the count of positive
+        // incoming messages, plus one for a negative own message, is odd
+        const int ppar = ((k1 - k0) ^ (p1.nneg >> 31)) & 1;
+        // pass 2: the slot's byte from its min1 flag and sign
+        if (!per_edge) {
+          int K;
+          if (use_lut) {
+            const int* lr = lut + par * kLutRow;
+            K = lr[min(p1.m2, nlut - 1)] | (lr[p1.m1] << 16);
+          } else {
+            const float w = cn_w(wc, wu, cn_col(cn_mode, i, 0), ucn, (float)par);
+            K = code_out_bytes(ms, p1.m2, w, cn_mode, offset_mode) |
+                (code_out_bytes(ms, p1.m1, w, cn_mode, offset_mode) << 16);
+          }
+          for (int q = k0; q < k1; ++q, lt += z) {
+            uint8_t* c = cw + lt->x;
+            const int xb = *c;
+            const int sel = (((xb & 0x7f) != p1.m1) << 1) | (((xb >> 7) ^ ppar) & 1);
+            *c = (uint8_t)__byte_perm(K, 0, sel);
+          }
+        } else {
+          for (int q = k0; q < k1; ++q, lt += z) {
+            uint8_t* c = cw + lt->x;
+            const int xb = *c;
+            const int ob = code_out_bytes(ms, (xb & 0x7f) == p1.m1 ? p1.m2 : p1.m1,
+                                          cn_w(wc, wu, q, ucn, (float)par), cn_mode,
+                                          offset_mode);
+            *c = (uint8_t)(ob >> (8 * (((xb >> 7) ^ ppar) & 1)));
+          }
+        }
+        continue;
+      }
       float u = 0.0f;
       if (ucn || (kDep && t > 0)) {
         const int par = gr.check_parity(bits, i, h, g);
@@ -532,32 +830,50 @@ fused_nms_kernel(const float* __restrict__ llr,
   if (kDep) {
     if (t == T) {  // the syndrome of the last iteration, T-1
       for (Rows it = rows0; it.row < Mz; it.next())
-        if (gr.check_parity(bits, it.q, it.r, gt)) unsat_at[gt] = T;
+        if (kCode ? gr.code_parity(ltab, tot16 + gt, it.q, it.r)
+                  : gr.check_parity(bits, it.q, it.r, gt))
+          unsat_at[gt] = T;
       __syncthreads();
     }
     if (tid < G && b < B) fail_out[b] = !frozen[tid] && unsat_at[tid] == T;
   }
 }
 
-// One launch of fused_nms_kernel<kMode, kSP> on `stream` with `smem` bytes
-// of dynamic shared memory per block of G words.  Returns -2 when `smem`
-// is not the layout's size, else cudaGetLastError() after the launch (0 =
-// launched).
-template <int kMode, bool kSP>
+// Blocks of fused_nms_kernel<kMode, kSP, kCode> that one SM holds at
+// `threads` threads and `smem` bytes of dynamic shared memory (0 when the
+// query fails).
+template <int kMode, bool kSP, bool kCode>
+int resident_blocks(int threads, int smem) {
+  int n = 0;
+  if (cudaFuncSetAttribute(fused_nms_kernel<kMode, kSP, kCode>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, fused_nms_kernel<kMode, kSP, kCode>, threads, smem) != cudaSuccess)
+    return 0;
+  return n;
+}
+
+// One launch of fused_nms_kernel<kMode, kSP, kCode> on `stream` with
+// `smem` bytes of dynamic shared memory per block of G words.  Returns -2
+// when `smem` is not the layout's size, else cudaGetLastError() after the
+// launch (0 = launched).
+template <int kMode, bool kSP, bool kCode>
 int launch(const void* llr, const void* w_cn, const void* w_ucn,
            const void* w_vn, const void* tab, void* app, void* err,
            void* nerr, void* iters, void* fail, void* hist, void* cres,
-           int N, int M, int z, int E, int T, int B, int G, int W,
-           int threads, int smem, int target, int t0, Msg ms, int cn_mode,
-           int ucn, int vn_mode, int offset_mode, int dim_cn, int dim_vn,
+           int N, int M, int z, int E, int T, int B, int G, int W, int threads,
+           int smem, int target, int t0, Msg ms, int cn_mode, int ucn,
+           int vn_mode, int offset_mode, int dim_cn, int dim_vn,
            cudaStream_t stream) {
-  if (smem != decode_smem_bytes(N, M, z, E, G, ucn, kMode == kDeploy)) return -2;
+  if (smem != decode_smem_bytes(N, M, z, E, G, ucn, kMode == kDeploy, kCode))
+    return -2;
+  auto* kern = fused_nms_kernel<kMode, kSP, kCode>;
   cudaError_t st = cudaFuncSetAttribute(
-      fused_nms_kernel<kMode, kSP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (st != cudaSuccess) return (int)st;
   const int blocks = (B + G - 1) / G;
-  fused_nms_kernel<kMode, kSP><<<blocks, threads, smem, stream>>>(
+  kern<<<blocks, threads, smem, stream>>>(
       (const float*)llr, (const float*)w_cn, (const float*)w_ucn,
       (const float*)w_vn, (const int*)tab, (float*)app, (uint8_t*)err,
       (int*)nerr, (int*)iters, (uint8_t*)fail, (float*)hist, (float*)cres,

@@ -27,34 +27,65 @@
 
 #include "fused_nms_kernel.cuh"
 
-// mode: 0 fixed T, 1 genie early stop, 2 deploy; sp: the SP check update.
-// Stats modes write app [N*z][B], err uint8 [T][B], nerr int [T][B] (iters
-// and fail unused); deploy writes app, err uint8 [B], nerr int [B], iters
-// int [B], fail uint8 [B].  `smem` is the dynamic shared memory of one
-// block (ops/fused_decoder.py::_smem_bytes); qinv = 1/qstep, exactly (a
-// power of two).  Returns cudaGetLastError() after the launch (0 =
-// launched), or -1 for an unknown mode.
+// mode: 0 fixed T, 1 genie early stop, 2 deploy; sp: the SP check update;
+// code: the code-domain state (QMS only; u, uinv, clipc, qshift its grid in
+// units of u, see Msg).  Stats modes write app [N*z][B],
+// err uint8 [T][B], nerr int [T][B] (iters and fail unused); deploy writes
+// app, err uint8 [B], nerr int [B], iters int [B], fail uint8 [B].  `smem`
+// is the dynamic shared memory of one block (ops/fused_decoder.py::
+// _smem_bytes); qinv = 1/qstep, exactly (a power of two).  Returns
+// cudaGetLastError() after the launch (0 = launched), -1 for an unknown
+// instance, -2 for a shared-memory size that is not the layout's.
+#define FUSED_NMS_INSTANCES(X)                                                \
+  X(0, kFixed, false, false)                                                  \
+  X(1, kFixed, true, false)                                                   \
+  X(2, kFixed, false, true)                                                   \
+  X(3, kEarlyStop, false, false)                                              \
+  X(4, kEarlyStop, true, false)                                               \
+  X(5, kEarlyStop, false, true)                                               \
+  X(6, kDeploy, false, false)                                                 \
+  X(7, kDeploy, true, false)                                                  \
+  X(8, kDeploy, false, true)
+
+static int instance(int mode, int sp, int code) {
+  if (mode < 0 || mode > 2 || (sp && code)) return -1;
+  return mode * 3 + (sp ? 1 : (code ? 2 : 0));
+}
+
 extern "C" int fused_nms_launch(
     const void* llr, const void* w_cn, const void* w_ucn, const void* w_vn,
     const void* tab, void* app, void* err, void* nerr, void* iters,
-    void* fail, int N, int M, int z, int E, int T, int B, int G, int threads,
-    int smem, int target, int dec_type, float qstep, float qinv, float qclip,
-    float clip_llr, int cn_mode, int ucn, int vn_mode, int offset_mode,
-    int dim_cn, int dim_vn, int mode, int sp, void* stream) {
-  const Msg ms{dec_type, qinv, qstep, qclip, clip_llr};
-#define FUSED_NMS_LAUNCH(MODE, SP)                                            \
-  launch<MODE, SP>(llr, w_cn, w_ucn, w_vn, tab, app, err, nerr, iters, fail, \
-                   nullptr, nullptr, N, M, z, E, T, B, G, 1, threads, smem,   \
-                   target, 0, ms, cn_mode, ucn, vn_mode, offset_mode, dim_cn, \
-                   dim_vn, (cudaStream_t)stream)
-  switch (mode * 2 + (sp ? 1 : 0)) {
-    case 0: return FUSED_NMS_LAUNCH(kFixed, false);
-    case 1: return FUSED_NMS_LAUNCH(kFixed, true);
-    case 2: return FUSED_NMS_LAUNCH(kEarlyStop, false);
-    case 3: return FUSED_NMS_LAUNCH(kEarlyStop, true);
-    case 4: return FUSED_NMS_LAUNCH(kDeploy, false);
-    case 5: return FUSED_NMS_LAUNCH(kDeploy, true);
-  }
+    void* fail, int N, int M, int z, int E, int T, int B,
+    int G, int threads, int smem, int target, int dec_type, float qstep,
+    float qinv, float qclip, float clip_llr, float u, float uinv, int clipc,
+    int qshift, int cn_mode, int ucn, int vn_mode, int offset_mode,
+    int dim_cn, int dim_vn, int mode, int sp, int code, void* stream) {
+  const Msg ms{dec_type, qinv, qstep, qclip, clip_llr, u, uinv, clipc, qshift};
+  switch (instance(mode, sp, code)) {
+#define FUSED_NMS_LAUNCH(ID, MODE, SP, CODE)                                  \
+  case ID:                                                                    \
+    return launch<MODE, SP, CODE>(                                            \
+        llr, w_cn, w_ucn, w_vn, tab, app, err, nerr, iters, fail, nullptr,    \
+        nullptr, N, M, z, E, T, B, G, 1, threads, smem, target, 0, ms,        \
+        cn_mode, ucn, vn_mode, offset_mode, dim_cn, dim_vn,                   \
+        (cudaStream_t)stream);
+    FUSED_NMS_INSTANCES(FUSED_NMS_LAUNCH)
 #undef FUSED_NMS_LAUNCH
+  }
+  return -1;
+}
+
+// Blocks of one instance that an SM of the current card holds at `threads`
+// threads and `smem` bytes of dynamic shared memory (0: none or a failed
+// query, -1: an unknown instance).
+extern "C" int fused_nms_resident_blocks(int mode, int sp, int code,
+                                         int threads, int smem) {
+  switch (instance(mode, sp, code)) {
+#define FUSED_NMS_RESIDENT(ID, MODE, SP, CODE)                                \
+  case ID:                                                                    \
+    return resident_blocks<MODE, SP, CODE>(threads, smem);
+    FUSED_NMS_INSTANCES(FUSED_NMS_RESIDENT)
+#undef FUSED_NMS_RESIDENT
+  }
   return -1;
 }

@@ -742,10 +742,11 @@ extern "C" int fused_nms_train_fwd_launch(
   (void)Dc;
   const Msg ms{dec_type, qinv, qstep, qclip, clip_llr};
 #define TRAIN_FWD_LAUNCH(SP)                                                  \
-  launch<kTrain, SP>(llr, w_cn, w_ucn, w_vn, tab, apps, nullptr, nullptr,     \
-                     nullptr, nullptr, hist, cres, N, M, z, E, T, B, G, W,    \
-                     threads, smem, target, t0, ms, cn_mode, ucn, vn_mode,    \
-                     offset_mode, dim_cn, dim_vn, (cudaStream_t)stream)
+  launch<kTrain, SP, false>(llr, w_cn, w_ucn, w_vn, tab, apps, nullptr,      \
+                            nullptr, nullptr, nullptr, hist, cres, N, M, z,   \
+                            E, T, B, G, W, threads, smem, target, t0, ms,     \
+                            cn_mode, ucn, vn_mode, offset_mode, dim_cn,       \
+                            dim_vn, (cudaStream_t)stream)
   return dec_type == kSPDec ? TRAIN_FWD_LAUNCH(true) : TRAIN_FWD_LAUNCH(false);
 #undef TRAIN_FWD_LAUNCH
 }

@@ -16,9 +16,12 @@ MS_RAW).  It takes ``llr [N*z, B]`` float32 and per-iteration weights
   its first iteration whose hard decisions satisfy H*x = 0.
 
 A tensor on the card goes to `csrc/fused_nms_stats.cu` (built with nvcc at
-first use, bound with ctypes); a failed build or launch raises.  A tensor on
-the CPU goes to `decode_stats_plain` / `decode_deploy_plain`, ports of the
-scan body of `ldpc_error_floor_tpu/models/nms.py` that the kernel is held to.
+first use, bound with ctypes); a failed build or launch raises.  Under QMS
+the kernel keeps its state in integer codes (`code_grid`, three blocks per
+SM, four under the early stop); MS, MS_RAW and SP keep float state, one
+block per SM.  A tensor on the CPU goes to `decode_stats_plain` /
+`decode_deploy_plain`, ports of the scan body of
+`ldpc_error_floor_tpu/models/nms.py` that the kernel is held to.
 """
 
 from __future__ import annotations
@@ -61,6 +64,15 @@ _SMEM_RESERVED = 1_024  # of it, reserved for each resident block
 # threads per block of the training pair, built to run two blocks per SM
 # (kTwoBlockThreads of the .cuh: at most 56 registers a thread)
 _TWO_BLOCK_THREADS = 576
+# the launch bound of the code-domain decode instances (kCodeThreads,
+# kCodeBlocks, kEarlyStopBlocks of the .cuh): blocks of at most 384
+# threads, three per SM, four under the genie early stop
+_CODE_THREADS = 384
+_CODE_BLOCKS = 3
+_EARLY_STOP_BLOCKS = 4
+_MAX_C2V_CODE = 63  # a C->V code is 7-bit two's complement
+_LUT_INTS = 132  # kLutInts: the code state's table of output bytes
+_MAX_TOT_CODE = 16383  # a bit total is an int16 code, doubled
 _MAX_DEG_SP = 64  # kMaxDegSP of the .cu: the largest check degree SP takes
 
 # the kernel's modes, in the .cu's numbering, by the name its launches count under
@@ -118,9 +130,12 @@ def load_library() -> Tuple[ctypes.CDLL, str]:
     lib, log = build_library(_SRC)
     fn = lib.fused_nms_launch
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
-                   + [ctypes.c_float] * 4 + [ctypes.c_int] * 8
+                   + [ctypes.c_float] * 6 + [ctypes.c_int] * 11
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    occ = lib.fused_nms_resident_blocks
+    occ.argtypes = [ctypes.c_int] * 5
+    occ.restype = ctypes.c_int
     return lib, log
 
 
@@ -135,28 +150,39 @@ def _table_bytes(N: int, M: int, E: int) -> int:
 
 
 def _smem_bytes(N: int, M: int, z: int, E: int, G: int, ucn: bool,
-                deploy: bool = False) -> int:
+                deploy: bool = False, code: bool = False) -> int:
     """Dynamic shared memory of one block of G words, as the kernel lays it
     out: the graph table (`_table_bytes`), one iteration's weights float
-    [2E + N] (cn, ucn, vn at most; rounded up to 16 bytes), C->V float
-    [E*z][G], bit totals float [N*z][G], error counts int [2][G], in deploy
-    mode two more int [G] (frozen flag, last unsatisfied step), then parity
-    bits uint8 [N*z][G] (with UCN or in deploy mode).  The launch reserves
-    this (and the kernel refuses another size)."""
-    return (_table_bytes(N, M, E) + _align16(4 * (2 * E + N))
-            + (E * z + N * z) * G * 4 + (4 if deploy else 2) * G * 4
-            + (N * z * G if ucn or deploy else 0))
+    [2E + N] (cn, ucn, vn at most; rounded up to 16 bytes), then
+    - the float state: C->V float [E*z][G], bit totals float [N*z][G],
+      error counts int [2][G], in deploy mode two more int [G] (frozen flag,
+      last unsatisfied step), parity bits uint8 [N*z][G] (with UCN or in
+      deploy mode);
+    - the code state (`code`): the counts and deploy flags as above and the
+      table of output bytes int [_LUT_INTS], padded to 16 bytes, the lifted
+      slot table int2 [E*z], bit totals int16 [N*z][G] (twice the code plus
+      the bit's hard decision), C->V bytes [E*z][G].
+    The launch reserves this (and the kernel refuses another size)."""
+    cnt = (4 if deploy else 2) * G
+    bits = N * z * G if ucn or deploy else 0
+    head = _table_bytes(N, M, E) + _align16(4 * (2 * E + N))
+    if code:  # no parity bits: each is bit 0 of its bit's packed total
+        return (head + _align16(4 * (cnt + _LUT_INTS)) + 8 * E * z
+                + 2 * N * z * G + E * z * G)
+    return head + (E * z + N * z) * G * 4 + cnt * 4 + bits
 
 
 def pick_launch_shape(graph: TannerGraph, smem: Callable[[int], int],
-                      blocks: int = 1) -> Tuple[int, int]:
+                      blocks: int = 1,
+                      max_threads: Optional[int] = None) -> Tuple[int, int]:
     """(G codewords per block, threads per block) of a kernel whose block of
     G words needs ``smem(G)`` bytes of shared memory: the most words (at
     most 32, a power of two) of which `blocks` blocks fit one SM, else of
     which one block fits, and a thread count that is a multiple of G and of
-    the warp, at most 1024 (`_TWO_BLOCK_THREADS` for the kernels built to
-    run two blocks per SM), preferring one that splits the check phase's
-    M*z*G items evenly."""
+    the warp, at most `max_threads` (the kernel's launch bound; by default
+    1024, or `_TWO_BLOCK_THREADS` for the kernels built to run two blocks
+    per SM), preferring one that splits the check phase's M*z*G items
+    evenly."""
     code = graph.code
     words = (32, 16, 8, 4, 2, 1)
     G = next((g for g in words if smem(g) <= _SMEM_LIMIT
@@ -166,18 +192,23 @@ def pick_launch_shape(graph: TannerGraph, smem: Callable[[int], int],
         raise ValueError(f"{code.name}: one codeword's state exceeds a "
                          "block's shared memory")
     items = code.M * code.z * G
-    top = 1024 if blocks == 1 else _TWO_BLOCK_THREADS
+    top = max_threads or (1024 if blocks == 1 else _TWO_BLOCK_THREADS)
     cands = [c for c in range(top, 127, -32) if c % G == 0]
-    threads = next((c for c in cands if items % c == 0), 512)
+    threads = next((c for c in cands if items % c == 0), min(512, top))
     return G, threads
 
 
-def launch_shape(graph: TannerGraph, ucn: bool,
-                 deploy: bool = False) -> Tuple[int, int]:
-    """(G, threads) of the decode kernel (`pick_launch_shape`)."""
-    code = graph.code
-    return pick_launch_shape(graph, lambda g: _smem_bytes(
-        code.N, code.M, code.z, graph.E, g, ucn, deploy))
+def launch_shape(graph: TannerGraph, ucn: bool, deploy: bool = False,
+                 code: bool = False, early_stop: bool = False) -> Tuple[int, int]:
+    """(G, threads) of the decode kernel (`pick_launch_shape`): one block of
+    up to 1024 threads per SM for the float state, `_CODE_BLOCKS` of up to
+    `_CODE_THREADS` for the code state (`code`), `_EARLY_STOP_BLOCKS` under
+    the genie early stop."""
+    c = graph.code
+    blocks = (_EARLY_STOP_BLOCKS if early_stop else _CODE_BLOCKS) if code else 1
+    return pick_launch_shape(
+        graph, lambda g: _smem_bytes(c.N, c.M, c.z, graph.E, g, ucn, deploy, code),
+        blocks, _CODE_THREADS if code else 1024)
 
 
 def _graph_table(graph: TannerGraph) -> np.ndarray:
@@ -211,6 +242,26 @@ def kernel_grid(cfg: DecoderConfig) -> Tuple[float, float, float]:
         raise ValueError(f"the kernels' quantizer takes power-of-two steps; "
                          f"q_bit {cfg.q_bit} has step {step}")
     return step, 1.0 / step, clip
+
+
+def code_grid(cfg: DecoderConfig, graph: TannerGraph) -> Tuple[float, float, int, int]:
+    """(u, 1/u, clip/u, log2(step/u)) of the decode kernels' code-domain
+    state under QMS: u is the largest power of two that divides both the
+    grid's step and its clip, so every C->V message, V->C message and bit
+    total is an integer number of u.  Raises when the codes do not fit:
+    a C->V code is 7-bit two's complement (|code| <= 63), a bit total
+    (channel value plus the messages of the graph's largest VN degree) an
+    int16 beside its hard decision (|code| <= 16383)."""
+    step, _, clip = kernel_grid(cfg)
+    u = step
+    while clip / u != math.floor(clip / u):
+        u /= 2.0
+    clipc, qshift = int(clip / u), int(math.log2(step / u))
+    if clipc > _MAX_C2V_CODE or clipc * (graph.Dv + 1) > _MAX_TOT_CODE:
+        raise ValueError(f"q_bit {cfg.q_bit} on {graph.code.name}: codes of "
+                         f"{clipc} units per message do not fit the kernels' "
+                         "code-domain state")
+    return u, 1.0 / u, clipc, qshift
 
 
 def check_sp_degree(graph: TannerGraph) -> None:
@@ -523,7 +574,8 @@ class FusedNMSKernel:
     """The fused decode for one (graph, config, spec).
 
     `launches` counts the CUDA kernel launches made by this wrapper, by
-    kernel name (`kernel_name`).
+    kernel name (`kernel_name`).  Under QMS the kernel keeps its state in
+    codes (`code_grid`).
     """
 
     def __init__(self, graph: TannerGraph, cfg: DecoderConfig, spec: WeightSpec):
@@ -537,12 +589,30 @@ class FusedNMSKernel:
         self.launches: collections.Counter = collections.Counter()
         self._plain_tables: Dict[torch.device, PlainTables] = {}
         self._graph_tabs: Dict[torch.device, torch.Tensor] = {}
+        self.code = cfg.decoding_type == QMS  # the code-domain state
+
+    def launch_shape(self, mode: int) -> Tuple[int, int, int]:
+        """(G, threads, shared bytes per block) of the kernel in `mode`."""
+        deploy = mode == DEPLOY
+        G, threads = launch_shape(self.graph, self.spec.ucn_enabled, deploy, self.code,
+                                  mode == EARLY_STOP)
+        return G, threads, _smem_bytes(self.N, self.M, self.z, self.E, G,
+                                       self.spec.ucn_enabled, deploy, self.code)
 
     @property
     def group(self) -> int:
-        """G, the words of one block of the stats kernels: the granularity
-        of the genie early stop."""
-        return launch_shape(self.graph, self.spec.ucn_enabled)[0]
+        """G, the words of one block of the stats kernel (the early-stop
+        kernel's under ``cfg.early_stop``): the granularity of the genie
+        early stop."""
+        return self.launch_shape(EARLY_STOP if self.cfg.early_stop else FIXED)[0]
+
+    def resident_blocks(self, mode: int) -> int:
+        """Blocks of the kernel in `mode` that one SM of the current card
+        holds at its launch shape (a query of the CUDA runtime)."""
+        lib, _ = load_library()
+        _, threads, smem = self.launch_shape(mode)
+        return lib.fused_nms_resident_blocks(mode, int(self.cfg.decoding_type == SP),
+                                             int(self.code), threads, smem)
 
     def decode_stats(self, stacked: Stacked, llr: torch.Tensor):
         """llr: [N*z, B] float32.  The CUDA kernel (fixed T, or the genie
@@ -621,10 +691,10 @@ class FusedNMSKernel:
         if B == 0:
             return outs
         qstep, qinv, qclip = kernel_grid(cfg)
+        u, uinv, clipc, qshift = (code_grid(cfg, self.graph) if self.code
+                                  else (1.0, 1.0, 0, 0))
         lib, _ = load_library()
-        G, threads = launch_shape(self.graph, spec.ucn_enabled, deploy)
-        smem = _smem_bytes(self.N, self.M, self.z, self.E, G, spec.ucn_enabled,
-                           deploy)
+        G, threads, smem = self.launch_shape(mode)
         ptr = lambda x: None if x is None else x.data_ptr()
         iters, fail = outs[3:] if deploy else (None, None)
         with torch.cuda.device(dev):
@@ -634,9 +704,10 @@ class FusedNMSKernel:
                 ptr(app), ptr(err), ptr(nerr), ptr(iters), ptr(fail),
                 self.N, self.M, self.z, self.E, self.T, B, G, threads, smem,
                 self.target, cfg.decoding_type, qstep, qinv, qclip, cfg.clip_llr,
+                u, uinv, clipc, qshift,
                 spec.sharing[0], int(spec.ucn_enabled), spec.sharing[2],
                 int(cfg.neural_mode == "offset"), dim_cn, dim_vn, mode,
-                int(sp), stream)
+                int(sp), int(self.code), stream)
         if rc != 0:
             raise RuntimeError(f"fused_nms_launch ({kernel_name(mode, sp)}) "
                                f"failed: CUDA error {rc}")

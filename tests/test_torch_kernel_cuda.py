@@ -6,11 +6,14 @@ so on the card run them without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
 
-Tolerances: QMS counters integer-equal and APPs bit-equal (==); MS and
-MS_RAW counters integer-equal and APPs within atol 1e-4 / rtol 1e-5.  The
-genie early stop is held to the plain version grouped as the kernel groups
-words (G per block), and its genie-failure mask to the fixed-T kernel's
-exactly.  The syndrome stop's per-word outputs are integer-equal to its
+Tolerances: QMS counters integer-equal and APPs bit-equal (==, and the
+sign bit of every APP, zeros included: under QMS the kernels keep their
+state in integer codes and must give back the float sums' signed zeros);
+MS and MS_RAW counters integer-equal and APPs within atol 1e-4 / rtol
+1e-5.  The genie early stop is held to the plain version grouped as the
+kernel groups words (G per block), and its genie-failure mask to the
+fixed-T kernel's exactly; under QMS both are checked on every grid, with
+batches that are not a multiple of G, small and large.  The syndrome stop's per-word outputs are integer-equal to its
 plain version.  SP (tanhf/atanhf are not PyTorch's, and the plain version's
 cumprod may associate differently on the card): APPs within atol 1e-3 /
 rtol 1e-4, counters equal on at least 99.9% of words.  The training pair:
@@ -68,13 +71,13 @@ def _cuda():
 
 
 def _setup(dev, code_name, sharing, dec, snr, T=6, B=1000, mode="scale",
-           target=0, early_stop=False, seed=3):
+           target=0, early_stop=False, seed=3, q_bit=5):
     code = get_code(code_name)
     graph = TannerGraph(code)
     temporal = any(s in (4, 5) for s in sharing)
     spec = WeightSpec(sharing=sharing, n_iters=T, fixed_iter=2 if temporal else 0)
     cfg = DecoderConfig(decoding_type=dec, neural_mode=mode, target_node=target,
-                        early_stop=early_stop)
+                        early_stop=early_stop, q_bit=q_bit)
     kern = FusedNMSKernel(graph, cfg, spec)
     gen = torch.Generator(device=dev).manual_seed(seed)
     lo = 0.0 if mode == "offset" else 0.7
@@ -83,13 +86,14 @@ def _setup(dev, code_name, sharing, dec, snr, T=6, B=1000, mode="scale",
                                       device=dev)).contiguous()
                for k in ("cn", "ucn", "vn")}
     sig = torch.full((B,), float(code.snr_sigmas([snr])[0]), device=dev)
-    llr = AWGNChannel(code, decoding_type=dec, device=dev).sample(gen, sig)
+    llr = AWGNChannel(code, decoding_type=dec, q_bit=q_bit, device=dev).sample(gen, sig)
     return kern, stacked, llr
 
 
 def _assert_app(app, app_p, dec):
     if dec == 2:
         assert bool((app == app_p).all())
+        assert torch.equal(torch.signbit(app), torch.signbit(app_p))
     else:
         torch.testing.assert_close(app, app_p, rtol=1e-5, atol=1e-4)
 
@@ -128,6 +132,42 @@ def test_early_stop_matches_grouped_plain_on_card(case):
     assert torch.equal(uncor, err_f.all(dim=0))
     assert 0 < int(uncor.sum()) < uncor.numel()
     assert bool((app != app_f).any())  # some blocks did stop early
+
+
+# (decoding type, q_bit): every QMS grid (codes in units of 0.5, 1 and 2;
+# q_bit 6 rounds at two units) and MS (float state)
+GRID_CASES = [(2, 3), (2, 4), (2, 5), (2, 6), (2, -5), (1, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GRID_CASES, ids=lambda c: f"dec{c[0]}_q{c[1]}")
+def test_fixed_and_early_stop_every_grid_on_card(case):
+    """B1 and B2 on wman (3,3,3) with UCN against the plain version on every
+    QMS grid (the code state) and on MS (the float state): batches of 1001
+    and 20001 words, no multiple of G, the first filling under a tenth of
+    the card; B2 also at 5.0 dB, where most blocks stop within a few
+    iterations."""
+    dev = _cuda()
+    dec, q_bit = case
+    for B, snr, T in ((1001, 3.0, 8), (20001, 4.0, 10), (20001, 5.0, 10)):
+        for es in (False, True):
+            if snr == 5.0 and not es:
+                continue
+            kern, stacked, llr = _setup(dev, WMAN, (3, 3, 3), dec, snr, T=T, B=B,
+                                        early_stop=es, q_bit=q_bit)
+            app, err, nerr = kern.decode_stats(stacked, llr)
+            app_p, err_p, nerr_p = kern.decode_stats_plain(stacked, llr)
+            torch.cuda.synchronize()
+            assert kern.launches == {"fused_nms_early_stop" if es else "fused_nms_stats": 1}
+            assert B % kern.group
+            assert torch.equal(err, err_p) and torch.equal(nerr, nerr_p)
+            _assert_app(app, app_p, dec)
+            if es and snr == 5.0:  # most blocks stop within a few iterations
+                G = kern.group
+                still = torch.cumprod(err.int(), dim=0).bool()
+                still = torch.cat([still, still.new_zeros((T, -B % G))], dim=1)
+                iters = 1 + still.view(T, -1, G).any(dim=2)[:-1].sum(dim=0)
+                assert float(iters.float().mean()) < T / 2
 
 
 @pytest.mark.cuda

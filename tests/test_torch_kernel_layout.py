@@ -7,16 +7,33 @@
   any other step.
 - The training pair's residual streams: tile-major, tiles of W words (the
   backward's G), the last tile padded.
+- The decode kernels' code-domain state under QMS (`code_grid`): every
+  value the loop stores is an integer number of u, the C->V bytes keep the
+  sign of zero, the V->C bytes read magnitude 0 as kEps, the bit totals
+  fit an int16, and the integer quantizer, extrinsic-min and byte-select
+  steps give the float loop's values bit for bit (emulated here in plain
+  PyTorch, op for op as csrc/fused_nms_kernel.cuh writes them).
+- The decode kernels' launch shapes and shared-memory layouts, float and
+  code state, held to the kernel's launch bounds.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from ldpc_error_floor_tpu_torch.codes import TannerGraph, get_code
+from ldpc_error_floor_tpu_torch.codes import TannerGraph, available_codes, get_code
 from ldpc_error_floor_tpu_torch.models import DecoderConfig, WeightSpec
 from ldpc_error_floor_tpu_torch.ops import fused_decoder
-from ldpc_error_floor_tpu_torch.ops.fused_decoder import FusedNMSKernel, kernel_grid
+from ldpc_error_floor_tpu_torch.ops.fused_decoder import (_CODE_BLOCKS, _CODE_THREADS,
+                                                          _EARLY_STOP_BLOCKS, _LUT_INTS,
+                                                          _SMEM_LIMIT, _SMEM_PER_SM,
+                                                          _SMEM_RESERVED,
+                                                          FusedNMSKernel, _smem_bytes,
+                                                          _table_bytes, code_grid,
+                                                          kernel_grid, launch_shape)
 from ldpc_error_floor_tpu_torch.ops.fused_train import FusedTrainKernel, train_launch_shape
 from ldpc_error_floor_tpu_torch.ops.ste import _GRIDS, quantize_llr
 
@@ -147,3 +164,254 @@ def test_tile_major_stream_allocation(case):
     assert hist[tiles - 1, 2].data_ptr() - hist.data_ptr() == 4 * ((tiles - 1) * 3 + 2) * run
     apps_only, none_h, none_c = kern.streams(B, torch.device("cpu"), False)
     assert apps_only.shape == apps.shape and none_h is None and none_c is None
+
+
+# ----- the code-domain state of the decode kernels -----------------------------------
+
+EPS = np.float32(1.0e-4)      # kEps
+PAD = np.float32(1.0e4)       # kPadMag
+PADC = 1 << 30                # kPadC
+NEG_ZERO = 0x80               # kNegZero
+I32 = torch.int32
+
+
+def _sext7(b: torch.Tensor) -> torch.Tensor:
+    """c2v_code: bits 0-6 of a C->V byte, sign-extended (-0's byte reads 0)."""
+    return (b.to(I32) << 25) >> 25
+
+
+def _c2v_byte(v: torch.Tensor, uinv: float) -> torch.Tensor:
+    """The C->V byte of float grid values v (what pass 2's select stores)."""
+    k = torch.round(v * uinv).to(I32)
+    neg0 = (v == 0) & torch.signbit(v)
+    return torch.where(neg0, NEG_ZERO, k & 0x7F)
+
+
+def _c2v_float(b: torch.Tensor, u: float) -> torch.Tensor:
+    """A C->V byte's float value, -0 for the -0 byte."""
+    f = _sext7(b).to(torch.float32) * np.float32(u)
+    return torch.where(b == NEG_ZERO, torch.tensor(-0.0), f)
+
+
+def _quantize_code(pre: torch.Tensor, clipc: int, qshift: int) -> torch.Tensor:
+    """Msg::quantize_code, op for op."""
+    x = pre
+    if qshift > 0:
+        x = ((pre + (1 << (qshift - 1)) - 1 + ((pre >> qshift) & 1)) >> qshift) << qshift
+    return torch.clamp(x, -clipc, clipc)
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(I32)
+
+
+@pytest.mark.parametrize("q_bit", sorted(_GRIDS))
+def test_code_grid_for_every_bundled_code(q_bit):
+    """u is the largest power of two dividing step and clip; every bundled
+    code's bit totals (channel value plus its largest VN degree of
+    messages) fit an int16 and every message a 7-bit code; a grid whose
+    codes do not fit is refused."""
+    step, clip = _GRIDS[q_bit]
+    cfg = DecoderConfig(decoding_type=2, q_bit=q_bit)
+    for name in available_codes():
+        graph = TannerGraph(get_code(name))
+        u, uinv, clipc, qshift = code_grid(cfg, graph)
+        assert clip / u == clipc and step / u == 2 ** qshift and u * uinv == 1.0
+        assert (clip / (2 * u)) % 1 != 0 or (step / (2 * u)) % 1 != 0  # largest
+        assert clipc <= 63 and clipc * (graph.Dv + 1) <= 16383
+    graph = TannerGraph(get_code(WMAN))
+    for grid in ((0.5, 127.0), (2.0 ** -8, 1.0)):  # 254 and 256 units per message
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(fused_decoder, "qms_grid", lambda q, g=grid: g)
+            with pytest.raises(ValueError, match="code-domain"):
+                code_grid(cfg, graph)
+
+
+@pytest.mark.parametrize("q_bit", sorted(_GRIDS))
+def test_code_state_round_trips_every_stored_value(q_bit):
+    """Every value the loop stores, as the kernel encodes it and reads it
+    back, bit for bit (sign of zero included): C->V messages (the grid, +0,
+    -0, the clip), V->C messages (the grid and kEps: magnitude 0), bit
+    totals up to the bundled codes' largest VN degree, and the float
+    slot-order sum of a bit's C->V messages against the code sum (-0 only
+    when every term is -0)."""
+    step, clip = _GRIDS[q_bit]
+    u, uinv, clipc, _ = code_grid(DecoderConfig(decoding_type=2, q_bit=q_bit),
+                                  TannerGraph(get_code(WMAN)))
+    # C->V: every grid value of either sign, both zeros, the clip
+    k = torch.arange(-clipc, clipc + 1, dtype=I32)
+    vals = torch.cat([k.to(torch.float32) * np.float32(u), torch.tensor([0.0, -0.0, clip, -clip])])
+    b = _c2v_byte(vals, uinv)
+    assert int(b.min()) >= 0 and int(b.max()) <= 0xFF
+    assert torch.equal(_bits(_c2v_float(b, u)), _bits(vals))
+    # V->C: sign-magnitude, magnitude 0 is +kEps (the nudged zero)
+    x = torch.cat([k[k != 0], torch.tensor([0], dtype=I32)])
+    vb = x.abs() | ((x >> 24) & 0x80)
+    mag = torch.where((vb & 0x7F) == 0, torch.tensor(EPS), (vb & 0x7F).to(torch.float32) * np.float32(u))
+    xf = torch.where(vb >= 0x80, -mag, mag)
+    ref = torch.where(x == 0, torch.tensor(EPS), x.to(torch.float32) * np.float32(u))
+    assert torch.equal(_bits(xf), _bits(ref))
+    # bit totals: int16 codes up to the channel value plus 16 messages,
+    # doubled, the bit's hard decision in bit 0
+    dv = max(TannerGraph(get_code(n)).Dv for n in available_codes())
+    tot = torch.arange(-clipc * (dv + 1), clipc * (dv + 1) + 1, dtype=I32)
+    for bit in (0, 1):
+        packed = ((tot << 1) | bit).to(torch.int16).to(I32)
+        assert torch.equal(packed >> 1, tot) and bool(((packed & 1) == bit).all())
+    totf = tot.to(torch.float32) * np.float32(u)
+    assert torch.equal(torch.round(totf * np.float32(uinv)).to(I32), tot)
+    # the slot-order float sum of Dv bytes against the code sum
+    rng = np.random.default_rng(q_bit + 40)
+    for dv_ in (1, 2, 3, 6, 16):
+        pick = torch.from_numpy(rng.integers(0, vals.numel(), (20000, dv_)))
+        pick[:2000] = vals.numel() - 3  # all -0
+        pick[2000:3000, 0] = vals.numel() - 4  # +0 first, then any
+        terms = vals[pick]
+        fsum = terms[:, 0].clone()
+        for d in range(1, dv_):
+            fsum = fsum + terms[:, d]
+        tb = _c2v_byte(terms, uinv)
+        csum = _sext7(tb).sum(dim=1)
+        all_neg0 = (tb == NEG_ZERO).all(dim=1)
+        got = torch.where(all_neg0 & (csum == 0), torch.tensor(-0.0),
+                          csum.to(torch.float32) * np.float32(u))
+        assert torch.equal(_bits(got), _bits(fsum))
+
+
+@pytest.mark.parametrize("q_bit", sorted(_GRIDS))
+def test_integer_quantizer_equals_the_float_one(q_bit):
+    """quantize_code(pre) * u equals the float quantizer (and its zero
+    nudge) on pre * u for every pre a V->C derivation can meet: a bit
+    total less a C->V code."""
+    u, uinv, clipc, qshift = code_grid(DecoderConfig(decoding_type=2, q_bit=q_bit),
+                                       TannerGraph(get_code(WMAN)))
+    pre = torch.arange(-clipc * 18, clipc * 18 + 1, dtype=I32)
+    q = _quantize_code(pre, clipc, qshift)
+    ref = quantize_llr(pre.to(torch.float32) * np.float32(u), q_bit)
+    # equal as values; a zero of either sign nudges to +kEps in both loops
+    assert torch.equal(q.to(torch.float32) * np.float32(u), ref)
+
+
+@pytest.mark.parametrize("q_bit", sorted(_GRIDS))
+@pytest.mark.parametrize("offset", [False, True])
+def test_check_update_in_codes_equals_the_float_loop(q_bit, offset):
+    """Phase B of the code state against the float loop's phase B, for
+    random checks of degree 2-15: pass 1's integer min1/min2 and sign
+    parity on sign-magnitude V->C bytes, the two precomputed output bytes
+    per extrinsic magnitude and pass 2's byte select give, decoded, the
+    float loop's C->V messages bit for bit (the sign of zero included)."""
+    step, clip = _GRIDS[q_bit]
+    u, uinv, clipc, _ = code_grid(DecoderConfig(decoding_type=2, q_bit=q_bit),
+                                  TannerGraph(get_code(WMAN)))
+    rng = np.random.default_rng(q_bit + (110 if offset else 10))
+    fu = np.float32(u)
+
+    def quant(x):
+        return torch.clamp(torch.round(x * np.float32(1.0 / step)) * np.float32(step), -clip, clip)
+
+    n_checks = 0
+    for deg in (2, 3, 6, 15):
+        R = 4000
+        xc = torch.from_numpy(rng.integers(-clipc, clipc + 1, (R, deg))).to(I32)
+        xc[: R // 4] = torch.from_numpy(rng.integers(-1, 2, (R // 4, deg)))  # zeros, ties
+        w = torch.from_numpy(rng.uniform(0.0, 1.2 if offset else 1.3, (R, 1)).astype(np.float32))
+        # the float loop (fused_nms_kernel.cuh, pass 1 and pass 2)
+        x = torch.where(xc == 0, torch.tensor(EPS), xc.to(torch.float32) * fu)
+        a = x.abs()
+        m1 = a.amin(dim=1, keepdim=True)
+        first = torch.arange(deg)[None] == a.argmin(dim=1, keepdim=True)
+        m2 = torch.where(first, PAD, a).amin(dim=1, keepdim=True)
+        sg = torch.where(x > 0, -1.0, 1.0)
+        sgn_tot = torch.prod(sg, dim=1, keepdim=True)
+        mag = torch.where(a == m1, m2, m1)
+        mag = torch.where(mag <= EPS, mag - EPS, mag)
+        out = mag * (-(sgn_tot * sg))
+        wmag = mag - w if offset else mag * w
+        wmag = torch.where(wmag > 0, wmag, torch.tensor(0.0))
+        wmag = quant(wmag)
+        ref = wmag * torch.sign(out)
+        # the code loop: sign-magnitude V->C bytes, integer mins and parity
+        vb = xc.abs() | ((xc >> 24) & 0x80)
+        am = vb & 0x7F
+        m1c = am.amin(dim=1, keepdim=True)
+        m2c = torch.where(torch.arange(deg)[None] == am.argmin(dim=1, keepdim=True),
+                          PADC, am).amin(dim=1, keepdim=True)
+        nneg = (xc < 0).sum(dim=1, keepdim=True)
+        ppar = (deg - nneg) & 1
+
+        def out_bytes(mc):
+            m = torch.where(mc >= PADC, PAD, torch.where(mc == 0, EPS, mc.to(torch.float32) * fu))
+            m = torch.where(m <= EPS, m - EPS, m)
+            wm = m - w if offset else m * w
+            wm = quant(torch.where(wm > 0, wm, torch.tensor(0.0)))
+            wc = torch.round(wm * np.float32(uinv)).to(I32)
+            byte = wc | (torch.where(wc != 0, (-wc) & 0x7F, NEG_ZERO) << 8)
+            return torch.where(m == 0, 0, byte)
+
+        K = out_bytes(m2c) | (out_bytes(m1c) << 16)
+        sel = ((am != m1c).to(I32) << 1) | (((vb >> 7) ^ ppar) & 1)
+        got_b = (K >> (8 * sel)) & 0xFF
+        got = _c2v_float(got_b, u)
+        assert torch.equal(_bits(got), _bits(ref))
+        n_checks += R
+    assert n_checks == 16000
+
+
+def _cuh_constant(name: str) -> int:
+    src = (Path(fused_decoder.__file__).parent.parent / "csrc" / "fused_nms_kernel.cuh").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+@pytest.mark.parametrize("name", available_codes())
+def test_decode_launch_shapes_hold_to_the_kernel_layout(name):
+    """For every bundled code, fixed-T, early-stop and deploy modes, float
+    and code state:
+    the launch shape within the kernel's launch bound (the .cuh constants),
+    the most words whose blocks fit an SM as many times as the bound asks
+    (else whose one block fits), and the shared bytes of the layout: the
+    staged head, then for the code state the counts (and deploy flags) and
+    the output-byte table padded to 16 bytes, the lifted slot table, int16
+    totals (each with its bit's decision), C->V bytes."""
+    assert (_CODE_THREADS, _CODE_BLOCKS, _EARLY_STOP_BLOCKS) == (
+        _cuh_constant("kCodeThreads"), _cuh_constant("kCodeBlocks"),
+        _cuh_constant("kEarlyStopBlocks"))
+    assert _LUT_INTS == 2 * _cuh_constant("kLutRow") >= 2 * (63 + 2)
+    code = get_code(name)
+    graph = TannerGraph(code)
+    N, M, z, E = code.N, code.M, code.z, graph.E
+    head = _table_bytes(N, M, E) + -(-4 * (2 * E + N) // 16) * 16
+    for ucn in (False, True):
+        for deploy, es in ((False, False), (False, True), (True, False)):
+            for state in ("float", "code"):
+                code_state = state == "code"
+                G, threads = launch_shape(graph, ucn, deploy, code_state, es)
+                top, blocks = ((_CODE_THREADS, _EARLY_STOP_BLOCKS if es else _CODE_BLOCKS)
+                               if code_state else (1024, 1))
+                assert G in (1, 2, 4, 8, 16, 32) and threads % 32 == 0
+                assert threads % G == 0 and threads <= top
+                smem = _smem_bytes(N, M, z, E, G, ucn, deploy, code_state)
+                cnt = (4 if deploy else 2) * G
+                bits = N * z * G if ucn or deploy else 0
+                if code_state:  # the decisions ride in bit 0 of the totals
+                    assert smem == (head + -(-4 * (cnt + _LUT_INTS) // 16) * 16
+                                    + 8 * E * z + 2 * N * z * G + E * z * G)
+                else:
+                    assert smem == head + 4 * (E + N) * z * G + 4 * cnt + bits
+                fits = lambda s, n: s <= _SMEM_LIMIT and n * (s + _SMEM_RESERVED) <= _SMEM_PER_SM
+                if fits(_smem_bytes(N, M, z, E, 1, ucn, deploy, code_state), blocks):
+                    assert fits(smem, blocks)
+                    assert G == 32 or not fits(
+                        _smem_bytes(N, M, z, E, 2 * G, ucn, deploy, code_state), blocks)
+                else:
+                    assert fits(smem, 1)
+        spec = WeightSpec(sharing=(3, 3 if ucn else 0, 3), n_iters=2)
+        kern = FusedNMSKernel(graph, DecoderConfig(decoding_type=2), spec)
+        es = FusedNMSKernel(graph, DecoderConfig(decoding_type=2, early_stop=True), spec)
+        assert kern.code and kern.group == launch_shape(graph, ucn, False, True)[0]
+        assert es.group == launch_shape(graph, ucn, False, True, True)[0]
+        assert es.launch_shape(fused_decoder.EARLY_STOP)[0] == es.group <= kern.group
+        assert kern.launch_shape(fused_decoder.DEPLOY) == (
+            *launch_shape(graph, ucn, True, True),
+            _smem_bytes(N, M, z, E, launch_shape(graph, ucn, True, True)[0], ucn, True, True))
+    assert not FusedNMSKernel(graph, DecoderConfig(decoding_type=1),
+                              WeightSpec(sharing=(3, 0, 3), n_iters=2)).code

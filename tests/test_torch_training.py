@@ -304,3 +304,56 @@ def test_evaluator_data_mode_matches_jax(compute_loss):
         windowed = NMSDecoder(code, DecoderConfig(app_t0=T - 1), spec, device="cpu")
         with pytest.raises(ValueError, match="app_t0"):
             Evaluator(windowed, tev.channel, 2, batch=B)
+
+
+def test_cli_evaluate_decodes_under_the_configs_neural_mode(tmp_path, capsys):
+    """The port's `evaluate` passes the config's `neural_mode` to the
+    decoder (the JAX CLI's `evaluate` drops it and decodes under 'scale'):
+    on a MacKay offset config in data mode its counters equal the JAX
+    `Evaluator` built with neural_mode='offset', and its loss within rtol
+    1e-6, on the same numpy-made words and weight file."""
+    import json
+
+    from ldpc_error_floor_tpu.models import load_params as jax_load_params
+    from ldpc_error_floor_tpu_torch.cli import main
+    from ldpc_error_floor_tpu_torch.io import (append_uncor_file, read_uncor_file,
+                                             write_weight_file)
+
+    T, B, sharing = 4, 16, (3, 0, 3)
+    jcode = jax_get_code(MACKAY)
+    rng = np.random.default_rng(11)
+    blocks = {"cn": rng.uniform(0.0, 0.6, (T, 1)).astype(np.float32), "ucn": None,
+              "vn": rng.uniform(0.7, 1.3, (T, 1)).astype(np.float32)}
+    wfile = str(tmp_path / "offset_weights.txt")
+    write_weight_file(wfile, sharing, params_to_blocks(
+        WeightSpec(sharing=sharing, n_iters=T), params_from_numpy(blocks, "cpu")))
+    sigma = np.float32(jcode.snr_sigmas([1.5])[0])
+    in_dir = tmp_path / "Inputs"
+    in_dir.mkdir()
+    for split in ("Valid", "Test"):
+        y = (-1.0 + rng.standard_normal((2 * B, jcode.n_full)) * sigma).astype(np.float32)
+        append_uncor_file(str(in_dir / f"[Uncor]_{MACKAY}_{split}.txt"),
+                          (2.0 * y / sigma ** 2).astype(np.float32))
+    cfg = ExperimentConfig(code=MACKAY, sharing=sharing, decoding_type=2, iters_max=T,
+                           neural_mode="offset", loss_type=2, etha_start=0.5,
+                           sampling_type=1, snrs=[1.5], valid_num=2 * B, test_num=2 * B,
+                           input_dir=str(in_dir), out_dir=str(tmp_path))
+    cfg_path = str(tmp_path / "offset.json")
+    cfg.to_json(cfg_path)
+    assert main(["evaluate", "--config", cfg_path, "--weights", wfile, "--batch", str(B),
+                 "--device", "cpu"]) == 0
+    rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert [r["split"] for r in rows] == ["valid", "test"]
+    jspec = JaxSpec(sharing=sharing, n_iters=T)
+    jgraph = JaxGraph(jcode)
+    jdec = JaxDecoder(jcode, JaxConfig(neural_mode="offset"), jspec, graph=jgraph)
+    jparams = jax_load_params(jspec, jgraph, wfile)
+    counts = np.array([2 * B * jcode.n_full, 2 * B, 2 * B], np.float64)
+    for row, split in zip(rows, ("Valid", "Test")):
+        data = read_uncor_file(str(in_dir / f"[Uncor]_{MACKAY}_{split}.txt"))
+        ref, _ = JaxEvaluator(jdec, JaxChannel(jcode), 2, batch=B).run(
+            jparams, [0.0], 2 * B, 0.5, data=data)
+        got = np.array([row["ber_last"], row["fer_last"], row["fer"]])
+        np.testing.assert_array_equal(np.rint(got * counts), np.rint(ref[:3, 0] * counts))
+        np.testing.assert_allclose(row["loss"], ref[3, 0], rtol=1e-6)
+        assert 0.0 < ref[1, 0] < 1.0  # some words decode, some fail

@@ -3,7 +3,7 @@
 other on one card, in turns, on the same inputs.
 
     python tools/torch_kernel_ab.py --tree new=. --tree old=build/parent \
-        --order old,new,new,old [--kernels all|train] [--sass] \
+        --order old,new,new,old [--kernels all|train|decode] [--sass] \
         [--out build/kernel_ab.json]
 
 A tree is a directory that holds a copy of `ldpc_error_floor_tpu_torch/`
@@ -24,14 +24,19 @@ process; it builds that tree's kernels, makes the inputs from fixed seeds
   per kernel, the host's time in CUDA runtime calls) and the PyTorch
   operations in it that wait for the card (`torch.cuda.set_sync_debug_mode`);
 - all: also B1 (fixed T=20, base20 weights), B2 (genie early stop, T=30,
-  boosted30 weights), B3 (syndrome stop, T=20) and B1-SP (BP, T=20), each
-  at batch 65536 and 4.0 dB.
+  boosted30 weights; and base20 at T=20 at 4.0, 5.0 and 5.5 dB), B3
+  (syndrome stop, T=20) and B1-SP (BP, T=20), each at batch 65536 and 4.0
+  dB unless noted; `FERSimulator.run_point` frames/s on the base20 fixed-T,
+  base20 early-stop and boosted30 early-stop paths (4.0 dB, 2^20 frames,
+  seed 0); and the deep anchor: base20 with the early stop at 5.5 dB over
+  2^25 frames, seed 0, its genie error count and frames/s;
+- decode: the decode part of `all` alone.
 
 Each run prints one JSON line: the times, the ptxas report of each library
 it built, and a digest of every output (B4's APPs and the decode outputs
 must agree between trees that decode alike; B5's gradients are summarised
 by their sums).  `--sass` also writes `cuobjdump -sass` of each tree's
-training library to the output directory.
+libraries to the output directory.
 """
 
 from __future__ import annotations
@@ -65,25 +70,13 @@ def worker(tree: Path, kernels: str, sass_dir: str) -> dict:
     sys.path.insert(0, str(tree))
     import ldpc_error_floor_tpu_torch as pkg
     assert Path(pkg.__file__).resolve().is_relative_to(tree.resolve()), pkg.__file__
-    from ldpc_error_floor_tpu_torch.channel import AWGNChannel
-    from ldpc_error_floor_tpu_torch.channel.awgn import mix_sigma_lanes
-    from ldpc_error_floor_tpu_torch.codes import TannerGraph, get_code
-    from ldpc_error_floor_tpu_torch.models import (DecoderConfig, NMSDecoder,
-                                                   WeightSpec,
-                                                   compose_boosted_params,
-                                                   init_weights, load_params,
-                                                   stack_weights)
     from ldpc_error_floor_tpu_torch.ops import fused_decoder, fused_train
-    from ldpc_error_floor_tpu_torch.pipelines import base_config_wman
-    from ldpc_error_floor_tpu_torch.training import (make_epoch_step,
-                                                     make_optimizer,
-                                                     multi_iteration_loss)
 
     dev = torch.device("cuda")
     out = {"tree": str(tree), "times_ms": {}, "digests": {}, "grad_sums": {}}
     t_build = time.perf_counter()
-    libs = [("fused_nms_train.cu", fused_train.load_library)]
-    if kernels == "all":
+    libs = [] if kernels == "decode" else [("fused_nms_train.cu", fused_train.load_library)]
+    if kernels in ("all", "decode"):
         libs.append(("fused_nms_stats.cu", fused_decoder.load_library))
     out["ptxas"] = {}
     for src, load in libs:
@@ -91,7 +84,7 @@ def worker(tree: Path, kernels: str, sass_dir: str) -> dict:
         out["ptxas"][src] = [ln.strip() for ln in log.splitlines()
                              if "Compiling entry" in ln or "registers" in ln
                              or "spill" in ln]
-        if sass_dir and src == "fused_nms_train.cu":
+        if sass_dir:
             cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
             res = subprocess.run([cuobjdump, "-sass", lib._name], capture_output=True,
                                  text=True)
@@ -99,23 +92,44 @@ def worker(tree: Path, kernels: str, sass_dir: str) -> dict:
             Path(sass_dir, f"sass_{name}_{Path(lib._name).stem}.txt").write_text(
                 res.stdout + res.stderr)
     out["build_s"] = time.perf_counter() - t_build
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    if kernels != "decode":
+        train_runs(out, gen)
+    if kernels != "train":
+        decode_runs(out, gen)
+    return out
 
-    def time_ms(fn, reps, warmup=2):
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / reps
 
+def time_ms(fn, reps, warmup=2):
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def train_runs(out: dict, gen) -> None:
+    import torch
+    from ldpc_error_floor_tpu_torch.channel import AWGNChannel
+    from ldpc_error_floor_tpu_torch.channel.awgn import mix_sigma_lanes
+    from ldpc_error_floor_tpu_torch.codes import TannerGraph, get_code
+    from ldpc_error_floor_tpu_torch.models import (DecoderConfig, NMSDecoder,
+                                                   WeightSpec, init_weights)
+    from ldpc_error_floor_tpu_torch.ops import fused_train
+    from ldpc_error_floor_tpu_torch.pipelines import base_config_wman
+    from ldpc_error_floor_tpu_torch.training import (make_epoch_step,
+                                                     make_optimizer,
+                                                     multi_iteration_loss)
+    dev = torch.device("cuda")
     wman = get_code(WMAN)
     graph = TannerGraph(wman)
-    gen = torch.Generator(device=dev).manual_seed(2024)
 
     def rand_weights(spec, lo=0.7, hi=1.3):
         return {k: None if spec.dim(k, graph) == 0 else
@@ -202,34 +216,72 @@ def worker(tree: Path, kernels: str, sass_dir: str) -> dict:
                                      f"{str(w.message)[:60]}" for w in caught})
     torch.cuda.synchronize()
 
-    if kernels == "all":
-        spec20 = WeightSpec(sharing=(3, 3, 3), n_iters=20)
-        spec30 = WeightSpec(sharing=(3, 3, 3), n_iters=30)
-        base20 = load_params(spec20, graph, f"{WMAN}_base20", device=dev)
-        boosted30 = compose_boosted_params(
-            graph, spec20, base20, spec30,
-            load_params(spec30, graph, f"{WMAN}_boosted30", device=dev))
-        st20, st30 = stack_weights(spec20, base20), stack_weights(spec30, boosted30)
-        spec_bp = WeightSpec(sharing=(0, 0, 0), n_iters=20)
-        st_bp = stack_weights(spec_bp, init_weights(spec_bp, graph, device=dev))
-        sig = torch.full((DECODE_B,), float(wman.snr_sigmas([4.0])[0]), device=dev)
-        llr = AWGNChannel(wman, device=dev).sample(gen, sig)
-        llr_sp = AWGNChannel(wman, decoding_type=0, device=dev).sample(gen, sig)
-        K = fused_decoder.FusedNMSKernel
-        runs = {
-            "b1_fixed20": (K(graph, DecoderConfig(), spec20), st20, llr, False),
-            "b2_early_stop30": (K(graph, DecoderConfig(early_stop=True), spec30), st30,
-                                llr, False),
-            "b3_deploy20": (K(graph, DecoderConfig(), spec20), st20, llr, True),
-            "b1sp_bp20": (K(graph, DecoderConfig(decoding_type=0), spec_bp), st_bp,
-                          llr_sp, False),
-        }
-        for name, (kern, st, x, deploy) in runs.items():
-            fn = (lambda: kern.decode_deploy(st, x)) if deploy else (
-                lambda: kern.decode_stats(st, x))
-            out["times_ms"][name] = time_ms(fn, 10)
-            out["digests"][name] = [digest(o) for o in fn()]
-    return out
+
+def decode_runs(out: dict, gen) -> None:
+    import torch
+    from ldpc_error_floor_tpu_torch.channel import AWGNChannel
+    from ldpc_error_floor_tpu_torch.codes import TannerGraph, get_code
+    from ldpc_error_floor_tpu_torch.models import (DecoderConfig, NMSDecoder,
+                                                   WeightSpec,
+                                                   compose_boosted_params,
+                                                   init_weights, load_params,
+                                                   stack_weights)
+    from ldpc_error_floor_tpu_torch.ops import fused_decoder
+    from ldpc_error_floor_tpu_torch.sim import FERSimulator
+    dev = torch.device("cuda")
+    wman = get_code(WMAN)
+    graph = TannerGraph(wman)
+    spec20 = WeightSpec(sharing=(3, 3, 3), n_iters=20)
+    spec30 = WeightSpec(sharing=(3, 3, 3), n_iters=30)
+    base20 = load_params(spec20, graph, f"{WMAN}_base20", device=dev)
+    boosted30 = compose_boosted_params(
+        graph, spec20, base20, spec30,
+        load_params(spec30, graph, f"{WMAN}_boosted30", device=dev))
+    st20, st30 = stack_weights(spec20, base20), stack_weights(spec30, boosted30)
+    spec_bp = WeightSpec(sharing=(0, 0, 0), n_iters=20)
+    st_bp = stack_weights(spec_bp, init_weights(spec_bp, graph, device=dev))
+
+    def llr_at(snr, dec=2):
+        sig = torch.full((DECODE_B,), float(wman.snr_sigmas([snr])[0]), device=dev)
+        return AWGNChannel(wman, decoding_type=dec, device=dev).sample(gen, sig)
+
+    llr, llr_sp = llr_at(4.0), llr_at(4.0, dec=0)
+    K = fused_decoder.FusedNMSKernel
+    runs = {
+        "b1_fixed20": (K(graph, DecoderConfig(), spec20), st20, llr, False),
+        "b2_early_stop30": (K(graph, DecoderConfig(early_stop=True), spec30), st30,
+                            llr, False),
+        "b3_deploy20": (K(graph, DecoderConfig(), spec20), st20, llr, True),
+        "b1sp_bp20": (K(graph, DecoderConfig(decoding_type=0), spec_bp), st_bp,
+                      llr_sp, False),
+    }
+    es20 = K(graph, DecoderConfig(early_stop=True), spec20)
+    for snr in (4.0, 5.0, 5.5):
+        runs[f"b2_early_stop20_{snr}dB"] = (es20, st20, llr_at(snr), False)
+    for name, (kern, st, x, deploy) in runs.items():
+        fn = (lambda: kern.decode_deploy(st, x)) if deploy else (
+            lambda: kern.decode_stats(st, x))
+        out["times_ms"][name] = time_ms(fn, 10)
+        out["digests"][name] = [digest(o) for o in fn()]
+
+    def run_point(spec, params, early_stop, snr, frames):
+        dec = NMSDecoder(wman, DecoderConfig(early_stop=early_stop), spec, graph=graph,
+                         device=dev)
+        sim = FERSimulator(dec, AWGNChannel(wman, device=dev), batch=DECODE_B)
+        return sim.run_point(params, snr, torch.Generator(device=dev).manual_seed(0),
+                             max_frames=frames, target_frame_errors=None)
+
+    out["run_point"] = {}
+    for name, spec, params, es in (("base20_fixed", spec20, base20, False),
+                                   ("base20_early_stop", spec20, base20, True),
+                                   ("boosted30_early_stop", spec30, boosted30, True)):
+        pt = run_point(spec, params, es, 4.0, 2 ** 20)
+        out["run_point"][name] = {"frames_per_sec": pt.frames_per_sec,
+                                  "genie_errors": round(pt.fer_genie * pt.frames)}
+    pt = run_point(spec20, base20, True, 5.5, 2 ** 25)
+    out["run_point"]["deep_base20_early_stop_5.5dB"] = {
+        "frames": pt.frames, "frames_per_sec": pt.frames_per_sec,
+        "genie_errors": round(pt.fer_genie * pt.frames)}
 
 
 # ----- the runs, in turns ----------------------------------------------------------
@@ -240,7 +292,7 @@ def main() -> int:
                     help="NAME=DIR, a directory holding a copy of the package")
     ap.add_argument("--order", default=None,
                     help="comma-separated tree names, run in this order")
-    ap.add_argument("--kernels", choices=("all", "train"), default="all")
+    ap.add_argument("--kernels", choices=("all", "train", "decode"), default="all")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--out", default="build/kernel_ab.json")
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
@@ -273,10 +325,10 @@ def main() -> int:
             print(res.stdout, res.stderr, file=sys.stderr)
             raise RuntimeError(f"run of tree {name} failed ({res.returncode})")
         row = {"name": name, **json.loads(res.stdout.strip().splitlines()[-1])}
-        print(json.dumps({k: row[k] for k in ("name", "times_ms", "digests",
-                                               "grad_sums", "build_s",
-                                               "base_step_trace_ms",
-                                               "base_step_syncs")}), flush=True)
+        print(json.dumps({k: row.get(k) for k in ("name", "times_ms", "digests",
+                                                   "grad_sums", "build_s", "run_point",
+                                                   "base_step_trace_ms",
+                                                   "base_step_syncs")}), flush=True)
         runs.append(row)
     summary = {}
     for name in dict.fromkeys(order):
