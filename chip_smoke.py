@@ -92,8 +92,11 @@ exits non-zero:
    plain version, the early stop at 4.0, 5.0 and 5.5 dB against the
    fixed-T kernel on the same LLRs with the distribution of iterations per
    tile of G words (mean, max, share that runs all T), SP at 16384 too,
-   run_point frames/s, each decode instance's launch shape and resident
-   blocks per SM; B4 and B5
+   run_point frames/s, the syndrome stop's word-iterations and iterations
+   per block and its bound at its own G and at G = 16, and each decode
+   instance's launch shape, resident blocks per SM (B1-SP must hold two)
+   and ptxas' registers, stack frame and spills (the SP instances' too);
+   B4 and B5
    at batch 32768 on the base and post blocks against the plain version on
    the same inputs (in chunks of 4096), each one's achieved device-memory
    rate and multiple of its bound, one whole train step (sampling, B4,
@@ -103,13 +106,16 @@ exits non-zero:
 8. the `kernels` line (eight entries), then the card's nvidia-smi line,
    then the result.
 
-It imports neither JAX nor the JAX package.
+It imports neither JAX nor the JAX package. It exits 2, printing nothing
+on stdout, without a card or without `ldpc_error_floor_tpu_torch/` beside
+it (the script alone in a directory of its own).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -353,11 +359,54 @@ def deploy_word_iters(iters, G: int) -> int:
     return int(iters.view(-1, G).amax(dim=1).sum()) * G
 
 
+def deploy_block_iters(iters, G: int, T: int) -> dict:
+    """Iterations each block of G words ran under the syndrome stop (its
+    slowest word's): mean, max and the share of blocks that ran all T."""
+    blk = iters.view(-1, G).amax(dim=1).float()
+    return {"blocks": blk.numel(), "mean": float(blk.mean()), "max": int(blk.max()),
+            "share_all_T": float((blk == T).float().mean())}
+
+
+def ptxas_by_instance(log: str, kern_name) -> dict:
+    """ptxas' registers, stack frame and spill bytes of each instance of
+    `fused_nms_kernel<mode, sp, code>` in the decode library's build log
+    (`-Xptxas -v`), by kernel name (the min-sum ones marked [code] or
+    [float])."""
+    out, entry, props = {}, None, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            entry = props = None
+            k = re.search(r"fused_nms_kernelILi(\d)ELb([01])ELb([01])E", m.group(1))
+            if k:
+                mode, sp, code = (int(x) for x in k.groups())
+                entry = kern_name(mode, bool(sp)) + ("" if sp else
+                                                     "[code]" if code else "[float]")
+            continue
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and entry and props and "fused_nms_kernel" in props:
+            out.setdefault(entry, {}).update(zip(("stack", "spill_stores", "spill_loads"),
+                                                 (int(x) for x in m.groups())))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            out.setdefault(entry, {})["registers"] = int(m.group(1))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(REPO, "ldpc_error_floor_tpu_torch")):
+        print(f"chip_smoke: no ldpc_error_floor_tpu_torch/ beside this script in {REPO}; "
+              "run it from a checkout of the repo", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
     from concurrent.futures import ThreadPoolExecutor
@@ -979,9 +1028,20 @@ def main() -> int:
     timing["deploy20_plain_ms"] = time_ms(lambda: dep20.decode_deploy_plain(st20, llr),
                                           reps=2, warmup=1)
     G_dep = dep20.launch_shape(DEPLOY)[0]
-    wi = deploy_word_iters(dep20.decode_deploy(st20, llr)[3], G_dep)
-    bounds["fused_nms_deploy"] = bound(wman_graph, spec20, MAIN_B, word_iters=wi,
-                                       out_bytes_per_word=1 + 4 + 4 + 1, syndrome=True)
+    iters_dep = dep20.decode_deploy(st20, llr)[3]
+    # B3's outputs do not depend on G (a word's stop is its own), so its
+    # bound counts each word's own iterations; beside it, the bounds of the
+    # iterations a block of its own G and of the earlier G of 16 words ran
+    def deploy_bound(word_iters):
+        return bound(wman_graph, spec20, MAIN_B, word_iters=word_iters,
+                     out_bytes_per_word=1 + 4 + 4 + 1, syndrome=True)
+    timing["deploy20_word_iters"] = int(iters_dep.sum())
+    bounds["fused_nms_deploy"] = deploy_bound(timing["deploy20_word_iters"])
+    for g in (G_dep, 16):
+        wi = deploy_word_iters(iters_dep, g)
+        timing[f"deploy20_word_iters_G{g}"] = wi
+        timing[f"deploy20_block_iters_G{g}"] = deploy_block_iters(iters_dep, g, T_MAIN)
+        timing[f"deploy20_bound_G{g}"] = deploy_bound(wi)
 
     for B in (16384, MAIN_B):  # B1-SP on its path: belief propagation, T=20
         llr = llr_at(4.0, B, dec=0)
@@ -990,10 +1050,20 @@ def main() -> int:
                                                 reps=2, warmup=1)
     bounds["fused_nms_stats_sp"] = bound(wman_graph, spec_bp, MAIN_B, sp=True)
     G_fixed, threads, _ = fixed20.launch_shape(FIXED)
-    launch_shapes = {kern_name(mode, k.cfg.decoding_type == 0): {"G_threads_smem": list(k.launch_shape(mode)),
-                                          "resident_blocks_per_sm": k.resident_blocks(mode)}
-                     for k, mode in ((fixed20, FIXED), (es30, EARLY_STOP), (dep20, DEPLOY),
-                                     (sp20, FIXED))}
+    # each decode instance of the main paths (and SP's early stop and
+    # syndrome stop): its launch shape, resident blocks per SM and ptxas'
+    # registers, stack frame and spills
+    ptxas_dec = ptxas_by_instance(logs["fused_nms_stats.cu"], kern_name)
+    launch_shapes = {}
+    for k, mode in ((fixed20, FIXED), (es30, EARLY_STOP), (dep20, DEPLOY), (sp20, FIXED),
+                    (sp20, EARLY_STOP), (sp20, DEPLOY)):
+        sp = k.cfg.decoding_type == 0
+        kname = kern_name(mode, sp)
+        launch_shapes[kname] = {"G_threads_smem": list(k.launch_shape(mode)),
+                                "resident_blocks_per_sm": k.resident_blocks(mode),
+                                "ptxas": ptxas_dec.get(kname + ("" if sp else "[code]"))}
+    check(launch_shapes["fused_nms_stats_sp"]["resident_blocks_per_sm"] >= 2,
+          f"B1-SP: {launch_shapes['fused_nms_stats_sp']} resident blocks per SM")
     smem_traffic = (T_MAIN * MAIN_B * 4 * wman_graph.E * wman.z * 6)  # bytes
     emit({"phase": "timing", "card": smi, **timing,
           "run_point_frames_per_sec": {"base20_fixed": pt.frames_per_sec,
@@ -1004,6 +1074,7 @@ def main() -> int:
                                        "bp_sp": pt_sp.frames_per_sec},
           "bounds": bounds, "words_per_block": G_fixed, "threads": threads,
           "words_per_block_deploy": G_dep, "launch_shapes": launch_shapes,
+          "ptxas_decode": ptxas_dec,
           "smem_ms_this_design_fixed20": smem_traffic / SMEM_BYTES_PER_S * 1e3})
 
     # B4 and B5 at the training batch on the base block ((3,0,3), T=20) and

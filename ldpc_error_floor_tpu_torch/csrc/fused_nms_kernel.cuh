@@ -41,9 +41,27 @@
 //     division;
 //   - kTrain (B4) runs two blocks per SM, under a launch bound of 576
 //     threads and 56 registers, with the most words whose two blocks fit
-//     (G = 8 on wman, where one block of 16 was 7.7% slower); the float
-//     decode instances (MS, MS_RAW, SP) keep one block of up to 1024
-//     threads.
+//     (G = 8 on wman, where one block of 16 was 7.7% slower); the SP decode
+//     instances take blocks of up to 768 threads at 80 registers
+//     (kSPThreads), and the host picks, for a fixed T and the syndrome
+//     stop, the shape that keeps the most warps resident with the fullest
+//     check phase (two blocks of eight words and 384 threads on wman,
+//     three of four and 256 on 802.11n, one of 768 on the 5G codes of
+//     z = 64 and 72); MS and MS_RAW keep one block of up to 1024 threads.
+// SP (B1-SP, and B4-SP in kTrain) pays a tanhf and an atanhf per slot, so
+// its check update keeps the rest of a slot's work small: the decode
+// instances read both row offsets of a slot from the lifted slot table
+// (below), and two passes over the slots replace three: the reverse pass
+// derives each V->C message and its tanh and accumulates the suffix
+// products, a chunk of kSPRegDeg slots at a time (an unrolled loop into
+// registers, no local array), keeping the running product at the top of
+// each chunk; the forward pass accumulates the prefix products and writes
+// each C->V message, a chunk at a time: chunk 0's suffix products are the
+// reverse pass's, a later chunk's are formed again from its top's running
+// product and its own slots' tanh values (one more load and product per
+// slot past the first chunk), in the same order.  Every product is the one
+// the per-slot arrays gave, so B1-SP's outputs did not move (a CPU test,
+// tests/test_torch_kernel_layout.py, emulates both orders).
 // Under QMS the decode instances (kCode: B1, B2, B3) keep their state in
 // integer codes: every stored value is a whole number of u, the largest
 // power of two dividing the grid's step and clip (0.5 for q_bit 5), so a
@@ -80,7 +98,9 @@
 // counter) ran no faster than one block per G words, 5% slower at 5.5 dB.
 // The stops end a block's loop, never a thread's: early stop decides with
 // __syncthreads_or after the statistics of an iteration, deploy after phase
-// B, from shared flags that every thread reads alike.  A block of G words
+// B, from shared flags that every thread reads alike.  Both stop per block
+// of G words, so they take fewer words under more blocks than the fixed T
+// (kEarlyStopBlocks, kDeployBlocks).  A block of G words
 // stops as a whole (the JAX tile stops as a whole too, at another size), so
 // the early-stop rows after a block's stop and its APP depend on G; the
 // genie-failure mask and every deploy output do not.
@@ -132,6 +152,27 @@ constexpr int kTwoBlockThreads = 576;
 constexpr int kCodeThreads = 384;
 constexpr int kCodeBlocks = 3;
 constexpr int kEarlyStopBlocks = 4;
+// The syndrome stop's own bound (code state): like the early stop, a block
+// runs until its slowest word stops, so it takes fewer words under more
+// blocks: kDeployBlocks blocks of at most kDeployThreads threads (G = 4 on
+// wman, 56 registers; G = 8 under four blocks of 384 was 6.8% slower at
+// 4.0 dB, 1.7% at 5.5 dB) (ops/fused_decoder.py::_DEPLOY_THREADS,
+// _DEPLOY_BLOCKS).
+constexpr int kDeployThreads = 192;
+constexpr int kDeployBlocks = 6;
+// The SP decode instances (float state): blocks of at most kSPThreads
+// threads, so at most 80 registers (at 1024 threads, 64 registers spilled
+// 76 bytes) and 24 resident warps per SM
+// (ops/fused_decoder.py::_SP_THREADS, sp_launch_shape).  The early stop
+// takes one block of the most words (its rows after a block's stop depend
+// on G: 16 on wman).
+constexpr int kSPThreads = 768;
+// SP forms a check's suffix products a chunk of kSPRegDeg slots at a time,
+// in registers (an unrolled loop), and keeps the running product at the top
+// of each of its kSPChunks chunks.
+constexpr int kSPRegDeg = 16;
+constexpr int kSPChunks = kMaxDegSP / kSPRegDeg;
+static_assert(kMaxDegSP % kSPRegDeg == 0, "whole chunks of SP slots");
 
 __device__ __forceinline__ float clip(float x, float lim) {
   return fminf(fmaxf(x, -lim), lim);
@@ -362,17 +403,18 @@ __device__ void stage_lifted(const int* __restrict__ tab, int2* dst, int E,
 
 // Bytes of the decode kernel's shared memory (the layouts below;
 // ops/fused_decoder.py::_smem_bytes computes the same).
+// `lifted`: the float state carries the lifted slot table (SP decode).
 __host__ __device__ __forceinline__ int decode_smem_bytes(int N, int M, int z,
                                                           int E, int G,
                                                           int ucn, bool deploy,
-                                                          bool code) {
+                                                          bool code, bool lifted) {
   const int head = table_bytes(N, M, E) + 4 * ((2 * E + N + 3) & ~3);
   const int cnt = (deploy ? 4 : 2) * G;
   const int bits = (ucn || deploy) ? N * z * G : 0;
   if (code)  // no parity bits: each is bit 0 of its bit's packed total
     return head + 4 * ((cnt + kLutInts + 3) & ~3) + 8 * E * z + 2 * N * z * G +
            E * z * G;
-  return head + 4 * (E * z + N * z) * G + 4 * cnt + bits;
+  return head + (lifted ? 8 * E * z : 0) + 4 * (E * z + N * z) * G + 4 * cnt + bits;
 }
 
 // Copy the weights of iteration t into shared memory: cn, ucn [dim_cn] and
@@ -402,7 +444,8 @@ __device__ __forceinline__ float cn_w(const float* wc, const float* wu,
 // Shared memory of one block (ops/fused_decoder.py::_smem_bytes computes its
 // size): graph table (`table_bytes`) | weights float [2E + N] (rounded to
 // 16 bytes; cn, ucn and vn of one iteration), then the state of G words:
-//   float state: C->V float [E*z][G] | bit totals float [N*z][G] | error
+//   float state: SP decode only: the lifted slot table int2 [E*z] | C->V
+//     float [E*z][G] | bit totals float [N*z][G] | error
 //     counts int [2][G] | deploy only: frozen int [G], last unsatisfied step
 //     int [G] | parity bits uint8 [N*z][G] (with UCN or in deploy mode);
 //   code state (kCode): error counts int [2][G] | deploy: frozen, last
@@ -449,11 +492,20 @@ __device__ __forceinline__ CodePass1 code_pass1(const Msg& ms, const int2* lt,
 
 template <int kMode, bool kSP, bool kCode>
 struct LaunchBound {
+  // the state carries the lifted slot table: the code state and the SP
+  // decode instances (decode_smem_bytes' `lifted` for the float state)
+  static constexpr bool lifted = kCode || (kSP && kMode != kTrain);
   static constexpr int threads =
-      kMode == kTrain ? kTwoBlockThreads : (kCode ? kCodeThreads : 1024);
+      kMode == kTrain ? kTwoBlockThreads
+      : kCode         ? (kMode == kDeploy ? kDeployThreads : kCodeThreads)
+      : kSP           ? kSPThreads
+                      : 1024;
   static constexpr int blocks =
       kMode == kTrain ? 2
-                      : (kCode ? (kMode == kEarlyStop ? kEarlyStopBlocks : kCodeBlocks) : 1);
+      : kCode ? (kMode == kEarlyStop ? kEarlyStopBlocks
+                 : kMode == kDeploy  ? kDeployBlocks
+                                     : kCodeBlocks)
+              : 1;
 };
 
 template <int kMode, bool kSP, bool kCode>
@@ -476,6 +528,7 @@ fused_nms_kernel(const float* __restrict__ llr,
                  int vn_mode, int offset_mode, int dim_cn, int dim_vn) {
   constexpr bool kDep = kMode == kDeploy;
   constexpr bool kTr = kMode == kTrain;
+  constexpr bool kLifted = LaunchBound<kMode, kSP, kCode>::lifted;
   static_assert(!kCode || (!kSP && !kTr), "the code state is QMS decode only");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int Nz = N * z, Mz = M * z, Ez = E * z;
@@ -486,17 +539,17 @@ fused_nms_kernel(const float* __restrict__ llr,
   float* wv = wu + dim_cn;
   float* state = wc + ((2 * E + N + 3) & ~3);
   const int ncnt = (kDep ? 4 : 2) * G;
-  // float state
-  float* c2v = state;
+  // float state (SP decode: after the lifted slot table)
+  float* c2v = state + (kLifted && !kCode ? 2 * Ez : 0);
   float* tot = c2v + Ez * G;
   // code state
   int* ctl = reinterpret_cast<int*>(state);
-  int2* ltab = reinterpret_cast<int2*>(ctl + ((ncnt + kLutInts + 3) & ~3));
+  int2* ltab = reinterpret_cast<int2*>(kCode ? ctl + ((ncnt + kLutInts + 3) & ~3) : ctl);
   short* tot16 = reinterpret_cast<short*>(ltab + Ez);
   uint8_t* c2v8 = reinterpret_cast<uint8_t*>(tot16 + Nz * G);
   int* cnt = kCode ? ctl : reinterpret_cast<int*>(tot + Nz * G);
   int* lut = cnt + ncnt;  // code state only
-  if (kCode) stage_lifted(tab, ltab, E, z, gr.lg);
+  if (kLifted) stage_lifted(tab, ltab, E, z, gr.lg);
   // deploy: frozen[g] = word g's syndrome held at an iteration <= t-3 (as of
   // phase A of step t); unsat_at[g] = the last step whose phase B found an
   // unsatisfied check of word g (step s tests iteration s-1's decisions)
@@ -725,50 +778,97 @@ fused_nms_kernel(const float* __restrict__ llr,
       const float w_chk =
           (cn_mode > 0 && !per_edge) ? cn_w(wc, wu, cn_col(cn_mode, i, 0), ucn, u) : 1.0f;
       if (kSP) {
-        // tanh of each V->C message, stashed in its own C->V slot, then
-        // suffix products in suf[]; streaming, the pre-clip value goes out
+        // Two passes over the check's d slots, a chunk of kSPRegDeg at a
+        // time (see the notes above).  The reverse pass derives each V->C
+        // message and its tanh (kept in the slot's own C->V entry) and
+        // accumulates the suffix products; the forward pass accumulates the
+        // prefix products and writes each slot's C->V message (prefix x
+        // suffix, clip, atanh, weight, ReLU, clip, sign) over the same
+        // entry.  Streaming, the pre-clip V->C value goes out
         // before its slot is overwritten, and the UCN mask is the check's
-        // one residual
-        float suf[kMaxDegSP];
+        // one residual.
         if (stream && ucn && b < B)
           cres_w[((size_t)t * Mz + row) << lgW] = u;
-        for (int q = k0; q < k1; ++q) {
-          const int4 sd = gr.slot[q];
-          const int sl = gr.sub(sd, h);
-          const int ci = gr.at(sd.x + sl, g);
-          const float pre = tot[gr.at(sd.y + sl, g)] - c2v[ci];
+        const int d = k1 - k0;
+        const int2* lt = kLifted ? ltab + k0 * z + h : nullptr;
+        // slot j's row offsets {C->V, bit total} (word 0)
+        auto rows_of = [&](int j) -> int2 {
+          if constexpr (kLifted) {
+            return lt[j * z];
+          } else {
+            const int4 sd = gr.slot[k0 + j];
+            const int sl = gr.sub(sd, h);
+            return make_int2((sd.x + sl) << lg, (sd.y + sl) << lg);
+          }
+        };
+        // the tanh of slot j's V->C message, kept in its C->V entry
+        auto derive = [&](int j) -> float {
+          const int2 o = rows_of(j);
+          float* c = c2v + o.x + g;
+          const float pre = tot[o.y + g] - *c;
           if (stream && b < B)
-            hist_w[((size_t)t * Ez + sd.x + sl) << lgW] = pre;
-          const float x = ms.v2c(pre);
-          const float v = tanhf(-0.5f * x);
-          c2v[ci] = (v == 0.0f) ? 1.0f : v;
-        }
-        float acc = 1.0f;
-        for (int q = k1 - 1; q >= k0; --q) {
-          const int4 sd = gr.slot[q];
-          const float v = c2v[gr.at(sd.x + gr.sub(sd, h), g)];
-          suf[q - k0] = acc;
-          acc = (q == k1 - 1) ? v : acc * v;
-        }
+            hist_w[((size_t)t * Ez + (o.x >> lg)) << lgW] = pre;
+          const float v = tanhf(-0.5f * clip(pre, ms.clip_llr));  // SP's v2c
+          return *c = (v == 0.0f) ? 1.0f : v;
+        };
+        // slot j's C->V message from the running prefix product and its
+        // suffix product
         float pre = 1.0f;
-        for (int q = k0; q < k1; ++q) {
-          const int4 sd = gr.slot[q];
-          const int ci = gr.at(sd.x + gr.sub(sd, h), g);
-          const float v = c2v[ci];
-          float prod = (q == k0) ? suf[0]
-                       : ((q == k1 - 1) ? pre : pre * suf[q - k0]);
-          pre = (q == k0) ? v : pre * v;
+        auto emit = [&](int j, float suf_j) {
+          float* c = c2v + rows_of(j).x + g;
+          const float v = *c;
+          float prod = (j == 0) ? suf_j : ((j == d - 1) ? pre : pre * suf_j);
+          pre = (j == 0) ? v : pre * v;
           prod = fminf(fmaxf(prod, -kSPClip), kSPClip);
           const float out = -2.0f * atanhf(prod);
           float wmag = fabsf(out);
           if (cn_mode > 0) {
-            const float w = per_edge ? cn_w(wc, wu, q, ucn, u) : w_chk;
+            const float w = per_edge ? cn_w(wc, wu, k0 + j, ucn, u) : w_chk;
             wmag = offset_mode ? wmag - w : wmag * w;
           }
           wmag = (wmag > 0.0f) ? wmag : 0.0f;
-          wmag = ms.out(wmag);
+          wmag = clip(wmag, ms.clip_llr);  // SP's Msg::out
           const float so = (out > 0.0f) ? 1.0f : ((out < 0.0f) ? -1.0f : 0.0f);
-          c2v[ci] = wmag * so;
+          *c = wmag * so;
+        };
+        // registers (static indices after unrolling): the suffix products
+        // of one chunk, and top[c - 1] the running product at the top of
+        // chunk c >= 1 (selected by an unrolled compare, not indexed)
+        float suf[kSPRegDeg], top[kSPChunks - 1];
+        float acc = 1.0f;
+        for (int c = (d - 1) / kSPRegDeg; c >= 0; --c) {
+#pragma unroll
+          for (int q = 1; q < kSPChunks; ++q)
+            if (q == c) top[q - 1] = acc;
+#pragma unroll
+          for (int i = kSPRegDeg - 1; i >= 0; --i) {
+            const int j = c * kSPRegDeg + i;
+            if (j < d) {
+              const float v = derive(j);
+              suf[i] = acc;
+              acc = (j == d - 1) ? v : acc * v;
+            }
+          }
+        }
+        for (int c = 0; c * kSPRegDeg < d; ++c) {
+          if (c > 0) {  // the chunk's suffix products again, as above
+            float s = 1.0f;
+#pragma unroll
+            for (int q = 1; q < kSPChunks; ++q)
+              if (q == c) s = top[q - 1];
+#pragma unroll
+            for (int i = kSPRegDeg - 1; i >= 0; --i) {
+              const int j = c * kSPRegDeg + i;
+              if (j < d) {
+                const float v = c2v[rows_of(j).x + g];
+                suf[i] = s;
+                s = (j == d - 1) ? v : s * v;
+              }
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < kSPRegDeg; ++i)
+            if (c * kSPRegDeg + i < d) emit(c * kSPRegDeg + i, suf[i]);
         }
         continue;
       }
@@ -819,7 +919,9 @@ fused_nms_kernel(const float* __restrict__ llr,
     __syncthreads();
     if (kDep && t > 0) {
       // every word's syndrome held at some iteration <= t-1: its outputs
-      // are all written.  Every thread reads the same flags: uniform.
+      // are all written.  Every thread reads the same flags: uniform.  (A
+      // __syncthreads_or vote of each live word's threads in place of the
+      // barrier and this loop was measured 2.8% slower.)
       bool done = true;
       for (int g = 0; g < G && b0 + g < B; ++g)
         done = done && (frozen[g] || unsat_at[g] != t);
@@ -866,7 +968,8 @@ int launch(const void* llr, const void* w_cn, const void* w_ucn,
            int smem, int target, int t0, Msg ms, int cn_mode, int ucn,
            int vn_mode, int offset_mode, int dim_cn, int dim_vn,
            cudaStream_t stream) {
-  if (smem != decode_smem_bytes(N, M, z, E, G, ucn, kMode == kDeploy, kCode))
+  if (smem != decode_smem_bytes(N, M, z, E, G, ucn, kMode == kDeploy, kCode,
+                                LaunchBound<kMode, kSP, kCode>::lifted))
     return -2;
   auto* kern = fused_nms_kernel<kMode, kSP, kCode>;
   cudaError_t st = cudaFuncSetAttribute(

@@ -18,8 +18,9 @@ MS_RAW).  It takes ``llr [N*z, B]`` float32 and per-iteration weights
 A tensor on the card goes to `csrc/fused_nms_stats.cu` (built with nvcc at
 first use, bound with ctypes); a failed build or launch raises.  Under QMS
 the kernel keeps its state in integer codes (`code_grid`, three blocks per
-SM, four under the early stop); MS, MS_RAW and SP keep float state, one
-block per SM.  A tensor on the CPU goes to `decode_stats_plain` /
+SM, four under the early stop, six under the syndrome stop); MS, MS_RAW
+and SP keep float state: SP two blocks per SM (one under the early stop),
+MS and MS_RAW one.  A tensor on the CPU goes to `decode_stats_plain` /
 `decode_deploy_plain`, ports of the scan body of
 `ldpc_error_floor_tpu/models/nms.py` that the kernel is held to.
 """
@@ -65,11 +66,19 @@ _SMEM_RESERVED = 1_024  # of it, reserved for each resident block
 # (kTwoBlockThreads of the .cuh: at most 56 registers a thread)
 _TWO_BLOCK_THREADS = 576
 # the launch bound of the code-domain decode instances (kCodeThreads,
-# kCodeBlocks, kEarlyStopBlocks of the .cuh): blocks of at most 384
-# threads, three per SM, four under the genie early stop
+# kCodeBlocks, kEarlyStopBlocks, kDeployThreads, kDeployBlocks of the
+# .cuh): blocks of at most 384 threads, three per SM, four under the genie
+# early stop; six of at most 192 under the syndrome stop
 _CODE_THREADS = 384
 _CODE_BLOCKS = 3
 _EARLY_STOP_BLOCKS = 4
+_DEPLOY_THREADS = 192
+_DEPLOY_BLOCKS = 6
+# the launch bound of the SP decode instances (kSPThreads): blocks of at
+# most 768 threads, so at most 80 registers a thread, and an SM holds 24 of
+# their warps (each of its four schedulers 16384 // (80 * 32) = 6)
+_SP_THREADS = 768
+_SP_WARPS_PER_SM = 24
 _MAX_C2V_CODE = 63  # a C->V code is 7-bit two's complement
 _LUT_INTS = 132  # kLutInts: the code state's table of output bytes
 _MAX_TOT_CODE = 16383  # a bit total is an int16 code, doubled
@@ -150,11 +159,12 @@ def _table_bytes(N: int, M: int, E: int) -> int:
 
 
 def _smem_bytes(N: int, M: int, z: int, E: int, G: int, ucn: bool,
-                deploy: bool = False, code: bool = False) -> int:
+                deploy: bool = False, code: bool = False, sp: bool = False) -> int:
     """Dynamic shared memory of one block of G words, as the kernel lays it
     out: the graph table (`_table_bytes`), one iteration's weights float
     [2E + N] (cn, ucn, vn at most; rounded up to 16 bytes), then
-    - the float state: C->V float [E*z][G], bit totals float [N*z][G],
+    - the float state: for SP (`sp`) the lifted slot table int2 [E*z],
+      then C->V float [E*z][G], bit totals float [N*z][G],
       error counts int [2][G], in deploy mode two more int [G] (frozen flag,
       last unsatisfied step), parity bits uint8 [N*z][G] (with UCN or in
       deploy mode);
@@ -169,7 +179,7 @@ def _smem_bytes(N: int, M: int, z: int, E: int, G: int, ucn: bool,
     if code:  # no parity bits: each is bit 0 of its bit's packed total
         return (head + _align16(4 * (cnt + _LUT_INTS)) + 8 * E * z
                 + 2 * N * z * G + E * z * G)
-    return head + (E * z + N * z) * G * 4 + cnt * 4 + bits
+    return head + (8 * E * z if sp else 0) + (E * z + N * z) * G * 4 + cnt * 4 + bits
 
 
 def pick_launch_shape(graph: TannerGraph, smem: Callable[[int], int],
@@ -198,17 +208,61 @@ def pick_launch_shape(graph: TannerGraph, smem: Callable[[int], int],
     return G, threads
 
 
+def sp_launch_shape(graph: TannerGraph, smem: Callable[[int], int]) -> Tuple[int, int]:
+    """(G, threads) of the SP decode kernel with a fixed T or the syndrome
+    stop, whose block of G words needs ``smem(G)`` bytes: of the shapes
+    whose block fits (G a power of two up to 32, threads a multiple of G
+    and of the warp from 64 to `_SP_THREADS`), the one that keeps the most
+    threads resident on an SM, then fills the check phase's rounds best
+    (M*z*G items, one per thread and round), then holds two blocks or more
+    (one block's barrier leaves the SM the other's warps), then has the
+    most words, then the most blocks.  On the H100 it picks the fastest
+    of every such shape on each of the seven codes measured
+    (`tools/torch_kernel_ab.py --kernels sp_shapes`)."""
+    code = graph.code
+    best = None
+    for G in (32, 16, 8, 4, 2, 1):
+        size = smem(G)
+        if size > _SMEM_LIMIT:
+            continue
+        items = code.M * code.z * G
+        for threads in range(64, _SP_THREADS + 1, 32):
+            if threads % G:
+                continue
+            blocks = min(_SMEM_PER_SM // (size + _SMEM_RESERVED),
+                         _SP_WARPS_PER_SM // (threads // 32))
+            if blocks == 0:
+                continue
+            fill = items / (-(-items // threads) * threads)
+            key = (blocks * threads, fill, blocks >= 2, G, blocks)
+            if best is None or key > best[0]:
+                best = (key, G, threads)
+    if best is None:
+        raise ValueError(f"{code.name}: one codeword's state exceeds a "
+                         "block's shared memory")
+    return best[1], best[2]
+
+
 def launch_shape(graph: TannerGraph, ucn: bool, deploy: bool = False,
-                 code: bool = False, early_stop: bool = False) -> Tuple[int, int]:
-    """(G, threads) of the decode kernel (`pick_launch_shape`): one block of
-    up to 1024 threads per SM for the float state, `_CODE_BLOCKS` of up to
-    `_CODE_THREADS` for the code state (`code`), `_EARLY_STOP_BLOCKS` under
-    the genie early stop."""
+                 code: bool = False, early_stop: bool = False,
+                 sp: bool = False) -> Tuple[int, int]:
+    """(G, threads) of the decode kernel (`pick_launch_shape`): for the code
+    state (`code`) `_CODE_BLOCKS` blocks of up to `_CODE_THREADS` per SM,
+    `_EARLY_STOP_BLOCKS` under the genie early stop, `_DEPLOY_BLOCKS` of up
+    to `_DEPLOY_THREADS` under the syndrome stop; for SP (`sp`)
+    `sp_launch_shape`, under the early stop one block of up to
+    `_SP_THREADS`; for the other float states one block of up to 1024."""
     c = graph.code
-    blocks = (_EARLY_STOP_BLOCKS if early_stop else _CODE_BLOCKS) if code else 1
-    return pick_launch_shape(
-        graph, lambda g: _smem_bytes(c.N, c.M, c.z, graph.E, g, ucn, deploy, code),
-        blocks, _CODE_THREADS if code else 1024)
+    smem = lambda g: _smem_bytes(c.N, c.M, c.z, graph.E, g, ucn, deploy, code, sp)
+    if sp and not early_stop:
+        return sp_launch_shape(graph, smem)
+    if code and deploy:
+        blocks, top = _DEPLOY_BLOCKS, _DEPLOY_THREADS
+    elif code:
+        blocks, top = _EARLY_STOP_BLOCKS if early_stop else _CODE_BLOCKS, _CODE_THREADS
+    else:
+        blocks, top = 1, _SP_THREADS if sp else 1024
+    return pick_launch_shape(graph, smem, blocks, top)
 
 
 def _graph_table(graph: TannerGraph) -> np.ndarray:
@@ -265,8 +319,8 @@ def code_grid(cfg: DecoderConfig, graph: TannerGraph) -> Tuple[float, float, int
 
 
 def check_sp_degree(graph: TannerGraph) -> None:
-    """Raise unless the SP kernels (B1-SP, B4-SP, B5-SP: per-slot arrays of
-    kMaxDegSP in the .cu) take the graph's largest check degree."""
+    """Raise unless the SP kernels take the graph's largest check degree
+    (B5-SP keeps per-slot arrays of kMaxDegSP, csrc/fused_nms_train.cu)."""
     if graph.Dc > _MAX_DEG_SP:
         raise ValueError(f"the SP kernels take check degrees up to {_MAX_DEG_SP}; "
                          f"{graph.code.name} has {graph.Dc}")
@@ -594,10 +648,11 @@ class FusedNMSKernel:
     def launch_shape(self, mode: int) -> Tuple[int, int, int]:
         """(G, threads, shared bytes per block) of the kernel in `mode`."""
         deploy = mode == DEPLOY
+        sp = self.cfg.decoding_type == SP
         G, threads = launch_shape(self.graph, self.spec.ucn_enabled, deploy, self.code,
-                                  mode == EARLY_STOP)
+                                  mode == EARLY_STOP, sp)
         return G, threads, _smem_bytes(self.N, self.M, self.z, self.E, G,
-                                       self.spec.ucn_enabled, deploy, self.code)
+                                       self.spec.ucn_enabled, deploy, self.code, sp)
 
     @property
     def group(self) -> int:

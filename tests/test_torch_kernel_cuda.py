@@ -33,7 +33,8 @@ import torch
 from ldpc_error_floor_tpu_torch.channel import AWGNChannel
 from ldpc_error_floor_tpu_torch.codes import TannerGraph, get_code
 from ldpc_error_floor_tpu_torch.models import DecoderConfig, WeightSpec
-from ldpc_error_floor_tpu_torch.ops.fused_decoder import FusedNMSKernel
+from ldpc_error_floor_tpu_torch.ops.fused_decoder import (DEPLOY, EARLY_STOP, FIXED,
+                                                          FusedNMSKernel)
 from ldpc_error_floor_tpu_torch.ops.fused_train import FusedTrainKernel
 from ldpc_error_floor_tpu_torch.training.losses import multi_iteration_loss
 
@@ -209,6 +210,87 @@ def test_sp_matches_plain_on_card(code_name, sharing):
     torch.testing.assert_close(app, app_p, rtol=1e-4, atol=1e-3)
     words_off = ((err != err_p) | (nerr != nerr_p)).any(dim=0).sum().item()
     assert words_off <= 0.001 * llr.shape[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [3, 1001])
+@pytest.mark.parametrize("code_name,sharing", [
+    (WMAN, (3, 3, 3)), (WIFI, (3, 0, 3)), ("Polar_64_48", (3, 0, 3)),
+    ("5G_LDPC_R0.73_n_dec2304_n2112_k1536_z72_s1537_1584", (3, 0, 3))])
+def test_sp_every_mode_ragged_batch_on_card(code_name, sharing, B):
+    """B1-SP, the SP early stop and the SP syndrome stop at 4.0 dB (some
+    blocks stop early, some words fail) on a batch that is not a multiple
+    of their G (802.11n and Polar: check degrees 22 and 64, past the first
+    chunk of slots whose suffix products stay in registers; 5G at z = 72:
+    one block of 768 threads per SM), against the plain version
+    (APPs within atol 1e-3 / rtol 1e-4, counters equal on at least 99.9% of
+    words) and, exactly, against each other: the early stop's rows up to
+    its block's stop and the syndrome stop's row iters-1 are the fixed-T
+    kernel's."""
+    dev = _cuda()
+    T = 6
+    kern, stacked, llr = _setup(dev, code_name, sharing, 0, 4.0, T=T, B=B)
+    es = FusedNMSKernel(kern.graph, DecoderConfig(decoding_type=0, early_stop=True),
+                        kern.spec)
+    assert all(B % k.launch_shape(m)[0] for k, m in ((kern, FIXED), (es, EARLY_STOP),
+                                                      (kern, DEPLOY)))
+    app, err, nerr = kern.decode_stats(stacked, llr)
+    app_e, err_e, nerr_e = es.decode_stats(stacked, llr)
+    out_d = kern.decode_deploy(stacked, llr)
+    ref = kern.decode_stats_plain(stacked, llr, early_stop=False)
+    ref_e = es.decode_stats_plain(stacked, llr)
+    ref_d = kern.decode_deploy_plain(stacked, llr)
+    torch.cuda.synchronize()
+    assert kern.launches == {"fused_nms_stats_sp": 1, "fused_nms_deploy_sp": 1}
+    assert es.launches == {"fused_nms_early_stop_sp": 1}
+    limit = 0.001 * B
+    torch.testing.assert_close(app, ref[0], rtol=1e-4, atol=1e-3)
+    assert ((err != ref[1]) | (nerr != ref[2])).any(dim=0).sum().item() <= limit
+    off_e = ((err_e != ref_e[1]) | (nerr_e != ref_e[2])).any(dim=0)
+    assert off_e.sum().item() <= limit
+    torch.testing.assert_close(app_e[:, ~off_e], ref_e[0][:, ~off_e], rtol=1e-4, atol=1e-3)
+    off_d = torch.zeros(B, dtype=torch.bool, device=dev)
+    for x, y in zip(out_d[1:], ref_d[1:]):
+        off_d |= x != y
+    assert off_d.sum().item() <= limit
+    torch.testing.assert_close(out_d[0][:, ~off_d], ref_d[0][:, ~off_d], rtol=1e-4, atol=1e-3)
+    # the kernels against each other, exactly
+    # a block of G words runs until each of its words has decoded once
+    G = es.launch_shape(EARLY_STOP)[0]
+    still = torch.cumprod(err.int(), dim=0).bool()
+    still = torch.cat([still, still.new_zeros((T, -B % G))], dim=1)
+    n_run = (1 + still.view(T, -1, G).any(dim=2)[:-1].sum(dim=0)).repeat_interleave(G)[:B]
+    running = torch.arange(T, device=dev)[:, None] < n_run[None]
+    assert torch.equal(err_e[running], err[running])
+    assert torch.equal(nerr_e[running], nerr[running])
+    assert not bool(err_e[~running].any()) and not bool(nerr_e[~running].any())
+    assert torch.equal(err_e.all(dim=0), err.all(dim=0))
+    app_d, wrong, nerr_d, iters, fail = out_d
+    idx = (iters.long() - 1)[None]
+    assert torch.equal(wrong, err.gather(0, idx)[0])
+    assert torch.equal(nerr_d, nerr.gather(0, idx)[0])
+    assert not bool((fail & ~wrong).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [3, 1001])
+def test_deploy_own_launch_shape_ragged_batch_on_card(B):
+    """B3 at its own G (`kDeployBlocks`, fewer words than the fixed-T
+    kernel's) on a batch that is not a multiple of it: every output equal
+    to the plain version, APPs bit-equal with their signs."""
+    dev = _cuda()
+    kern, stacked, llr = _setup(dev, WMAN, (3, 3, 3), 2, 3.5, T=8, B=B)
+    G = kern.launch_shape(DEPLOY)[0]
+    assert B % G and G < kern.launch_shape(FIXED)[0]
+    out = kern.decode_deploy(stacked, llr)
+    ref = kern.decode_deploy_plain(stacked, llr)
+    torch.cuda.synchronize()
+    assert kern.launches == {"fused_nms_deploy": 1}
+    for x, y in zip(out[1:], ref[1:]):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    _assert_app(out[0], ref[0], 2)
+    if B > G:
+        assert 1 <= int(out[3].min()) < int(out[3].max())
 
 
 @pytest.mark.cuda

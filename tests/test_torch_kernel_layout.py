@@ -28,9 +28,12 @@ from ldpc_error_floor_tpu_torch.codes import TannerGraph, available_codes, get_c
 from ldpc_error_floor_tpu_torch.models import DecoderConfig, WeightSpec
 from ldpc_error_floor_tpu_torch.ops import fused_decoder
 from ldpc_error_floor_tpu_torch.ops.fused_decoder import (_CODE_BLOCKS, _CODE_THREADS,
+                                                          _DEPLOY_BLOCKS, _DEPLOY_THREADS,
                                                           _EARLY_STOP_BLOCKS, _LUT_INTS,
                                                           _SMEM_LIMIT, _SMEM_PER_SM,
                                                           _SMEM_RESERVED,
+                                                          _SP_THREADS,
+                                                          _SP_WARPS_PER_SM,
                                                           FusedNMSKernel, _smem_bytes,
                                                           _table_bytes, code_grid,
                                                           kernel_grid, launch_shape)
@@ -365,16 +368,27 @@ def _cuh_constant(name: str) -> int:
 @pytest.mark.parametrize("name", available_codes())
 def test_decode_launch_shapes_hold_to_the_kernel_layout(name):
     """For every bundled code, fixed-T, early-stop and deploy modes, float
-    and code state:
-    the launch shape within the kernel's launch bound (the .cuh constants),
+    state (MS), SP's float state and code state:
+    the launch shape within the kernel's launch bound (the .cuh constants:
+    the syndrome stop's own blocks per SM under the code state, blocks of
+    at most 768 threads for SP, one block for SP's early stop and MS),
     the most words whose blocks fit an SM as many times as the bound asks
-    (else whose one block fits), and the shared bytes of the layout: the
+    (else whose one block fits; SP's fixed T and syndrome stop: a block
+    that fits, `sp_launch_shape`), and the shared bytes of the layout: the
     staged head, then for the code state the counts (and deploy flags) and
     the output-byte table padded to 16 bytes, the lifted slot table, int16
-    totals (each with its bit's decision), C->V bytes."""
-    assert (_CODE_THREADS, _CODE_BLOCKS, _EARLY_STOP_BLOCKS) == (
+    totals (each with its bit's decision), C->V bytes; for SP the lifted
+    slot table before the float state."""
+    assert (_CODE_THREADS, _CODE_BLOCKS, _EARLY_STOP_BLOCKS, _DEPLOY_THREADS,
+            _DEPLOY_BLOCKS) == (
         _cuh_constant("kCodeThreads"), _cuh_constant("kCodeBlocks"),
-        _cuh_constant("kEarlyStopBlocks"))
+        _cuh_constant("kEarlyStopBlocks"), _cuh_constant("kDeployThreads"),
+        _cuh_constant("kDeployBlocks"))
+    assert _SP_THREADS == _cuh_constant("kSPThreads")
+    # the SP bound's registers (65536 per SM over its threads, in steps of
+    # 8) and the warps an SM's four schedulers hold at that count
+    assert _SP_WARPS_PER_SM == 4 * (16384 // ((65536 // _SP_THREADS) // 8 * 8 * 32))
+    assert _DEPLOY_BLOCKS > _CODE_BLOCKS
     assert _LUT_INTS == 2 * _cuh_constant("kLutRow") >= 2 * (63 + 2)
     code = get_code(name)
     graph = TannerGraph(code)
@@ -382,26 +396,35 @@ def test_decode_launch_shapes_hold_to_the_kernel_layout(name):
     head = _table_bytes(N, M, E) + -(-4 * (2 * E + N) // 16) * 16
     for ucn in (False, True):
         for deploy, es in ((False, False), (False, True), (True, False)):
-            for state in ("float", "code"):
-                code_state = state == "code"
-                G, threads = launch_shape(graph, ucn, deploy, code_state, es)
-                top, blocks = ((_CODE_THREADS, _EARLY_STOP_BLOCKS if es else _CODE_BLOCKS)
-                               if code_state else (1024, 1))
+            for state in ("float", "sp", "code"):
+                code_state, sp = state == "code", state == "sp"
+                G, threads = launch_shape(graph, ucn, deploy, code_state, es, sp)
+                if code_state and deploy:
+                    top, blocks = _DEPLOY_THREADS, _DEPLOY_BLOCKS
+                elif code_state:
+                    top, blocks = _CODE_THREADS, _EARLY_STOP_BLOCKS if es else _CODE_BLOCKS
+                elif sp:
+                    top, blocks = _SP_THREADS, 1
+                else:
+                    top, blocks = 1024, 1
                 assert G in (1, 2, 4, 8, 16, 32) and threads % 32 == 0
                 assert threads % G == 0 and threads <= top
-                smem = _smem_bytes(N, M, z, E, G, ucn, deploy, code_state)
+                smem = _smem_bytes(N, M, z, E, G, ucn, deploy, code_state, sp)
                 cnt = (4 if deploy else 2) * G
                 bits = N * z * G if ucn or deploy else 0
                 if code_state:  # the decisions ride in bit 0 of the totals
                     assert smem == (head + -(-4 * (cnt + _LUT_INTS) // 16) * 16
                                     + 8 * E * z + 2 * N * z * G + E * z * G)
                 else:
-                    assert smem == head + 4 * (E + N) * z * G + 4 * cnt + bits
+                    assert smem == (head + (8 * E * z if sp else 0)
+                                    + 4 * (E + N) * z * G + 4 * cnt + bits)
                 fits = lambda s, n: s <= _SMEM_LIMIT and n * (s + _SMEM_RESERVED) <= _SMEM_PER_SM
-                if fits(_smem_bytes(N, M, z, E, 1, ucn, deploy, code_state), blocks):
+                size = lambda g: _smem_bytes(N, M, z, E, g, ucn, deploy, code_state, sp)
+                if sp and not es:  # the fastest shape measured, not the most words
+                    assert fits(smem, 1)
+                elif fits(size(1), blocks):
                     assert fits(smem, blocks)
-                    assert G == 32 or not fits(
-                        _smem_bytes(N, M, z, E, 2 * G, ucn, deploy, code_state), blocks)
+                    assert G == 32 or not fits(size(2 * G), blocks)
                 else:
                     assert fits(smem, 1)
         spec = WeightSpec(sharing=(3, 3 if ucn else 0, 3), n_iters=2)
@@ -413,5 +436,93 @@ def test_decode_launch_shapes_hold_to_the_kernel_layout(name):
         assert kern.launch_shape(fused_decoder.DEPLOY) == (
             *launch_shape(graph, ucn, True, True),
             _smem_bytes(N, M, z, E, launch_shape(graph, ucn, True, True)[0], ucn, True, True))
+        sp = FusedNMSKernel(graph, DecoderConfig(decoding_type=0), spec)
+        for mode in (fused_decoder.FIXED, fused_decoder.EARLY_STOP, fused_decoder.DEPLOY):
+            deploy, es_mode = mode == fused_decoder.DEPLOY, mode == fused_decoder.EARLY_STOP
+            G, threads = launch_shape(graph, ucn, deploy, False, es_mode, True)
+            assert sp.launch_shape(mode) == (
+                G, threads, _smem_bytes(N, M, z, E, G, ucn, deploy, False, True))
     assert not FusedNMSKernel(graph, DecoderConfig(decoding_type=1),
                               WeightSpec(sharing=(3, 0, 3), n_iters=2)).code
+
+
+@pytest.mark.parametrize("name, shape", [
+    (WMAN, (8, 384)), ("802_11n_N648_R56_z27", (4, 256)), ("BCH_63_51", (32, 384)),
+    ("Polar_64_48", (32, 256)), ("MACKAY_N96_K48", (32, 256)),
+    ("5G_LDPC_R0.50_n_dec1280_n1024_k512_z64_s513_640", (8, 768)),
+    ("5G_LDPC_R0.73_n_dec2304_n2112_k1536_z72_s1537_1584", (2, 768))])
+def test_sp_launch_shape_is_the_fastest_measured(name, shape):
+    """SP's fixed-T and syndrome-stop launch shape (G, threads) on each code
+    whose every shape was timed on the H100 (`tools/torch_kernel_ab.py
+    --kernels sp_shapes`): the fastest of them, with and without UCN."""
+    graph = TannerGraph(get_code(name))
+    for ucn in (False, True):
+        for deploy in (False, True):
+            assert launch_shape(graph, ucn, deploy, False, False, True) == shape
+
+
+@pytest.mark.parametrize("deg", [1, 2, 6, 14, 15, 16, 17, 22, 28, 32, 33, 64])
+def test_sp_check_update_two_passes_equal_the_per_slot_arrays(deg):
+    """SP's check update as the kernel forms it (a reverse pass that derives
+    each slot's tanh and accumulates the suffix products a chunk of
+    kSPRegDeg slots at a time, keeping chunk 0's and the running product at
+    each chunk's top, then a forward pass that forms a later chunk's suffix
+    products again from its top's product and its own slots) against the
+    three passes over per-slot arrays that it replaced, op for op in
+    float32: every C->V message bit-equal, for the check degrees of the
+    bundled codes (MacKay 6, wman 14 and 15, 802.11n 22, BCH 28, Polar 64)
+    and either side of a chunk's bound."""
+    reg = _cuh_constant("kSPRegDeg")
+    assert deg <= _cuh_constant("kMaxDegSP")
+    rng = np.random.default_rng(deg)
+    R = 3000
+    x = rng.normal(0.0, 4.0, (R, deg)).astype(np.float32)
+    x[: R // 5] = rng.integers(-1, 2, (R // 5, deg)) * np.float32(1e-8)  # zeros
+    x[R // 5: R // 3] *= np.float32(10.0)  # saturated tanh: clipped products
+    x = torch.from_numpy(x)
+    clip = np.float32(1.0 - 1e-7)
+
+    def tanh_slot(j):
+        v = torch.tanh(np.float32(-0.5) * x[:, j])
+        return torch.where(v == 0.0, torch.ones_like(v), v)
+
+    def out_of(prod):
+        return np.float32(-2.0) * torch.atanh(torch.clamp(prod, -clip, clip))
+
+    # the per-slot arrays: tanh forward, suffix products reverse, outputs forward
+    v = [tanh_slot(j) for j in range(deg)]
+    acc, suf = torch.ones(R), [None] * deg
+    for q in range(deg - 1, -1, -1):
+        suf[q] = acc
+        acc = v[q] if q == deg - 1 else acc * v[q]
+    pre, ref = torch.ones(R), []
+    for q in range(deg):
+        ref.append(out_of(suf[0] if q == 0 else (pre if q == deg - 1 else pre * suf[q])))
+        pre = v[q] if q == 0 else pre * v[q]
+    # the kernel's two passes, a chunk of `reg` slots at a time
+    slots, regs, top = [None] * deg, [None] * reg, {}
+    acc = torch.ones(R)
+    for c in range((deg - 1) // reg, -1, -1):
+        top[c] = acc
+        for i in range(reg - 1, -1, -1):
+            j = c * reg + i
+            if j < deg:
+                slots[j] = tanh_slot(j)
+                regs[i] = acc
+                acc = slots[j] if j == deg - 1 else acc * slots[j]
+    pre, got = torch.ones(R), []
+    for c in range(-(-deg // reg)):
+        if c > 0:  # the chunk's suffix products again, from its top
+            s = top[c]
+            for i in range(reg - 1, -1, -1):
+                j = c * reg + i
+                if j < deg:
+                    regs[i] = s
+                    s = slots[j] if j == deg - 1 else s * slots[j]
+        for i in range(reg):
+            j = c * reg + i
+            if j < deg:
+                s = regs[i]
+                got.append(out_of(s if j == 0 else (pre if j == deg - 1 else pre * s)))
+                pre = slots[j] if j == 0 else pre * slots[j]
+    assert torch.equal(_bits(torch.stack(got)), _bits(torch.stack(ref)))

@@ -3,7 +3,7 @@
 other on one card, in turns, on the same inputs.
 
     python tools/torch_kernel_ab.py --tree new=. --tree old=build/parent \
-        --order old,new,new,old [--kernels all|train|decode] [--sass] \
+        --order old,new,new,old [--kernels all|train|decode|sp_wide|sp_shapes] [--sass] \
         [--out build/kernel_ab.json]
 
 A tree is a directory that holds a copy of `ldpc_error_floor_tpu_torch/`
@@ -25,11 +25,23 @@ process; it builds that tree's kernels, makes the inputs from fixed seeds
   operations in it that wait for the card (`torch.cuda.set_sync_debug_mode`);
 - all: also B1 (fixed T=20, base20 weights), B2 (genie early stop, T=30,
   boosted30 weights; and base20 at T=20 at 4.0, 5.0 and 5.5 dB), B3
-  (syndrome stop, T=20) and B1-SP (BP, T=20), each at batch 65536 and 4.0
-  dB unless noted; `FERSimulator.run_point` frames/s on the base20 fixed-T,
-  base20 early-stop and boosted30 early-stop paths (4.0 dB, 2^20 frames,
-  seed 0); and the deep anchor: base20 with the early stop at 5.5 dB over
-  2^25 frames, seed 0, its genie error count and frames/s;
+  (syndrome stop, T=20; also at 5.0 and 5.5 dB), B1-SP (BP, T=20) and the
+  SP early-stop and syndrome-stop instances on its inputs, and the MS float
+  state's B1 (MS, base20 weights), each at batch 65536 and 4.0 dB unless
+  noted;
+  `FERSimulator.run_point` frames/s on the base20 fixed-T, base20
+  early-stop, boosted30 early-stop, base20 syndrome-stop and BP fixed-T
+  paths (4.0 dB, 2^20 frames, seed 0); and the deep anchor: base20 with
+  the early stop at 5.5 dB over 2^25 frames, seed 0, its genie error count
+  and frames/s;
+- sp_wide: B1-SP (batch 65536, 4.0 dB) on the bundled codes other than
+  wman (`SP_CODES`), and B4-SP (the neural BP base block, batch 32768) on
+  those whose checks pass SP's chunk of 16 slots (802.11n, check degree
+  22; BCH_63_51, 28; Polar_64_48, 64); `all` runs it too;
+- sp_shapes: B1-SP on wman and `SP_CODES` at every launch shape its
+  kernel takes (G words of a power of two, threads a multiple of G and of
+  the warp, one resident block at least), with its resident blocks per SM
+  and whether its outputs equal those at the wrapper's own shape;
 - decode: the decode part of `all` alone.
 
 Each run prints one JSON line: the times, the ptxas report of each library
@@ -57,6 +69,14 @@ WMAN = "wman_N0576_R34_z24"
 TRAIN_B = 32768
 DECODE_B = 65536
 STEPS = 5  # train steps per timed epoch
+SP_CODES = {  # B1-SP beyond wman: the name in times_ms, and whether B4-SP runs too
+    "802_11n_N648_R56_z27": ("802", True),
+    "BCH_63_51": ("BCH", True),
+    "Polar_64_48": ("Polar", True),
+    "MACKAY_N96_K48": ("MacKay", False),
+    "5G_LDPC_R0.50_n_dec1280_n1024_k512_z64_s513_640": ("5G50z64", False),
+    "5G_LDPC_R0.73_n_dec2304_n2112_k1536_z72_s1537_1584": ("5G73z72", False),
+}
 
 
 # ----- one run, in its own process ------------------------------------------------
@@ -76,7 +96,7 @@ def worker(tree: Path, kernels: str, sass_dir: str) -> dict:
     out = {"tree": str(tree), "times_ms": {}, "digests": {}, "grad_sums": {}}
     t_build = time.perf_counter()
     libs = [] if kernels == "decode" else [("fused_nms_train.cu", fused_train.load_library)]
-    if kernels in ("all", "decode"):
+    if kernels != "train":
         libs.append(("fused_nms_stats.cu", fused_decoder.load_library))
     out["ptxas"] = {}
     for src, load in libs:
@@ -93,10 +113,14 @@ def worker(tree: Path, kernels: str, sass_dir: str) -> dict:
                 res.stdout + res.stderr)
     out["build_s"] = time.perf_counter() - t_build
     gen = torch.Generator(device=dev).manual_seed(2024)
-    if kernels != "decode":
+    if kernels in ("all", "train"):
         train_runs(out, gen)
-    if kernels != "train":
+    if kernels in ("all", "decode"):
         decode_runs(out, gen)
+    if kernels in ("all", "sp_wide"):
+        sp_wide_runs(out, gen)
+    if kernels == "sp_shapes":
+        sp_shape_runs(out, gen)
     return out
 
 
@@ -245,43 +269,141 @@ def decode_runs(out: dict, gen) -> None:
         sig = torch.full((DECODE_B,), float(wman.snr_sigmas([snr])[0]), device=dev)
         return AWGNChannel(wman, decoding_type=dec, device=dev).sample(gen, sig)
 
-    llr, llr_sp = llr_at(4.0), llr_at(4.0, dec=0)
+    llr, llr_sp, llr_ms = llr_at(4.0), llr_at(4.0, dec=0), llr_at(4.0, dec=1)
     K = fused_decoder.FusedNMSKernel
+    sp20 = K(graph, DecoderConfig(decoding_type=0), spec_bp)
     runs = {
         "b1_fixed20": (K(graph, DecoderConfig(), spec20), st20, llr, False),
         "b2_early_stop30": (K(graph, DecoderConfig(early_stop=True), spec30), st30,
                             llr, False),
         "b3_deploy20": (K(graph, DecoderConfig(), spec20), st20, llr, True),
-        "b1sp_bp20": (K(graph, DecoderConfig(decoding_type=0), spec_bp), st_bp,
-                      llr_sp, False),
+        "b1sp_bp20": (sp20, st_bp, llr_sp, False),
+        "b2sp_early_stop_bp20": (K(graph, DecoderConfig(decoding_type=0, early_stop=True),
+                                   spec_bp), st_bp, llr_sp, False),
+        "b3sp_deploy_bp20": (sp20, st_bp, llr_sp, True),
+        "b1ms_fixed20": (K(graph, DecoderConfig(decoding_type=1), spec20), st20, llr_ms,
+                         False),
     }
     es20 = K(graph, DecoderConfig(early_stop=True), spec20)
+    dep20 = runs["b3_deploy20"][0]
     for snr in (4.0, 5.0, 5.5):
-        runs[f"b2_early_stop20_{snr}dB"] = (es20, st20, llr_at(snr), False)
+        llr_snr = llr_at(snr)
+        runs[f"b2_early_stop20_{snr}dB"] = (es20, st20, llr_snr, False)
+        if snr > 4.0:
+            runs[f"b3_deploy20_{snr}dB"] = (dep20, st20, llr_snr, True)
     for name, (kern, st, x, deploy) in runs.items():
         fn = (lambda: kern.decode_deploy(st, x)) if deploy else (
             lambda: kern.decode_stats(st, x))
         out["times_ms"][name] = time_ms(fn, 10)
         out["digests"][name] = [digest(o) for o in fn()]
 
-    def run_point(spec, params, early_stop, snr, frames):
-        dec = NMSDecoder(wman, DecoderConfig(early_stop=early_stop), spec, graph=graph,
-                         device=dev)
-        sim = FERSimulator(dec, AWGNChannel(wman, device=dev), batch=DECODE_B)
+    def run_point(spec, params, early_stop, snr, frames, stop="genie", dec=2):
+        decoder = NMSDecoder(wman, DecoderConfig(decoding_type=dec, early_stop=early_stop),
+                             spec, graph=graph, device=dev)
+        sim = FERSimulator(decoder, AWGNChannel(wman, decoding_type=dec, device=dev),
+                           batch=DECODE_B, stop=stop)
         return sim.run_point(params, snr, torch.Generator(device=dev).manual_seed(0),
                              max_frames=frames, target_frame_errors=None)
 
     out["run_point"] = {}
-    for name, spec, params, es in (("base20_fixed", spec20, base20, False),
-                                   ("base20_early_stop", spec20, base20, True),
-                                   ("boosted30_early_stop", spec30, boosted30, True)):
-        pt = run_point(spec, params, es, 4.0, 2 ** 20)
+    bp = init_weights(spec_bp, graph, device=dev)
+    for name, spec, params, es, stop, dec in (
+            ("base20_fixed", spec20, base20, False, "genie", 2),
+            ("base20_early_stop", spec20, base20, True, "genie", 2),
+            ("boosted30_early_stop", spec30, boosted30, True, "genie", 2),
+            ("base20_syndrome", spec20, base20, False, "syndrome", 2),
+            ("bp_sp_fixed20", spec_bp, bp, False, "genie", 0)):
+        pt = run_point(spec, params, es, 4.0, 2 ** 20, stop, dec)
         out["run_point"][name] = {"frames_per_sec": pt.frames_per_sec,
-                                  "genie_errors": round(pt.fer_genie * pt.frames)}
+                                  "frame_errors": round(pt.fer_last * pt.frames)}
+        if stop == "syndrome":
+            out["run_point"][name]["mean_iters"] = pt.avg_iters
+        else:
+            out["run_point"][name]["genie_errors"] = round(pt.fer_genie * pt.frames)
     pt = run_point(spec20, base20, True, 5.5, 2 ** 25)
     out["run_point"]["deep_base20_early_stop_5.5dB"] = {
         "frames": pt.frames, "frames_per_sec": pt.frames_per_sec,
         "genie_errors": round(pt.fer_genie * pt.frames)}
+
+
+def sp_wide_runs(out: dict, gen) -> None:
+    import torch
+    from ldpc_error_floor_tpu_torch.channel import AWGNChannel
+    from ldpc_error_floor_tpu_torch.codes import TannerGraph, get_code
+    from ldpc_error_floor_tpu_torch.models import (DecoderConfig, WeightSpec,
+                                                   init_weights, stack_weights)
+    from ldpc_error_floor_tpu_torch.ops import fused_decoder, fused_train
+    dev = torch.device("cuda")
+    spec_bp = WeightSpec(sharing=(0, 0, 0), n_iters=20)
+    spec_tr = WeightSpec(sharing=(3, 0, 3), n_iters=20)
+    for cname, (short, train) in SP_CODES.items():
+        code = get_code(cname)
+        graph = TannerGraph(code)
+        chan = AWGNChannel(code, decoding_type=0, device=dev)
+        sig = float(code.snr_sigmas([4.0])[0])
+        llr = chan.sample(gen, torch.full((DECODE_B,), sig, device=dev))
+        st = stack_weights(spec_bp, init_weights(spec_bp, graph, device=dev))
+        sp = fused_decoder.FusedNMSKernel(graph, DecoderConfig(decoding_type=0), spec_bp)
+        out["times_ms"][f"b1sp_{short}"] = time_ms(lambda: sp.decode_stats(st, llr), 10)
+        out["digests"][f"b1sp_{short}"] = [digest(o) for o in sp.decode_stats(st, llr)]
+        del llr
+        if not train:
+            continue
+        kern = fused_train.FusedTrainKernel(
+            graph, DecoderConfig(decoding_type=0, app_t0=spec_tr.n_iters - 1), spec_tr)
+        w3 = tuple(None if spec_tr.dim(k, graph) == 0 else
+                   (0.7 + 0.6 * torch.rand((spec_tr.n_iters, spec_tr.dim(k, graph)),
+                                           generator=gen, device=dev)).contiguous()
+                   for k in ("cn", "ucn", "vn"))
+        llr_tr = chan.sample(gen, torch.full((TRAIN_B,), sig, device=dev))
+        out["times_ms"][f"b4sp_{short}"] = time_ms(lambda: kern._forward(w3, llr_tr, True), 5)
+        out["digests"][f"b4sp_{short}"] = digest(kern._forward(w3, llr_tr, True)[0])
+        del llr_tr
+        torch.cuda.empty_cache()
+
+
+def sp_shape_runs(out: dict, gen) -> None:
+    import torch
+    from ldpc_error_floor_tpu_torch.channel import AWGNChannel
+    from ldpc_error_floor_tpu_torch.codes import TannerGraph, get_code
+    from ldpc_error_floor_tpu_torch.models import (DecoderConfig, WeightSpec,
+                                                   init_weights, stack_weights)
+    from ldpc_error_floor_tpu_torch.ops import fused_decoder as fd
+    dev = torch.device("cuda")
+    spec_bp = WeightSpec(sharing=(0, 0, 0), n_iters=20)
+    lib, _ = fd.load_library()
+    out["sp_shapes"] = {}
+    for cname in (WMAN, *SP_CODES):
+        code = get_code(cname)
+        graph = TannerGraph(code)
+        sig = float(code.snr_sigmas([4.0])[0])
+        llr = AWGNChannel(code, decoding_type=0, device=dev).sample(
+            gen, torch.full((DECODE_B,), sig, device=dev))
+        st = stack_weights(spec_bp, init_weights(spec_bp, graph, device=dev))
+        sp = fd.FusedNMSKernel(graph, DecoderConfig(decoding_type=0), spec_bp)
+        own = sp.launch_shape(fd.FIXED)
+        ref = [digest(o) for o in sp.decode_stats(st, llr)]
+        rows = []
+        for G in (1, 2, 4, 8, 16, 32):
+            smem = fd._smem_bytes(sp.N, sp.M, sp.z, sp.E, G, False, sp=True)
+            items = max(sp.M, sp.N) * sp.z * G
+            for threads in range(64, 1025, 32):
+                if threads % G or threads > items + 31:
+                    continue
+                blocks = lib.fused_nms_resident_blocks(fd.FIXED, 1, 0, threads, smem)
+                if blocks == 0:
+                    continue
+                sp.launch_shape = lambda mode, s=(G, threads, smem): s
+                try:
+                    ms = time_ms(lambda: sp.decode_stats(st, llr), 3, warmup=1)
+                    same = [digest(o) for o in sp.decode_stats(st, llr)] == ref
+                except RuntimeError as exc:  # past the kernel's launch bound
+                    ms, same = None, repr(exc)[:80]
+                rows.append([G, threads, blocks, ms, same])
+        del sp.launch_shape
+        out["sp_shapes"][cname] = {"own": list(own), "rows": rows}
+        del llr
+        torch.cuda.empty_cache()
 
 
 # ----- the runs, in turns ----------------------------------------------------------
@@ -292,7 +414,7 @@ def main() -> int:
                     help="NAME=DIR, a directory holding a copy of the package")
     ap.add_argument("--order", default=None,
                     help="comma-separated tree names, run in this order")
-    ap.add_argument("--kernels", choices=("all", "train", "decode"), default="all")
+    ap.add_argument("--kernels", choices=("all", "train", "decode", "sp_wide", "sp_shapes"), default="all")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--out", default="build/kernel_ab.json")
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
@@ -325,7 +447,7 @@ def main() -> int:
             print(res.stdout, res.stderr, file=sys.stderr)
             raise RuntimeError(f"run of tree {name} failed ({res.returncode})")
         row = {"name": name, **json.loads(res.stdout.strip().splitlines()[-1])}
-        print(json.dumps({k: row.get(k) for k in ("name", "times_ms", "digests",
+        print(json.dumps({k: row.get(k) for k in ("name", "times_ms", "digests", "sp_shapes",
                                                    "grad_sums", "build_s", "run_point",
                                                    "base_step_trace_ms",
                                                    "base_step_syncs")}), flush=True)
