@@ -38,9 +38,11 @@ exits non-zero:
      version, weights within atol 1e-5;
    - neural BP, the SP pair B4-SP/B5-SP, the same way at B=4096 (T=20):
      wman (3,0,3) with the window t0=19, (2,2,2) with UCN, per-edge (1,1,0),
-     MacKay (3,3,3); APPs within atol 1e-3 / rtol 1e-4 (as B1-SP) and the
-     last iteration's bit-equal to B1-SP's on the same LLRs; gradients and
-     determinism as B5; three Adam steps on the SP base block;
+     MacKay (3,3,3), 802.11n (3,0,3) (checks of 22 slots: B5-SP's and
+     B4-SP's instances for checks past one chunk of 16); APPs within atol
+     1e-3 / rtol 1e-4 (as B1-SP) and the last iteration's bit-equal to
+     B1-SP's on the same LLRs; gradients and determinism as B5; three Adam
+     steps on the SP base block;
    - at the training batch, 32768, on the base and the post block and the
      SP base block (in phase 7, from the timed launches): B4's streaming
      APPs bit-equal to the plain version's (SP: within atol 1e-3 / rtol
@@ -48,7 +50,8 @@ exits non-zero:
      it), no word whose soft-FER term (the sign of its worst bit) differs,
      the soft-FER loss within rtol 1e-6, and B5's gradients within rtol 1e-4 and atol
      1e-5 x max|g| of the plain gradients, summed over chunks of 4096
-     words, each scaled by 4096 / 32768;
+     words, each scaled by 4096 / 32768, and bit-identical over two
+     launches;
 4. end to end, each path driven through `FERSimulator.run_point` with the
    launch counts set to 0 just before and read just after (wman_N0576_R34_z24,
    QMS q_bit 5, sharing (3,3,3), 4.0 dB, seed 0, 2^20 frames in batches of
@@ -101,8 +104,10 @@ exits non-zero:
    the same inputs (in chunks of 4096), each one's achieved device-memory
    rate and multiple of its bound, one whole train step (sampling, B4,
    loss, B5, Adam) and trained codewords/s, the plain step at 4096; the
-   same for B4-SP and B5-SP on the SP base block; ptxas' report of every
-   training instance;
+   same for B4-SP and B5-SP on the SP base block, with their launch
+   shapes; ptxas' report of every training instance, and 0 stack bytes and
+   0 spills in B4-SP's and B5-SP's instances on the main path (wman's
+   checks fit one chunk);
 8. the `kernels` line (eight entries), then the card's nvidia-smi line,
    then the result.
 
@@ -368,20 +373,29 @@ def deploy_block_iters(iters, G: int, T: int) -> dict:
 
 
 def ptxas_by_instance(log: str, kern_name) -> dict:
-    """ptxas' registers, stack frame and spill bytes of each instance of
-    `fused_nms_kernel<mode, sp, code>` in the decode library's build log
-    (`-Xptxas -v`), by kernel name (the min-sum ones marked [code] or
-    [float])."""
-    out, entry, props = {}, None, None
+    """ptxas' registers, stack frame and spill bytes of each kernel instance
+    in a library's build log (`-Xptxas -v`), by kernel name: the decode
+    library's `fused_nms_kernel<mode, sp, code, chunks>` (the min-sum ones
+    marked [code] or [float]), the training library's
+    `fused_nms_kernel<kTrain, sp, false, chunks>` (B4, B4-SP) and
+    `train_bwd_kernel<sp, chunks>` (B5, B5-SP); the SP training instances
+    for checks of more than one chunk of 16 slots marked [wide]."""
+    out, entry, mangled, props = {}, None, None, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            entry = props = None
-            k = re.search(r"fused_nms_kernelILi(\d)ELb([01])ELb([01])E", m.group(1))
-            if k:
-                mode, sp, code = (int(x) for x in k.groups())
-                entry = kern_name(mode, bool(sp)) + ("" if sp else
-                                                     "[code]" if code else "[float]")
+            entry, mangled, props = None, m.group(1), None
+            k = re.search(r"fused_nms_kernelILi(\d)ELb([01])ELb([01])ELi(\d+)E", mangled)
+            b = re.search(r"train_bwd_kernelILb([01])ELi(\d+)E", mangled)
+            if k:  # B4-SP: for checks of one chunk, and [wide] for up to 64 slots
+                mode, sp, code, chunks = (int(x) for x in k.groups())
+                sfx = "_sp" if sp else ""
+                entry = ("fused_nms_train_fwd" + sfx + ("[wide]" if sp and chunks > 1 else "")
+                         if mode == 3 else kern_name(mode, bool(sp))) + (
+                    "" if sp or mode == 3 else "[code]" if code else "[float]")
+            elif b:  # B5-SP: for checks of one chunk, and [wide] for up to 64 slots
+                entry = "fused_nms_train_bwd" + ("_sp" if b.group(1) == "1" else "") + (
+                    "[wide]" if int(b.group(2)) > 1 else "")
             continue
         m = re.search(r"Function properties for (\S+)", ln)
         if m:
@@ -389,7 +403,7 @@ def ptxas_by_instance(log: str, kern_name) -> dict:
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", ln)
-        if m and entry and props and "fused_nms_kernel" in props:
+        if m and entry and props == mangled:
             out.setdefault(entry, {}).update(zip(("stack", "spill_stores", "spill_loads"),
                                                  (int(x) for x in m.groups())))
         m = re.search(r"Used (\d+) registers", ln)
@@ -651,6 +665,8 @@ def main() -> int:
         ("u_wman_222_sp_ucn", WMAN, (2, 2, 2), 0, T_MAIN, 0, "scale", "rand", 0),
         ("v_wman_110_sp_per_edge", WMAN, (1, 1, 0), 0, T_MAIN, 0, "scale", "rand", 0),
         ("w_mackay_333_sp", "MACKAY_N96_K48", (3, 3, 3), 0, T_MAIN, 0, "scale", "rand", 0),
+        ("x_80211n_303_sp", "802_11n_N648_R56_z27", (3, 0, 3), 0, T_MAIN, 0, "scale", "rand",
+         0),
     ]
     FWD, BWD = fused_train.FWD, fused_train.BWD
     FWD_SP, BWD_SP = fused_train.FWD_SP, fused_train.BWD_SP  # B4-SP, B5-SP
@@ -1148,6 +1164,11 @@ def main() -> int:
             lambda: kern._backward(w3, llr, hist, cres, apps_pre, g_apps), reps=5)
         g_k = dict(zip(("cn", "ucn", "vn"), kern._backward(w3, llr, hist, cres, apps_pre,
                                                              g_apps)))
+        # two launches on the same residuals: bit-identical gradients
+        g_again = kern._backward(w3, llr, hist, cres, apps_pre, g_apps)
+        bwd_identical = all(g is None or torch.equal(g_k[k], g)
+                            for k, g in zip(("cn", "ucn", "vn"), g_again))
+        del g_again
         apps_k = a.detach()
         del hist, cres, apps_pre, a
         torch.cuda.empty_cache()
@@ -1173,6 +1194,7 @@ def main() -> int:
                                                             atol=1e-3)),
             "decision_mismatches": decisions,
             "stream_vs_alone_mismatches": alone_mismatches,
+            "bwd_bit_identical": bwd_identical,
             "loss_kernel": float(loss_k.detach()), "loss_plain": loss_p,
             "max_abs_grad_diff": worst, "grad_err_over_tolerance": ratio,
             "grad_scale": {k: float(g.abs().max()) for k, g in g_p.items()}}
@@ -1187,6 +1209,7 @@ def main() -> int:
               f"{bname} B={TRAIN_B}: B4's streaming APPs differ from the plain version")
         check(par["stream_vs_alone_mismatches"] == 0,
               f"{bname} B={TRAIN_B}: B4 alone and streaming give different APPs")
+        check(bwd_identical, f"{bname} B={TRAIN_B}: two B5 launches differ")
         check(decisions == 0, f"{bname} B={TRAIN_B}: {decisions} words' soft-FER terms "
                               "differ from the plain version's")
         check(abs(par["loss_kernel"] - loss_p) <= 1e-6 * abs(loss_p),
@@ -1235,8 +1258,21 @@ def main() -> int:
                                                                        False)),
           "launch_shape_bwd_post": list(fused_train.train_launch_shape(wman_graph, spec30_post,
                                                                        True)),
+          "launch_shape_fwd_sp": list(fused_train.train_launch_shape(wman_graph, spec_base,
+                                                                     False, sp=True)),
           "launch_shape_bwd_sp": list(fused_train.train_launch_shape(wman_graph, spec_base,
                                                                      True, sp=True))})
+    # the redesigned SP training pair keeps no local array and, on the main
+    # path, spills nothing
+    ptxas_tr = ptxas_by_instance(logs["fused_nms_train.cu"], kern_name)
+    emit({"phase": "ptxas_train", "instances": ptxas_tr})
+    # (the instances for checks past one chunk spill at the pair's bound, where
+    # they ran faster than at SP's, PERF.md)
+    for kname in (FWD_SP, BWD_SP):
+        rep = ptxas_tr.get(kname, {})
+        check(rep.get("stack") == 0 and rep.get("spill_stores") == 0
+              and rep.get("spill_loads") == 0,
+              f"{kname}: ptxas reports {rep} (stack bytes or spills)")
     bounds[FWD], bounds[BWD] = train_bounds["base_fwd"], train_bounds["base_bwd"]
     bounds[FWD_SP], bounds[BWD_SP] = train_bounds["base_sp_fwd"], train_bounds["base_sp_bwd"]
 

@@ -41,17 +41,21 @@
 //     division;
 //   - kTrain (B4) runs two blocks per SM, under a launch bound of 576
 //     threads and 56 registers, with the most words whose two blocks fit
-//     (G = 8 on wman, where one block of 16 was 7.7% slower); the SP decode
-//     instances take blocks of up to 768 threads at 80 registers
-//     (kSPThreads), and the host picks, for a fixed T and the syndrome
-//     stop, the shape that keeps the most warps resident with the fullest
-//     check phase (two blocks of eight words and 384 threads on wman,
-//     three of four and 256 on 802.11n, one of 768 on the 5G codes of
-//     z = 64 and 72); MS and MS_RAW keep one block of up to 1024 threads.
+//     (G = 8 on wman, where one block of 16 was 7.7% slower); B4-SP takes
+//     SP's bound (below) where every check fits one chunk of kSPRegDeg
+//     slots (there it does not spill; at 56 registers it spilled 32 bytes
+//     and ran as fast), else the pair's (it spills 16 bytes, and ran 9%
+//     faster on 802.11n than at 80 registers); the SP decode instances
+//     take blocks of up to 768 threads at 80 registers (kSPThreads), and
+//     the host picks, for a fixed T and the syndrome stop, the shape that
+//     keeps the most warps resident with the fullest check phase (two
+//     blocks of eight words and 384 threads on wman, three of four and 256
+//     on 802.11n, one of 768 on the 5G codes of z = 64 and 72); MS and
+//     MS_RAW keep one block of up to 1024 threads.
 // SP (B1-SP, and B4-SP in kTrain) pays a tanhf and an atanhf per slot, so
-// its check update keeps the rest of a slot's work small: the decode
-// instances read both row offsets of a slot from the lifted slot table
-// (below), and two passes over the slots replace three: the reverse pass
+// its check update keeps the rest of a slot's work small: every SP instance
+// reads both row offsets of a slot from the lifted slot table (below), and
+// two passes over the slots replace three: the reverse pass
 // derives each V->C message and its tanh and accumulates the suffix
 // products, a chunk of kSPRegDeg slots at a time (an unrolled loop into
 // registers, no local array), keeping the running product at the top of
@@ -61,7 +65,9 @@
 // product and its own slots' tanh values (one more load and product per
 // slot past the first chunk), in the same order.  Every product is the one
 // the per-slot arrays gave, so B1-SP's outputs did not move (a CPU test,
-// tests/test_torch_kernel_layout.py, emulates both orders).
+// tests/test_torch_kernel_layout.py, emulates both orders).  B4-SP takes an
+// instance for checks of one chunk (kChunks = 1, as on wman: no chunk tops)
+// where the code's checks allow.
 // Under QMS the decode instances (kCode: B1, B2, B3) keep their state in
 // integer codes: every stored value is a whole number of u, the largest
 // power of two dividing the grid's step and clip (0.5 for q_bit 5), so a
@@ -490,27 +496,36 @@ __device__ __forceinline__ CodePass1 code_pass1(const Msg& ms, const int2* lt,
   return r;
 }
 
-template <int kMode, bool kSP, bool kCode>
+template <int kMode, bool kSP, bool kCode, int kChunks = kSPChunks>
 struct LaunchBound {
-  // the state carries the lifted slot table: the code state and the SP
-  // decode instances (decode_smem_bytes' `lifted` for the float state)
-  static constexpr bool lifted = kCode || (kSP && kMode != kTrain);
+  // the state carries the lifted slot table: the code state and every SP
+  // instance, B4-SP's included (decode_smem_bytes' `lifted` for the float
+  // state)
+  static constexpr bool lifted = kCode || kSP;
+  // the training pair's bound: B4, and B4-SP for checks past one chunk
+  // (which spills at either bound and ran faster at this one); B4-SP for
+  // checks of one chunk takes SP's, where it does not spill
+  static constexpr bool pair = kMode == kTrain && !(kSP && kChunks == 1);
   static constexpr int threads =
-      kMode == kTrain ? kTwoBlockThreads
-      : kCode         ? (kMode == kDeploy ? kDeployThreads : kCodeThreads)
-      : kSP           ? kSPThreads
-                      : 1024;
+      pair    ? kTwoBlockThreads
+      : kSP   ? kSPThreads
+      : kCode ? (kMode == kDeploy ? kDeployThreads : kCodeThreads)
+              : 1024;
   static constexpr int blocks =
-      kMode == kTrain ? 2
+      pair    ? 2
+      : kSP   ? 1
       : kCode ? (kMode == kEarlyStop ? kEarlyStopBlocks
                  : kMode == kDeploy  ? kDeployBlocks
                                      : kCodeBlocks)
               : 1;
 };
 
-template <int kMode, bool kSP, bool kCode>
-__global__ void __launch_bounds__(LaunchBound<kMode, kSP, kCode>::threads,
-                                  LaunchBound<kMode, kSP, kCode>::blocks)
+// kChunks: SP's checks have at most kChunks chunks of kSPRegDeg slots (1:
+// every check fits one chunk, as on wman; B4-SP takes that instance where
+// it can).
+template <int kMode, bool kSP, bool kCode, int kChunks = kSPChunks>
+__global__ void __launch_bounds__(LaunchBound<kMode, kSP, kCode, kChunks>::threads,
+                                  LaunchBound<kMode, kSP, kCode, kChunks>::blocks)
 fused_nms_kernel(const float* __restrict__ llr,
                  const float* __restrict__ w_cn,
                  const float* __restrict__ w_ucn,
@@ -834,11 +849,13 @@ fused_nms_kernel(const float* __restrict__ llr,
         // registers (static indices after unrolling): the suffix products
         // of one chunk, and top[c - 1] the running product at the top of
         // chunk c >= 1 (selected by an unrolled compare, not indexed)
-        float suf[kSPRegDeg], top[kSPChunks - 1];
+        // (kChunks = 1: every check fits one chunk, as on wman; no top)
+        const int last = kChunks > 1 ? (d - 1) / kSPRegDeg : 0;
+        float suf[kSPRegDeg], top[kChunks > 1 ? kChunks - 1 : 1];
         float acc = 1.0f;
-        for (int c = (d - 1) / kSPRegDeg; c >= 0; --c) {
+        for (int c = last; c >= 0; --c) {
 #pragma unroll
-          for (int q = 1; q < kSPChunks; ++q)
+          for (int q = 1; q < kChunks; ++q)
             if (q == c) top[q - 1] = acc;
 #pragma unroll
           for (int i = kSPRegDeg - 1; i >= 0; --i) {
@@ -850,11 +867,11 @@ fused_nms_kernel(const float* __restrict__ llr,
             }
           }
         }
-        for (int c = 0; c * kSPRegDeg < d; ++c) {
+        for (int c = 0; c <= last; ++c) {
           if (c > 0) {  // the chunk's suffix products again, as above
             float s = 1.0f;
 #pragma unroll
-            for (int q = 1; q < kSPChunks; ++q)
+            for (int q = 1; q < kChunks; ++q)
               if (q == c) s = top[q - 1];
 #pragma unroll
             for (int i = kSPRegDeg - 1; i >= 0; --i) {
@@ -960,7 +977,7 @@ int resident_blocks(int threads, int smem) {
 // `smem` bytes of dynamic shared memory per block of G words.  Returns -2
 // when `smem` is not the layout's size, else cudaGetLastError() after the
 // launch (0 = launched).
-template <int kMode, bool kSP, bool kCode>
+template <int kMode, bool kSP, bool kCode, int kChunks = kSPChunks>
 int launch(const void* llr, const void* w_cn, const void* w_ucn,
            const void* w_vn, const void* tab, void* app, void* err,
            void* nerr, void* iters, void* fail, void* hist, void* cres,
@@ -971,7 +988,7 @@ int launch(const void* llr, const void* w_cn, const void* w_ucn,
   if (smem != decode_smem_bytes(N, M, z, E, G, ucn, kMode == kDeploy, kCode,
                                 LaunchBound<kMode, kSP, kCode>::lifted))
     return -2;
-  auto* kern = fused_nms_kernel<kMode, kSP, kCode>;
+  auto* kern = fused_nms_kernel<kMode, kSP, kCode, kChunks>;
   cudaError_t st = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (st != cudaSuccess) return (int)st;

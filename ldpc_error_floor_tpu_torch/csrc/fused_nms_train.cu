@@ -52,7 +52,7 @@
 // launch at batch 32768 on the base block, 2.06 ms at 3.35 TB/s): serial
 // slot loops, shared-memory round trips and three block-wide barriers per
 // iteration, with few warps per SM to hide them.  What the design does
-// (min-sum types):
+// (the min-sum types; B5-SP shares the staging and the weight sums):
 //   - one thread issues Hopper's bulk asynchronous copy (cp.async.bulk,
 //     completing on an mbarrier; no tensor map) of a whole iteration's
 //     residual run into shared memory, and the CN phase reads the stream
@@ -92,25 +92,45 @@
 // stream, allocate nothing and do not synchronise.  Rounding follows the
 // scan decoder (rintf; the build uses -fmad=false).
 //
-// B5-SP.  Per lifted check of degree d, one thread, four passes over the
-// check's edges in CN order and back, reading the V->C stream from device
-// memory (no staging yet), holding per slot the raw tanh, the prefix
-// product F and the suffix product B in three arrays of kMaxDegSP floats in
-// the thread's local memory (cached in L1; a third [E*z][G] shared array
-// would halve G on most codes), and the inclusive clip mask of each pre-clip
-// message in a 64-bit register:
-//   1. forward: x = the clipped message, raw tanh(-x/2), F, exactly the
+// B5-SP.  Per lifted check of degree d, one thread; the staged run and the
+// weight sums as B5's (above), the slot rows from the lifted slot table
+// (`stage_lifted`), and no local array: a slot keeps its raw tanh over its
+// pre-clip value in the staged run, its cotangent in gc, and one value in a
+// register of one chunk of kSPRegDeg slots (bq), another chunk's products
+// formed again from values kept at its boundaries (in registers: the suffix
+// product above the chunk, the prefix product and the running gB below
+// it).  The clip mask of each pre-clip message stays in a 64-bit register.
+// The passes, in CN order and back:
+//   A. reverse: x = the clipped message, its raw tanh(-x/2) (over the
+//      pre-clip value), the suffix products B into bq, exactly the
 //      forward's operations (so p = F*B is the forward's product, bit for
 //      bit, and the product clip's masks are the forward's);
-//   2. backward: B;
-//   3. forward: per edge the clip, -2 atanh, the weighting chain and its
-//      gradient (the per-slot weight gradient to gw), g_p with the
-//      half-gradient at an exactly hit clip bound; gF = g_p*B kept in B's
-//      place; the suffix recurrence's reverse as a running sum, whose share
-//      of each slot's tanh cotangent waits in the slot's gc;
-//   4. backward: the prefix recurrence's reverse as a running sum, plus
-//      the waiting share, through tanh's derivative on the raw value (the
+//   B. forward: the prefix products F; per edge the clip, -2 atanh, the
+//      weighting chain and its gradient, g_p with the half-gradient at an
+//      exactly hit clip bound; gF = g_p*B in B's register; the suffix
+//      recurrence's reverse as a running sum gB, whose share of each slot's
+//      tanh cotangent waits in gc (an earlier chunk, whose registers the
+//      next chunk takes, leaves g_p in gc instead);
+//   C. per chunk, last to first: an earlier chunk's gF and shares formed
+//      again (B from its top, F and gB from its bottom, g_p from gc); a
+//      reverse pass, the prefix recurrence's reverse as a running sum gF,
+//      each slot's register taking the running value above it; a forward
+//      pass that forms F again and adds the share (that value times F) to
+//      the waiting one, then tanh's derivative on the raw value (the
 //      additive zero->1 map has gradient 1) and the clip mask, into gc.
+// Every product and sum is the one that four passes over per-slot arrays
+// of kMaxDegSP floats in local memory (this kernel's earlier form) gave (a
+// CPU test, tests/test_torch_kernel_layout.py, emulates both orders), so
+// each slot's cotangent and per-slot CN-weight gradient did not move; the
+// scalar and per-check weight sums run in B5's order.  Checks of one chunk
+// (kChunks = 1, as on wman) take an instance without the chunk boundaries,
+// under SP's launch bound (80 registers, where it does not spill; at the
+// pair's 56 it spilled 56 bytes and ran 19% faster with 1,152 threads per
+// SM against 768); the wide instance spills at either bound and runs under
+// the pair's, where it was 23% faster on 802.11n.  Measured on wman at
+// batch 32768 on an H100 (the earlier form: 19.5 ms): per-slot weight sums
+// instead of B5's +34%, a synchronous copy instead of the bulk one +24%; a
+// third [E*z][G] array (for F) halved G on 802.11n.
 // No division anywhere (the plain version's cumprod backward divides).
 
 #include "fused_nms_kernel.cuh"
@@ -130,17 +150,18 @@ struct Cfg {
   Msg ms;
   int cn_mode, ucn, vn_mode, offset_mode, dim_cn, dim_vn;
 
-  __host__ __device__ int cn_sum(bool sp) const {
+  __host__ __device__ int cn_sum() const {
     if (cn_mode == 0) return kNoSum;
-    return (sp || cn_mode == 1 || cn_mode == 4) ? kPerSlot : kPerItem;
+    return (cn_mode == 1 || cn_mode == 4) ? kPerSlot : kPerItem;
   }
-  __host__ __device__ int vn_sum(bool sp) const {
+  __host__ __device__ int vn_sum() const {
     if (vn_mode == 0) return kNoSum;
-    return (sp || vn_mode != 3) ? kPerSlot : kInRegs;
+    return vn_mode != 3 ? kPerSlot : kInRegs;
   }
   // check residuals per lifted check and iteration
   __host__ __device__ int R(bool sp) const {
-    return sp ? (ucn ? 1 : 0) : (ucn ? 4 : 3);
+    if (sp) return ucn ? 1 : 0;
+    return ucn ? 4 : 3;
   }
   __device__ int vn_col(int j) const {
     return (vn_mode == 2 || vn_mode == 5) ? j : 0;
@@ -149,27 +170,28 @@ struct Cfg {
 
 // Byte offsets of B5's shared memory (ops/fused_train.py::_smem_bwd
 // computes the same): graph table | the mbarrier uint64 (16 bytes) |
-// weights float [2*dim_cn + dim_vn] (rounded to 16 bytes) | not SP: the
-// staged run float [E*z + R*M*z][G] | slot cotangents gc float [E*z][G] |
-// per slot: gw float
-// [E*z][G] | per bit: gv float [N*z][G] | per item: float [2][M*z][G] | per
-// slot: per-edge sums float [2][E] | per bit: per-VN sums float [N] |
-// per-warp sums float [32] | per slot with UCN: UCN masks uint8 [M*z][G].
-// end is the total.
+// weights float [2*dim_cn + dim_vn] (rounded to 16 bytes) | SP: the lifted
+// slot table int2 [E*z] | the staged run float [E*z + R*M*z][G] | slot
+// cotangents gc float [E*z][G] | per slot: gw float [E*z][G] | per bit: gv
+// float [N*z][G] | per item: float [2][M*z][G] | per slot: per-edge sums
+// float [2][E] | per bit: per-VN sums float [N] | per-warp sums float [32] |
+// per slot with UCN: UCN masks uint8 [M*z][G].  end is the total.
 struct BwdLayout {
-  int bar, w, stage, gc, gw, gv, item, red, red_v, wsum, ucn_s, end;
+  int bar, w, lifted, stage, gc, gw, gv, item, red, red_v, wsum, ucn_s, end;
 
   __host__ __device__ BwdLayout(const Cfg& c, bool sp) {
     const int EzG = c.E * c.z * c.G, NzG = c.N * c.z * c.G;
     const int MzG = c.M * c.z * c.G;
-    const int cs = c.cn_sum(sp), vs = c.vn_sum(sp);
+    const int cs = c.cn_sum(), vs = c.vn_sum();
     int o = table_bytes(c.N, c.M, c.E);
     bar = o;
     o += 16;
     w = o;
     o += 4 * ((2 * c.dim_cn + c.dim_vn + 3) & ~3);
+    lifted = o;
+    o += sp ? 8 * c.E * c.z : 0;
     stage = o;
-    o += sp ? 0 : 4 * (EzG + c.R(false) * MzG);
+    o += 4 * (EzG + c.R(sp) * MzG);
     gc = o;
     o += 4 * EzG;
     gw = o;
@@ -210,11 +232,11 @@ __device__ __forceinline__ void init_stage_bar(uint64_t* bar) {
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
 }
 
-// ... copy one iteration's hist run (hbytes) and cres run (cbytes) of this
-// block into shared memory at dst with Hopper's bulk asynchronous copy,
-// completing on `bar` (sizes multiples of 16 bytes, addresses 16-byte
-// aligned: the wrapper checks).  The proxy fence orders the CN phase's
-// writes into the buffer before the copy overwrites it.
+// ... copy one iteration's hist run (hbytes) and cres run (cbytes, 0 for SP
+// without UCN) of this block into shared memory at dst with Hopper's bulk
+// asynchronous copy, completing on `bar` (sizes multiples of 16 bytes,
+// addresses 16-byte aligned: the wrapper checks).  The proxy fence orders
+// the CN phase's writes into the buffer before the copy overwrites it.
 __device__ __forceinline__ void stage_tiles(float* dst, const float* hist,
                                             unsigned hbytes, const float* cres,
                                             unsigned cbytes, uint64_t* bar) {
@@ -228,11 +250,12 @@ __device__ __forceinline__ void stage_tiles(float* dst, const float* hist,
       "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
       "l"(hist), "r"(hbytes), "r"(b)
       : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst + hbytes / 4)),
-      "l"(cres), "r"(cbytes), "r"(b)
-      : "memory");
+  if (cbytes)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst + hbytes / 4)),
+        "l"(cres), "r"(cbytes), "r"(b)
+        : "memory");
 }
 
 // ... and every thread waits for the copy's phase `parity` of `bar`.  A copy
@@ -251,105 +274,224 @@ __device__ __forceinline__ void wait_tiles(uint64_t* bar, unsigned parity) {
   } while (!done);
 }
 
-// B5-SP for lifted check (i, h) of word g at iteration t: turns the
-// cotangents of its new C->V messages (gc, this thread's slots) into those
-// of its pre-clip V->C messages, and writes the per-slot CN-weight gradient
-// to gw (with CN weights).  hist_t: this block's V->C run of iteration t
-// ([E*z][G]); wc, wu: the iteration's CN and UCN weights; u: the check's
-// UCN mask.
-__device__ void sp_check_bwd(const Cfg& c, const Graph& gr,
-                             const float* __restrict__ hist_t,
-                             const float* wc, const float* wu, float* gc,
-                             float* gw, int i, int h, int g, float u) {
-  float ttr[kMaxDegSP], fp[kMaxDegSP], bs[kMaxDegSP];
-  const int k0 = gr.cn_ptr[i], deg = gr.cn_ptr[i + 1] - k0;
+// A register array indexed by a value the compiler cannot see: unrolled
+// compares (no local memory).
+template <int N>
+__device__ __forceinline__ float reg_get(const float (&a)[N], int i) {
+  float v = 0.0f;
+#pragma unroll
+  for (int q = 0; q < N; ++q)
+    if (q == i) v = a[q];
+  return v;
+}
+template <int N>
+__device__ __forceinline__ void reg_set(float (&a)[N], int i, float v) {
+#pragma unroll
+  for (int q = 0; q < N; ++q)
+    if (q == i) a[q] = v;
+}
+
+// B5-SP for lifted check (i, h) of word g at iteration t, its d slots in
+// CN order from check-order position k0, slot j's messages at the shared
+// index row(j): turns the cotangents of its new C->V messages (gc, this
+// thread's slots) into those of its pre-clip V->C messages.  ts: this
+// block's staged V->C run of iteration t ([E*z][G]), whose entries of
+// these slots the first pass replaces with their raw tanh; wc, wu: the
+// iteration's CN and UCN weights; u: the check's UCN mask.  With
+// `per_slot` (per-edge CN weights) each slot's CN-weight gradient goes to
+// gw; returns their sum in slot order (0 without CN weights).  kChunks:
+// the check has at most kChunks chunks of kSPRegDeg slots.  The passes are
+// in the notes above.
+template <int kChunks, class Row>
+__device__ float sp_check_bwd(const Cfg& c, Row row, float* ts, float* gc,
+                              float* gw, bool per_slot, const float* wc,
+                              const float* wu, int i, int k0, int d, float u) {
   const bool cnw = c.cn_mode > 0;
-  auto slot = [&](int n) {  // the shared index of the check's n-th edge
-    const int4 sd = gr.slot[k0 + n];
-    return gr.at(sd.x + gr.sub(sd, h), g);
-  };
+  const bool per_edge = c.cn_mode == 1 || c.cn_mode == 4;
+  const float w_chk =
+      (cnw && !per_edge) ? cn_w(wc, wu, cn_col(c.cn_mode, i, 0), c.ucn, u) : 1.0f;
   auto tt_of = [](float v) { return (v == 0.0f) ? 1.0f : v; };
-  // 1. the raw tanh of each message and the prefix products F
-  unsigned long long inside = 0ull;  // bit n: |pre| <= clip_llr
-  float a = 1.0f;
-  for (int n = 0; n < deg; ++n) {
-    const float pre = __ldg(hist_t + slot(n));
-    if (fabsf(pre) <= c.ms.clip_llr) inside |= 1ull << n;
-    const float v = tanhf(-0.5f * c.ms.v2c(pre));
-    ttr[n] = v;
-    fp[n] = a;
-    a = (n == 0) ? tt_of(v) : a * tt_of(v);
-  }
-  // 2. the suffix products B
-  a = 1.0f;
-  for (int n = deg - 1; n >= 0; --n) {
-    bs[n] = a;
-    a = (n == deg - 1) ? tt_of(ttr[n]) : a * tt_of(ttr[n]);
-  }
-  // 3. per edge: the product's clip and atanh, the weighting chain and its
-  // gradient, g_p; gF = g_p*B replaces B; the running gB of the suffix
-  // recurrence's reverse leaves its share of the slot's tanh cotangent in gc
-  float gb = 0.0f;
-  for (int n = 0; n < deg; ++n) {
-    const int si = slot(n);
-    const float F = fp[n], Bn = bs[n];
-    const float p = F * Bn;
-    const float pc = fminf(fmaxf(p, -kSPClip), kSPClip);
-    const float out = -2.0f * atanhf(pc);
-    const float mag = fabsf(out);
-    const float so = (out > 0.0f) ? 1.0f : ((out < 0.0f) ? -1.0f : 0.0f);
-    float w_eff = 1.0f, r = mag;
-    if (cnw) {
-      w_eff = cn_w(wc, wu, cn_col(c.cn_mode, i, k0 + n), c.ucn, u);
-      r = c.offset_mode ? mag - w_eff : mag * w_eff;
+  const int C = kChunks > 1 ? (d - 1) / kSPRegDeg : 0;  // the last chunk
+  // registers: one chunk's suffix products B (then gF = g_p*B, then the
+  // running gF above each slot); at chunk c's boundaries (kChunks > 1):
+  // top[c] the suffix product above chunk c < C, bot[c - 1] and gbot[c - 1]
+  // the prefix product and the running gB below chunk c >= 1
+  constexpr int kBounds = kChunks > 1 ? kChunks - 1 : 1;
+  float bq[kSPRegDeg];
+  float top[kBounds], bot[kBounds], gbot[kBounds];
+  unsigned long long inside = 0ull;  // bit j: |pre| <= clip_llr
+
+  // A. reverse: each slot's clip bit and raw tanh (over its pre-clip value),
+  // the suffix products
+  float acc = 1.0f;
+  for (int cc = C; cc >= 0; --cc) {
+    if (cc < C) reg_set(top, cc, acc);
+#pragma unroll
+    for (int ii = kSPRegDeg - 1; ii >= 0; --ii) {
+      const int j = cc * kSPRegDeg + ii;
+      if (j < d) {
+        float* p = ts + row(j);
+        const float pre = *p;
+        if (fabsf(pre) <= c.ms.clip_llr) inside |= 1ull << j;
+        const float v = tanhf(-0.5f * c.ms.v2c(pre));
+        *p = v;
+        bq[ii] = acc;
+        acc = (j == d - 1) ? tt_of(v) : acc * tt_of(v);
+      }
     }
-    // ReLU and the inclusive clip mask on the weighted magnitude: 0 < r <= clip
-    const float g_in = (r > 0.0f && r <= c.ms.clip_llr) ? gc[si] * so : 0.0f;
-    const float g_mag = (cnw && !c.offset_mode) ? g_in * w_eff : g_in;
-    if (cnw) gw[si] = c.offset_mode ? -g_in : g_in * mag;
-    // |out| (gradient +1 at 0), -2 atanh, the clip: 1/2 at a hit bound
-    const float g_out = g_mag * ((out >= 0.0f) ? 1.0f : -1.0f);
-    const float g_pc = g_out * (-2.0f / (1.0f - pc * pc));
-    const float in_hi = 0.5f * ((p < kSPClip ? 1.0f : 0.0f) +
-                                (p <= kSPClip ? 1.0f : 0.0f));
-    const float in_lo = 0.5f * ((p > -kSPClip ? 1.0f : 0.0f) +
-                                (p >= -kSPClip ? 1.0f : 0.0f));
-    const float g_p = g_pc * in_hi * in_lo;
-    bs[n] = g_p * Bn;  // gF
-    const float gbn = g_p * F;
-    float share = 0.0f;
-    if (n == 0) {
-      gb = gbn;
-    } else {
-      share = gb * Bn;
-      gb = gbn + gb * tt_of(ttr[n]);
-    }
-    gc[si] = share;
   }
-  // 4. the running gF of the prefix recurrence's reverse; tanh(-x/2)'s
-  // derivative on the raw value; the clip mask (a degree-1 check gets 0)
+
+  // B. forward: the prefix products; per slot the product's clip and atanh,
+  // the weighting chain and its gradient, g_p with the half-gradient at an
+  // exactly hit clip bound; the running gB of the suffix recurrence's
+  // reverse.  Chunk C keeps gF in registers and leaves each slot's share of
+  // its tanh cotangent in gc; an earlier chunk leaves g_p in gc.
+  float a = 1.0f, gb = 0.0f, sw = 0.0f;
+  for (int cc = 0; cc <= C; ++cc) {
+    if (cc > 0) {  // the chunk's suffix products again, from its top
+      reg_set(bot, cc - 1, a);
+      reg_set(gbot, cc - 1, gb);
+      float s = (cc < C) ? reg_get(top, cc) : 1.0f;
+#pragma unroll
+      for (int ii = kSPRegDeg - 1; ii >= 0; --ii) {
+        const int j = cc * kSPRegDeg + ii;
+        if (j < d) {
+          const float v = tt_of(ts[row(j)]);
+          bq[ii] = s;
+          s = (j == d - 1) ? v : s * v;
+        }
+      }
+    }
+#pragma unroll
+    for (int ii = 0; ii < kSPRegDeg; ++ii) {
+      const int j = cc * kSPRegDeg + ii;
+      if (j < d) {
+        const int si = row(j);
+        const float tv = tt_of(ts[si]);
+        const float F = a, Bn = bq[ii];
+        a = (j == 0) ? tv : a * tv;
+        const float p = F * Bn;
+        const float pc = fminf(fmaxf(p, -kSPClip), kSPClip);
+        const float out = -2.0f * atanhf(pc);
+        const float mag = fabsf(out);
+        const float so = (out > 0.0f) ? 1.0f : ((out < 0.0f) ? -1.0f : 0.0f);
+        float w_eff = 1.0f, r = mag;
+        if (cnw) {
+          w_eff = per_edge ? cn_w(wc, wu, k0 + j, c.ucn, u) : w_chk;
+          r = c.offset_mode ? mag - w_eff : mag * w_eff;
+        }
+        // ReLU and the inclusive clip mask on the weighted magnitude
+        const float g_in = (r > 0.0f && r <= c.ms.clip_llr) ? gc[si] * so : 0.0f;
+        const float g_mag = (cnw && !c.offset_mode) ? g_in * w_eff : g_in;
+        if (cnw) {
+          const float gwv = c.offset_mode ? -g_in : g_in * mag;
+          if (per_slot)
+            gw[si] = gwv;
+          else
+            sw += gwv;
+        }
+        // |out| (gradient +1 at 0), -2 atanh, the clip: 1/2 at a hit bound
+        const float g_out = g_mag * ((out >= 0.0f) ? 1.0f : -1.0f);
+        const float g_pc = g_out * (-2.0f / (1.0f - pc * pc));
+        const float in_hi = 0.5f * ((p < kSPClip ? 1.0f : 0.0f) +
+                                    (p <= kSPClip ? 1.0f : 0.0f));
+        const float in_lo = 0.5f * ((p > -kSPClip ? 1.0f : 0.0f) +
+                                    (p >= -kSPClip ? 1.0f : 0.0f));
+        const float g_p = g_pc * in_hi * in_lo;
+        const float gbn = g_p * F;
+        float share = 0.0f;
+        if (j == 0) {
+          gb = gbn;
+        } else {
+          share = gb * Bn;
+          gb = gbn + gb * tv;
+        }
+        bq[ii] = g_p * Bn;  // gF
+        gc[si] = (cc == C) ? share : g_p;
+      }
+    }
+  }
+
+  // C. per chunk, last to first: an earlier chunk's gF and shares formed
+  // again (B from its top, F and gB from its bottom, g_p from gc); the
+  // reverse: the running gF of the prefix recurrence's reverse, each slot's
+  // value above it kept in its register; the forward: F again, the share
+  // gF*F, tanh(-x/2)'s derivative on the raw value (the additive zero->1
+  // map has gradient 1) and the clip mask (a degree-1 check gets 0)
   float gf = 0.0f;
-  for (int n = deg - 1; n >= 0; --n) {
-    const int si = slot(n);
-    float share = 0.0f;
-    if (n == deg - 1) {
-      gf = bs[n];
-    } else {
-      share = gf * fp[n];
-      gf = bs[n] + gf * tt_of(ttr[n]);
+  for (int cc = C; cc >= 0; --cc) {
+    const float f0 = (cc > 0) ? reg_get(bot, cc - 1) : 1.0f;
+    if (cc < C) {
+      float s = reg_get(top, cc);
+#pragma unroll
+      for (int ii = kSPRegDeg - 1; ii >= 0; --ii) {
+        const int j = cc * kSPRegDeg + ii;
+        if (j < d) {
+          const float v = tt_of(ts[row(j)]);
+          bq[ii] = s;
+          s = (j == d - 1) ? v : s * v;
+        }
+      }
+      float aa = f0, gg = (cc > 0) ? reg_get(gbot, cc - 1) : 0.0f;
+#pragma unroll
+      for (int ii = 0; ii < kSPRegDeg; ++ii) {
+        const int j = cc * kSPRegDeg + ii;
+        if (j < d) {
+          const int si = row(j);
+          const float tv = tt_of(ts[si]);
+          const float F = aa, Bn = bq[ii], g_p = gc[si];
+          aa = (j == 0) ? tv : aa * tv;
+          const float gbn = g_p * F;
+          float share = 0.0f;
+          if (j == 0) {
+            gg = gbn;
+          } else {
+            share = gg * Bn;
+            gg = gbn + gg * tv;
+          }
+          bq[ii] = g_p * Bn;
+          gc[si] = share;
+        }
+      }
     }
-    const float g_tt = share + gc[si];
-    const float g_x = g_tt * (-0.5f) * (1.0f - ttr[n] * ttr[n]);
-    gc[si] = ((inside >> n) & 1ull) ? g_x : 0.0f;
+#pragma unroll
+    for (int ii = kSPRegDeg - 1; ii >= 0; --ii) {
+      const int j = cc * kSPRegDeg + ii;
+      if (j < d) {
+        const float gF = bq[ii];
+        bq[ii] = gf;  // the running gF above slot j (unread for j = d - 1)
+        gf = (j == d - 1) ? gF : gF + gf * tt_of(ts[row(j)]);
+      }
+    }
+    float aa = f0;
+#pragma unroll
+    for (int ii = 0; ii < kSPRegDeg; ++ii) {
+      const int j = cc * kSPRegDeg + ii;
+      if (j < d) {
+        const int si = row(j);
+        const float raw = ts[si];
+        const float share = (j == d - 1) ? 0.0f : bq[ii] * aa;
+        aa = (j == 0) ? tt_of(raw) : aa * tt_of(raw);
+        const float g_tt = share + gc[si];
+        const float g_x = g_tt * (-0.5f) * (1.0f - raw * raw);
+        gc[si] = ((inside >> j) & 1ull) ? g_x : 0.0f;
+      }
+    }
   }
+  return sw;
 }
 
 // Shared memory: `BwdLayout`.  tab: the training table (the decode table,
 // then edge_cn[E] and edge_shift[E] in VN order for the per-edge sums).
-// kSP: the CN phase is SP's (sp_check_bwd), reading the stream from device
-// memory.
-template <bool kSP>
-__global__ void __launch_bounds__(kTwoBlockThreads, 2)
+// kSP: the CN phase is SP's (sp_check_bwd), for checks of at most kChunks
+// chunks of kSPRegDeg slots (1: d <= kSPRegDeg, as on wman; kSPChunks).
+// B5 and B5-SP for checks past one chunk take the training pair's launch
+// bound (56 registers; the wide instance spills, and ran faster here than
+// at 80 registers), B5-SP for checks of one chunk SP's (80 registers), at
+// which it does not spill.
+template <bool kSP, int kChunks>
+__global__ void __launch_bounds__((kSP && kChunks == 1) ? kSPThreads : kTwoBlockThreads,
+                                  (kSP && kChunks == 1) ? 1 : 2)
 train_bwd_kernel(const float* __restrict__ llr, const float* __restrict__ w_cn,
                  const float* __restrict__ w_ucn,
                  const float* __restrict__ w_vn, const int* __restrict__ tab,
@@ -364,7 +506,7 @@ train_bwd_kernel(const float* __restrict__ llr, const float* __restrict__ w_cn,
   const int Nz = c.N * z, Mz = c.M * z, Ez = c.E * z;
   const int EzG = Ez * G, MzG = Mz * G, zG = z * G;
   const int R = c.R(kSP);
-  const int cn_sum = c.cn_sum(kSP), vn_sum = c.vn_sum(kSP);
+  const int cn_sum = c.cn_sum(), vn_sum = c.vn_sum();
   const bool cnw = c.cn_mode > 0, vnw = c.vn_mode > 0;
   const bool per_edge = c.cn_mode == 1 || c.cn_mode == 4;
   const Graph gr = stage_table(tab, reinterpret_cast<int*>(smem_raw), c.N,
@@ -378,6 +520,8 @@ train_bwd_kernel(const float* __restrict__ llr, const float* __restrict__ w_cn,
   float* hs = reinterpret_cast<float*>(smem_raw + L.stage);  // the staged run:
   const float* cs = hs + EzG;                                 // hist, then cres
   float* gc = reinterpret_cast<float*>(smem_raw + L.gc);
+  int2* ltab = reinterpret_cast<int2*>(smem_raw + L.lifted);  // SP
+  if (kSP) stage_lifted(tab, ltab, c.E, z, gr.lg);
   float* gw = reinterpret_cast<float*>(smem_raw + L.gw);
   float* gv = reinterpret_cast<float*>(smem_raw + L.gv);
   float* isc = reinterpret_cast<float*>(smem_raw + L.item);  // per item: CN
@@ -418,11 +562,11 @@ train_bwd_kernel(const float* __restrict__ llr, const float* __restrict__ w_cn,
   stage_weights(w_cn, wc, T - 1, c.dim_cn);
   if (c.ucn) stage_weights(w_ucn, wu, T - 1, c.dim_cn);
   stage_weights(w_vn, wv, T - 1, c.dim_vn);
-  if (!kSP && tid == 0) {
+  if (tid == 0) {
     init_stage_bar(bar);
     stage_it(T - 1);
   }
-  __syncthreads();  // the table, the weights, the mbarrier
+  __syncthreads();  // the tables, the weights, the mbarrier
   for (Rows it = rows0; it.row < Nz; it.next()) {
     const float f = real ? fold(T - 1, it.row) : 0.0f;
     for (int e = gr.vn_ptr[it.q], r = e * z + it.r; e < gr.vn_ptr[it.q + 1];
@@ -433,7 +577,7 @@ train_bwd_kernel(const float* __restrict__ llr, const float* __restrict__ w_cn,
 
   for (int t = T - 1; t >= 0; --t) {
     // ---- CN phase: per lifted check -----------------------------------
-    if (!kSP) wait_tiles(bar, (T - 1 - t) & 1);  // iteration t's run
+    wait_tiles(bar, (T - 1 - t) & 1);  // iteration t's run
     for (Rows it = rows0; it.row < Mz; it.next()) {
       const int g = gt;
       const int row = it.row, i = it.q, h = it.r;
@@ -451,9 +595,17 @@ train_bwd_kernel(const float* __restrict__ llr, const float* __restrict__ w_cn,
         continue;
       }
       if (kSP) {
-        const float u = c.ucn ? __ldg(cres_t(t) + k) : 0.0f;
-        if (c.ucn) ucn_s[k] = u > 0.5f;
-        sp_check_bwd(c, gr, hist_t(t), wc, wu, gc, gw, i, h, g, u);
+        const float u = c.ucn ? cs[k] : 0.0f;  // R = 1: the UCN mask
+        if (cn_sum == kPerSlot && c.ucn) ucn_s[k] = u > 0.5f;
+        const int2* lt = ltab + k0 * z + h;
+        auto row = [&](int j) { return lt[j * z].x + g; };
+        const float sw = sp_check_bwd<kChunks>(c, row, hs, gc, gw, cn_sum == kPerSlot,
+                                               wc, wu, i, k0, k1 - k0, u);
+        if (cn_sum == kPerItem) {
+          const bool on_ucn = c.ucn && u > 0.5f;
+          isc[k] = on_ucn ? 0.0f : sw;
+          isu[k] = on_ucn ? sw : 0.0f;
+        }
         continue;
       }
       const float m1 = cs[k];
@@ -542,7 +694,7 @@ train_bwd_kernel(const float* __restrict__ llr, const float* __restrict__ w_cn,
     }
     __syncthreads();
     // the buffer is free: stage iteration t - 1 into it
-    if (!kSP && tid == 0 && t > 0) stage_it(t - 1);
+    if (tid == 0 && t > 0) stage_it(t - 1);
 
     // ---- CN-weight sums; VN phase: per lifted bit ---------------------
     const size_t pb = (size_t)blockIdx.x * T + t;
@@ -739,15 +891,16 @@ extern "C" int fused_nms_train_fwd_launch(
     const void* llr, const void* w_cn, const void* w_ucn, const void* w_vn,
     const void* tab, void* apps, void* hist, void* cres, TRAIN_CFG_ARGS,
     void* stream) {
-  (void)Dc;
   const Msg ms{dec_type, qinv, qstep, qclip, clip_llr};
-#define TRAIN_FWD_LAUNCH(SP)                                                  \
-  launch<kTrain, SP, false>(llr, w_cn, w_ucn, w_vn, tab, apps, nullptr,      \
+#define TRAIN_FWD_LAUNCH(SP, CHUNKS)                                          \
+  launch<kTrain, SP, false, CHUNKS>(llr, w_cn, w_ucn, w_vn, tab, apps,       \
+                            nullptr,                                          \
                             nullptr, nullptr, nullptr, hist, cres, N, M, z,   \
                             E, T, B, G, W, threads, smem, target, t0, ms,     \
                             cn_mode, ucn, vn_mode, offset_mode, dim_cn,       \
                             dim_vn, (cudaStream_t)stream)
-  return dec_type == kSPDec ? TRAIN_FWD_LAUNCH(true) : TRAIN_FWD_LAUNCH(false);
+  if (dec_type != kSPDec) return TRAIN_FWD_LAUNCH(false, kSPChunks);
+  return Dc <= kSPRegDeg ? TRAIN_FWD_LAUNCH(true, 1) : TRAIN_FWD_LAUNCH(true, kSPChunks);
 #undef TRAIN_FWD_LAUNCH
 }
 
@@ -768,7 +921,9 @@ extern "C" int fused_nms_train_bwd_launch(
   const bool sp = dec_type == kSPDec;
   const Cfg cfg = TRAIN_CFG;
   if (BwdLayout(cfg, sp).end != smem) return -2;
-  auto* kernel = sp ? train_bwd_kernel<true> : train_bwd_kernel<false>;
+  auto* kernel = !sp                  ? train_bwd_kernel<false, 1>
+                 : Dc <= kSPRegDeg ? train_bwd_kernel<true, 1>
+                                   : train_bwd_kernel<true, kSPChunks>;
   cudaError_t st = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (st != cudaSuccess) return (int)st;

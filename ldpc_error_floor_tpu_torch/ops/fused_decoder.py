@@ -63,8 +63,10 @@ _SMEM_LIMIT = 232_448  # dynamic shared memory one H100 block may use
 _SMEM_PER_SM = 233_472  # shared memory of one H100 SM (228 KB)
 _SMEM_RESERVED = 1_024  # of it, reserved for each resident block
 # threads per block of the training pair, built to run two blocks per SM
-# (kTwoBlockThreads of the .cuh: at most 56 registers a thread)
+# (kTwoBlockThreads of the .cuh: at most 56 registers a thread, so an SM
+# holds 36 of its warps)
 _TWO_BLOCK_THREADS = 576
+_TWO_BLOCK_WARPS_PER_SM = 36
 # the launch bound of the code-domain decode instances (kCodeThreads,
 # kCodeBlocks, kEarlyStopBlocks, kDeployThreads, kDeployBlocks of the
 # .cuh): blocks of at most 384 threads, three per SM, four under the genie
@@ -83,6 +85,7 @@ _MAX_C2V_CODE = 63  # a C->V code is 7-bit two's complement
 _LUT_INTS = 132  # kLutInts: the code state's table of output bytes
 _MAX_TOT_CODE = 16383  # a bit total is an int16 code, doubled
 _MAX_DEG_SP = 64  # kMaxDegSP of the .cu: the largest check degree SP takes
+_SP_REG_DEG = 16  # kSPRegDeg: the slots of one chunk of SP's registers
 
 # the kernel's modes, in the .cu's numbering, by the name its launches count under
 FIXED, EARLY_STOP, DEPLOY = 0, 1, 2
@@ -208,17 +211,24 @@ def pick_launch_shape(graph: TannerGraph, smem: Callable[[int], int],
     return G, threads
 
 
-def sp_launch_shape(graph: TannerGraph, smem: Callable[[int], int]) -> Tuple[int, int]:
-    """(G, threads) of the SP decode kernel with a fixed T or the syndrome
-    stop, whose block of G words needs ``smem(G)`` bytes: of the shapes
-    whose block fits (G a power of two up to 32, threads a multiple of G
-    and of the warp from 64 to `_SP_THREADS`), the one that keeps the most
-    threads resident on an SM, then fills the check phase's rounds best
-    (M*z*G items, one per thread and round), then holds two blocks or more
-    (one block's barrier leaves the SM the other's warps), then has the
-    most words, then the most blocks.  On the H100 it picks the fastest
-    of every such shape on each of the seven codes measured
-    (`tools/torch_kernel_ab.py --kernels sp_shapes`)."""
+def sp_launch_shape(graph: TannerGraph, smem: Callable[[int], int],
+                    max_threads: int = _SP_THREADS,
+                    warps_per_sm: int = _SP_WARPS_PER_SM,
+                    two_blocks_first: bool = True) -> Tuple[int, int]:
+    """(G, threads) of an SP kernel whose block of G words needs ``smem(G)``
+    bytes, under a launch bound of `max_threads` threads a block and
+    `warps_per_sm` resident warps (the SP decode kernel's by default, for a
+    fixed T and the syndrome stop; the training pair's for B4-SP and
+    B5-SP): of the shapes whose block fits (G a power of two up to 32,
+    threads a multiple of G and of the warp from 64 to `max_threads`), the
+    one that keeps the most threads resident on an SM, then fills the check
+    phase's rounds best (M*z*G items, one per thread and round), then holds
+    two blocks or more (one block's barrier leaves the SM the other's
+    warps; after the words without `two_blocks_first`, as B5-SP measured),
+    then has the most words, then the most blocks.  On the H100 it picks
+    the fastest of every such shape (or one within 1.6% of it) on each code
+    measured (`tools/torch_kernel_ab.py --kernels sp_shapes`, seven codes;
+    `--kernels sp_train_shapes`, three)."""
     code = graph.code
     best = None
     for G in (32, 16, 8, 4, 2, 1):
@@ -226,15 +236,16 @@ def sp_launch_shape(graph: TannerGraph, smem: Callable[[int], int]) -> Tuple[int
         if size > _SMEM_LIMIT:
             continue
         items = code.M * code.z * G
-        for threads in range(64, _SP_THREADS + 1, 32):
+        for threads in range(64, max_threads + 1, 32):
             if threads % G:
                 continue
             blocks = min(_SMEM_PER_SM // (size + _SMEM_RESERVED),
-                         _SP_WARPS_PER_SM // (threads // 32))
+                         warps_per_sm // (threads // 32))
             if blocks == 0:
                 continue
             fill = items / (-(-items // threads) * threads)
-            key = (blocks * threads, fill, blocks >= 2, G, blocks)
+            key = ((blocks * threads, fill, blocks >= 2, G, blocks) if two_blocks_first
+                   else (blocks * threads, fill, G, blocks >= 2, blocks))
             if best is None or key > best[0]:
                 best = (key, G, threads)
     if best is None:
@@ -320,7 +331,8 @@ def code_grid(cfg: DecoderConfig, graph: TannerGraph) -> Tuple[float, float, int
 
 def check_sp_degree(graph: TannerGraph) -> None:
     """Raise unless the SP kernels take the graph's largest check degree
-    (B5-SP keeps per-slot arrays of kMaxDegSP, csrc/fused_nms_train.cu)."""
+    (kMaxDegSP of csrc/fused_nms_kernel.cuh: B5-SP keeps a check's clip
+    masks in 64 bits and its running products at kSPChunks chunk tops)."""
     if graph.Dc > _MAX_DEG_SP:
         raise ValueError(f"the SP kernels take check degrees up to {_MAX_DEG_SP}; "
                          f"{graph.code.name} has {graph.Dc}")

@@ -69,27 +69,27 @@ def load_library() -> Tuple[ctypes.CDLL, str]:
 def _smem_bwd(graph: TannerGraph, spec: WeightSpec, G: int, sp: bool) -> int:
     """B5's dynamic shared memory (`BwdLayout` in the .cu): the graph table,
     the mbarrier (16 bytes), one iteration's weights float [2*dim_cn +
-    dim_vn] (rounded up to 16 bytes), not SP: the staged residual run float
-    [E*z + R*M*z][G], the slot cotangents float [E*z][G]; for per-slot
-    sums (per-edge CN modes 1 and 4, and SP with CN weights) the per-slot
-    CN-weight gradients float [E*z][G] and per-edge sums float [2][E], UCN
-    masks uint8 [M*z][G] (with UCN); for per-bit sums (per-VN modes 2 and 5,
-    and SP with VN weights) the per-bit VN-weight gradients float [N*z][G]
-    and per-VN sums float [N]; for the scalar and per-check CN modes 3, 2
-    and 5 one CN and one UCN sum per lifted check and word float
-    [2][M*z][G]; per-warp sums float [32] (scalar VN mode 3 sums in
+    dim_vn] (rounded up to 16 bytes), for SP the lifted slot table int2
+    [E*z], the staged residual run float [E*z + R*M*z][G] (R =
+    `cres_rows`), the slot cotangents float [E*z][G]; for per-slot sums (per-edge CN
+    modes 1 and 4) the per-slot CN-weight gradients float [E*z][G] and
+    per-edge sums float [2][E], UCN masks uint8 [M*z][G] (with UCN); for
+    per-bit sums (per-VN modes 2 and 5) the per-bit VN-weight gradients
+    float [N*z][G] and per-VN sums float [N]; for the scalar and per-check
+    CN modes 3, 2 and 5 one CN and one UCN sum per lifted check and word
+    float [2][M*z][G]; per-warp sums float [32] (scalar VN mode 3 sums in
     registers)."""
     code = graph.code
     N, M, z, E = code.N, code.M, code.z, graph.E
     cn, vn = spec.sharing[0], spec.sharing[2]
     ucn = spec.ucn_enabled
-    cn_sum = 0 if cn == 0 else ("slot" if sp or cn in (1, 4) else "item")
-    vn_sum = 0 if vn == 0 else ("bit" if sp or vn != 3 else "regs")
+    cn_sum = 0 if cn == 0 else ("slot" if cn in (1, 4) else "item")
+    vn_sum = 0 if vn == 0 else ("bit" if vn != 3 else "regs")
     dims = 2 * spec.dim("cn", graph) + spec.dim("vn", graph)
-    R = 4 if ucn else 3
+    R = (1 if ucn else 0) if sp else (4 if ucn else 3)
     EzG, NzG, MzG = E * z * G, N * z * G, M * z * G
     return (fd._table_bytes(N, M, E) + 16 + fd._align16(4 * dims)
-            + (0 if sp else 4 * (EzG + R * MzG)) + 4 * EzG
+            + (8 * E * z if sp else 0) + 4 * (EzG + R * MzG) + 4 * EzG
             + (4 * EzG + 8 * E + (MzG if ucn else 0) if cn_sum == "slot" else 0)
             + (4 * NzG + 4 * N if vn_sum == "bit" else 0)
             + (8 * MzG if cn_sum == "item" else 0) + 4 * 32)
@@ -98,18 +98,32 @@ def _smem_bwd(graph: TannerGraph, spec: WeightSpec, G: int, sp: bool) -> int:
 def train_launch_shape(graph: TannerGraph, spec: WeightSpec, backward: bool,
                        sp: bool = False) -> Tuple[int, int, int]:
     """(G words per block, threads per block, shared bytes) of B4 or B5 (of
-    B4-SP or B5-SP with `sp`), two blocks per SM
-    (`ops/fused_decoder.py::pick_launch_shape`).  B4 lays out its shared
-    memory as the decode kernel does (`ops/fused_decoder.py::_smem_bytes`);
-    B5's G is also the tile width W of the residual streams."""
+    B4-SP or B5-SP with `sp`).  B4 lays out its shared memory as the decode
+    kernel does (`ops/fused_decoder.py::_smem_bytes`, for SP with the
+    lifted slot table); B5's G is also the tile width W of the residual
+    streams.  B4 and B5 run two blocks per SM under the pair's launch bound
+    (576 threads a block, 56 registers; `ops/fused_decoder.py::
+    pick_launch_shape`); B4-SP and B5-SP in the shape
+    `ops/fused_decoder.py::sp_launch_shape` picks for their memory, under
+    SP's bound (768 threads, 80 registers) where every check fits one chunk
+    of 16 slots (wman: B4-SP two blocks of eight words and 384 threads,
+    B5-SP one of eight and 768), else under the pair's (802.11n: two blocks
+    of four words and 576 threads each)."""
     code = graph.code
 
     def smem(g):
         if backward:
             return _smem_bwd(graph, spec, g, sp)
-        return fd._smem_bytes(code.N, code.M, code.z, graph.E, g, spec.ucn_enabled)
+        return fd._smem_bytes(code.N, code.M, code.z, graph.E, g, spec.ucn_enabled,
+                              sp=sp)
 
-    G, threads = fd.pick_launch_shape(graph, smem, blocks=2)
+    if not sp:
+        G, threads = fd.pick_launch_shape(graph, smem, blocks=2)
+    elif graph.Dc <= fd._SP_REG_DEG:  # checks of one chunk: SP's bound
+        G, threads = fd.sp_launch_shape(graph, smem, two_blocks_first=not backward)
+    else:  # past one chunk: the pair's bound
+        G, threads = fd.sp_launch_shape(graph, smem, fd._TWO_BLOCK_THREADS,
+                                        fd._TWO_BLOCK_WARPS_PER_SM)
     return G, threads, smem(G)
 
 
@@ -253,7 +267,7 @@ class FusedTrainKernel:
         kept: B4's and B5's (G, threads, shared bytes) and the quantizer's
         grid (raises for a QMS step that is not a power of two)."""
         sp = self.cfg.decoding_type == SP
-        return LaunchPlan(train_launch_shape(self.graph, self.spec, False),
+        return LaunchPlan(train_launch_shape(self.graph, self.spec, False, sp),
                           train_launch_shape(self.graph, self.spec, True, sp),
                           fd.kernel_grid(self.cfg))
 
@@ -341,7 +355,7 @@ class FusedTrainKernel:
             raise ValueError(f"the streams' tiles hold {hist.shape[-1]} words, "
                              f"B5 takes {G}")
         Ez, RMz = self.E * self.z, self.cres_rows * self.M * self.z
-        if self.cfg.decoding_type != SP and (Ez * G % 4 or RMz * G % 4):
+        if Ez * G % 4 or RMz * G % 4:
             raise ValueError(f"{self.graph.code.name}: a staged residual run "
                              f"({Ez} + {RMz} rows of {G} words) is not a "
                              "multiple of 16 bytes")

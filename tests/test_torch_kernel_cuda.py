@@ -24,7 +24,9 @@ the no_grad launch's; B4-SP's last APP bit-equal to B1-SP's (the same loop
 and arithmetic); B5's (and B5-SP's) weight gradients against autograd
 through the plain version within rtol 1e-4 and atol 1e-5 x max|g|, and
 bit-identical over two launches, also for ragged batches (the residual
-streams' last tile padded).
+streams' last tile padded).  The SP cases cover every way B5-SP sums a
+weight gradient and checks of more than one chunk of 16 slots (802.11n,
+BCH_63_51).
 """
 
 import pytest
@@ -44,6 +46,7 @@ WMAN = "wman_N0576_R34_z24"
 G5 = "5G_LDPC_R0.50_n_dec640_n512_k256_z32_s257_320"
 WIFI = "802_11n_N648_R56_z27"
 MACKAY = "MACKAY_N96_K48"
+BCH = "BCH_63_51"
 
 # (code, sharing, decoding_type, neural_mode, target_node)
 CASES = [
@@ -327,6 +330,13 @@ TRAIN_CASES = [
     (WMAN, (2, 2, 2), 0, 3, 1, 0.8, "scale", 0),
     (WMAN, (1, 1, 0), 0, 3, 0, 1.0, "scale", 0),
     (MACKAY, (3, 3, 3), 0, 4, 2, 0.5, "scale", 0),
+    # B5-SP's weight sums (per-VN rows in gv; scalar and per-check sums in
+    # registers) and its checks past one chunk of 16 slots
+    (WMAN, (5, 0, 5), 0, 4, 2, 0.5, "scale", 0),
+    (MACKAY, (3, 0, 3), 0, 4, 2, 0.5, "offset", 0),  # wman's SP messages die under offsets
+    (WIFI, (3, 0, 3), 0, 3, 2, 0.5, "scale", 0),
+    (BCH, (2, 2, 2), 0, 3, 1, 0.8, "scale", 0),
+    (BCH, (1, 1, 0), 0, 3, 2, 0.5, "scale", 0),
 ]
 SP_TRAIN_CASES = [c for c in TRAIN_CASES if c[2] == 0]
 
@@ -419,7 +429,8 @@ def _grads(kern, stacked, llr, loss_type, etha, plain=False):
 
 # ragged batches through the tile-major streams: scalar (register sums),
 # scalar with UCN, per-edge (gw), per-check (per-item sums), and the SP pair
-RAGGED_CASES = [c for i, c in enumerate(TRAIN_CASES) if i in (0, 1, 3, 4, 8)]
+# (scalar, per-check with UCN, per-edge, 802.11n past one chunk)
+RAGGED_CASES = [c for i, c in enumerate(TRAIN_CASES) if i in (0, 1, 3, 4, 8, 9, 10, 14)]
 
 
 @pytest.mark.cuda

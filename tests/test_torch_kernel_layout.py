@@ -32,12 +32,16 @@ from ldpc_error_floor_tpu_torch.ops.fused_decoder import (_CODE_BLOCKS, _CODE_TH
                                                           _EARLY_STOP_BLOCKS, _LUT_INTS,
                                                           _SMEM_LIMIT, _SMEM_PER_SM,
                                                           _SMEM_RESERVED,
+                                                          _SP_REG_DEG,
                                                           _SP_THREADS,
                                                           _SP_WARPS_PER_SM,
+                                                          _TWO_BLOCK_THREADS,
+                                                          _TWO_BLOCK_WARPS_PER_SM,
                                                           FusedNMSKernel, _smem_bytes,
                                                           _table_bytes, code_grid,
                                                           kernel_grid, launch_shape)
-from ldpc_error_floor_tpu_torch.ops.fused_train import FusedTrainKernel, train_launch_shape
+from ldpc_error_floor_tpu_torch.ops.fused_train import (FusedTrainKernel, _smem_bwd,
+                                                        train_launch_shape)
 from ldpc_error_floor_tpu_torch.ops.ste import _GRIDS, quantize_llr
 
 WMAN = "wman_N0576_R34_z24"
@@ -385,6 +389,9 @@ def test_decode_launch_shapes_hold_to_the_kernel_layout(name):
         _cuh_constant("kEarlyStopBlocks"), _cuh_constant("kDeployThreads"),
         _cuh_constant("kDeployBlocks"))
     assert _SP_THREADS == _cuh_constant("kSPThreads")
+    assert _SP_REG_DEG == _cuh_constant("kSPRegDeg")
+    assert (_TWO_BLOCK_THREADS, _TWO_BLOCK_WARPS_PER_SM) == (
+        _cuh_constant("kTwoBlockThreads"), 2 * _cuh_constant("kTwoBlockThreads") // 32)
     # the SP bound's registers (65536 per SM over its threads, in steps of
     # 8) and the warps an SM's four schedulers hold at that count
     assert _SP_WARPS_PER_SM == 4 * (16384 // ((65536 // _SP_THREADS) // 8 * 8 * 32))
@@ -526,3 +533,297 @@ def test_sp_check_update_two_passes_equal_the_per_slot_arrays(deg):
                 got.append(out_of(s if j == 0 else (pre if j == deg - 1 else pre * s)))
                 pre = slots[j] if j == 0 else pre * slots[j]
     assert torch.equal(_bits(torch.stack(got)), _bits(torch.stack(ref)))
+
+
+def _sp_clip_tanh_input() -> np.float32:
+    """A float32 x whose float32 tanh is exactly kSPClip (1 - 2^-23): a
+    product of it and saturated slots (tanh 1.0) hits the product clip."""
+    clip = np.float32(1.0 - 1e-7)
+    for k in range(4000):
+        x = np.float32(8.30 + 1e-5 * k)
+        if torch.tanh(torch.tensor(x)).item() == clip:
+            return x
+    raise AssertionError("no input whose tanh is the SP clip")
+
+
+@pytest.mark.parametrize("deg", [1, 2, 6, 14, 15, 16, 17, 22, 28, 32, 33, 64])
+def test_sp_check_backward_in_chunks_equals_the_per_slot_arrays(deg):
+    """B5-SP's check backward as the kernel forms it (csrc/fused_nms_train.cu
+    `sp_check_bwd`: a reverse pass that replaces each slot's pre-clip message
+    with its raw tanh and accumulates the suffix products a chunk of
+    kSPRegDeg slots at a time in registers, keeping the running product at
+    each earlier chunk's top; a forward pass that forms a later chunk's
+    suffix products again from its top, runs the product clip, atanh and
+    the weighting chain and its gradient, and leaves the last chunk's gF =
+    g_p*B in registers and an earlier chunk's g_p in gc, keeping the prefix
+    product and the running gB at each chunk's bottom; then, chunk by chunk
+    from the last, an earlier chunk's gF and shares formed again, a reverse
+    pass that keeps in each slot's register the running gF above it, and a
+    forward pass that forms the prefix products again and runs the share,
+    tanh's derivative and the clip mask) against the four passes over
+    per-slot arrays it replaced, op for op in float32: every slot's
+    cotangent and per-slot CN-weight gradient bit-equal, under scale and
+    offset weights, for the check degrees of the bundled codes and either
+    side of a chunk's bound, with zero messages, saturated ones and products
+    that hit the product clip exactly."""
+    reg = _cuh_constant("kSPRegDeg")
+    assert deg <= _cuh_constant("kMaxDegSP")
+    f32 = np.float32
+    clip_llr, spclip = f32(20.0), f32(1.0 - 1e-7)
+    rng = np.random.default_rng(100 + deg)
+    R = 2000
+    pre = rng.normal(0.0, 6.0, (R, deg)).astype(np.float32)
+    pre[: R // 8] = 0.0  # zero messages: tanh 0, the product's zero->1 map
+    pre[R // 8: R // 4] *= f32(8.0)  # saturated: clipped messages, tanh +-1
+    x0 = _sp_clip_tanh_input()
+    hit = np.arange(R // 4, R // 3)  # tanh 1.0, and one slot's tanh is the clip:
+    pre[hit] = f32(-40.0)  # the others' products hit it
+    pre[hit, rng.integers(0, deg, hit.size)] = -2.0 * x0
+    pre = torch.from_numpy(pre)
+    gin = torch.from_numpy(rng.normal(0.0, 1.0, (R, deg)).astype(np.float32))
+    w = torch.from_numpy((0.2 + rng.random((R, deg))).astype(np.float32))
+    tt_of = lambda v: torch.where(v == 0.0, torch.ones_like(v), v)
+    hits = 0
+    for offset in (False, True):
+        def chain(F, Bn, n, g_in_c):
+            """slot n's product clip, atanh, weighting chain and its gradient:
+            (g_p, the per-slot weight gradient), as both orders write it"""
+            p = F * Bn
+            pc = torch.clamp(p, -spclip, spclip)
+            out = f32(-2.0) * torch.atanh(pc)
+            mag = out.abs()
+            so = torch.sign(out)
+            r = mag - w[:, n] if offset else mag * w[:, n]
+            g_in = torch.where((r > 0.0) & (r <= clip_llr), g_in_c * so, torch.zeros_like(r))
+            g_mag = g_in if offset else g_in * w[:, n]
+            gwv = -g_in if offset else g_in * mag
+            g_out = g_mag * torch.where(out >= 0.0, 1.0, -1.0)
+            g_pc = g_out * (f32(-2.0) / (1.0 - pc * pc))
+            in_hi = f32(0.5) * ((p < spclip).float() + (p <= spclip).float())
+            in_lo = f32(0.5) * ((p > -spclip).float() + (p >= -spclip).float())
+            return g_pc * in_hi * in_lo, gwv, int((p.abs() == spclip).sum())
+
+        def final(share, gc_n, raw, inside):
+            g_x = (share + gc_n) * f32(-0.5) * (1.0 - raw * raw)
+            return torch.where(inside, g_x, torch.zeros_like(g_x))
+
+        inside = pre.abs() <= clip_llr
+        # the per-slot arrays (four passes), as the kernel's earlier form wrote them
+        ttr, fp, bs = [None] * deg, [None] * deg, [None] * deg
+        a = torch.ones(R)
+        for n in range(deg):
+            ttr[n] = torch.tanh(f32(-0.5) * torch.clamp(pre[:, n], -clip_llr, clip_llr))
+            fp[n] = a
+            a = tt_of(ttr[n]) if n == 0 else a * tt_of(ttr[n])
+        a = torch.ones(R)
+        for n in range(deg - 1, -1, -1):
+            bs[n] = a
+            a = tt_of(ttr[n]) if n == deg - 1 else a * tt_of(ttr[n])
+        gc, gw_ref = gin.clone(), [None] * deg
+        gb = torch.zeros(R)
+        for n in range(deg):
+            g_p, gw_ref[n], h = chain(fp[n], bs[n], n, gc[:, n])
+            hits += h
+            Bn = bs[n]
+            bs[n] = g_p * Bn
+            gbn = g_p * fp[n]
+            share = torch.zeros(R)
+            if n == 0:
+                gb = gbn
+            else:
+                share = gb * Bn
+                gb = gbn + gb * tt_of(ttr[n])
+            gc[:, n] = share
+        gf = torch.zeros(R)
+        for n in range(deg - 1, -1, -1):
+            share = torch.zeros(R)
+            if n == deg - 1:
+                gf = bs[n]
+            else:
+                share = gf * fp[n]
+                gf = bs[n] + gf * tt_of(ttr[n])
+            gc[:, n] = final(share, gc[:, n], ttr[n], inside[:, n])
+        ref_gc, ref_gw = gc, torch.stack(gw_ref, 1)
+
+        # the kernel's passes, a chunk of `reg` slots at a time
+        ts, gc = pre.clone(), gin.clone()  # the staged run, the cotangents
+        gw = torch.zeros(R, deg)
+        C = (deg - 1) // reg
+        bq, top, bot, gbot = [None] * reg, {}, {}, {}
+        acc = torch.ones(R)
+        for cc in range(C, -1, -1):  # A: reverse
+            if cc < C:
+                top[cc] = acc
+            for ii in range(reg - 1, -1, -1):
+                j = cc * reg + ii
+                if j < deg:
+                    v = torch.tanh(f32(-0.5) * torch.clamp(ts[:, j], -clip_llr, clip_llr))
+                    ts[:, j] = v
+                    bq[ii] = acc
+                    acc = tt_of(v) if j == deg - 1 else acc * tt_of(v)
+        a, gb = torch.ones(R), torch.zeros(R)
+        for cc in range(C + 1):  # B: forward
+            if cc > 0:
+                bot[cc], gbot[cc] = a, gb
+                s = top[cc] if cc < C else torch.ones(R)
+                for ii in range(reg - 1, -1, -1):
+                    j = cc * reg + ii
+                    if j < deg:
+                        v = tt_of(ts[:, j])
+                        bq[ii] = s
+                        s = v if j == deg - 1 else s * v
+            for ii in range(reg):
+                j = cc * reg + ii
+                if j < deg:
+                    tv = tt_of(ts[:, j])
+                    F, Bn = a, bq[ii]
+                    a = tv if j == 0 else a * tv
+                    g_p, gw[:, j], _ = chain(F, Bn, j, gc[:, j])
+                    gbn = g_p * F
+                    share = torch.zeros(R)
+                    if j == 0:
+                        gb = gbn
+                    else:
+                        share = gb * Bn
+                        gb = gbn + gb * tv
+                    bq[ii] = g_p * Bn
+                    gc[:, j] = share if cc == C else g_p
+        gf = torch.zeros(R)
+        for cc in range(C, -1, -1):  # C: per chunk, last to first
+            f0 = bot[cc] if cc > 0 else torch.ones(R)
+            if cc < C:  # the chunk's gF and shares again
+                s = top[cc]
+                for ii in range(reg - 1, -1, -1):
+                    j = cc * reg + ii
+                    if j < deg:
+                        v = tt_of(ts[:, j])
+                        bq[ii] = s
+                        s = v if j == deg - 1 else s * v
+                aa, gg = f0, gbot[cc] if cc > 0 else torch.zeros(R)
+                for ii in range(reg):
+                    j = cc * reg + ii
+                    if j < deg:
+                        tv = tt_of(ts[:, j])
+                        F, Bn, g_p = aa, bq[ii], gc[:, j].clone()
+                        aa = tv if j == 0 else aa * tv
+                        gbn = g_p * F
+                        share = torch.zeros(R)
+                        if j == 0:
+                            gg = gbn
+                        else:
+                            share = gg * Bn
+                            gg = gbn + gg * tv
+                        bq[ii] = g_p * Bn
+                        gc[:, j] = share
+            for ii in range(reg - 1, -1, -1):  # the running gF above each slot
+                j = cc * reg + ii
+                if j < deg:
+                    gF = bq[ii]
+                    bq[ii] = gf
+                    gf = gF if j == deg - 1 else gF + gf * tt_of(ts[:, j])
+            aa = f0
+            for ii in range(reg):  # F again, the share gF*F, the derivative
+                j = cc * reg + ii
+                if j < deg:
+                    raw = ts[:, j]
+                    share = torch.zeros(R) if j == deg - 1 else bq[ii] * aa
+                    aa = tt_of(raw) if j == 0 else aa * tt_of(raw)
+                    gc[:, j] = final(share, gc[:, j], raw, inside[:, j])
+        assert torch.equal(_bits(gc), _bits(ref_gc)), offset
+        assert torch.equal(_bits(gw), _bits(ref_gw)), offset
+        assert bool((ref_gc != 0).any()) or deg == 1
+    assert deg == 1 or hits > 0  # the product clip was hit exactly
+
+
+def _cu_functions(src: str) -> dict:
+    """The straight-line C++ of csrc/fused_nms_train.cu's `Cfg::cn_sum`,
+    `vn_sum`, `R` and the `BwdLayout` constructor, as Python source (a
+    conditional `a ? b : c` at most once per statement, `&&`, `||`)."""
+    def expr(e: str) -> str:
+        e = e.replace("&&", " and ").replace("||", " or ")
+        m = re.fullmatch(r"\s*(.+?)\s*\?\s*(.+?)\s*:\s*(.+?)\s*", e)
+        return f"(({m.group(2)}) if ({m.group(1)}) else ({m.group(3)}))" if m else e
+
+    out = {}
+    for name, pat in (("cn_sum", r"int cn_sum\(\) const \{(.*?)\n  \}"),
+                      ("vn_sum", r"int vn_sum\(\) const \{(.*?)\n  \}"),
+                      ("R", r"int R\(bool sp\) const \{(.*?)\n  \}"),
+                      ("layout", r"BwdLayout\(const Cfg& c, bool sp\) \{(.*?)\n  \}")):
+        body = re.search(pat, src, re.S).group(1)
+        lines = []
+        for stmt in (t.strip() for t in body.split(";") if t.strip()):
+            if m := re.fullmatch(r"if \((.+)\) return (.+)", stmt, re.S):
+                lines.append(f"if {expr(m.group(1))}: return {expr(m.group(2))}")
+            elif m := re.fullmatch(r"return (.+)", stmt, re.S):
+                lines.append(f"return {expr(m.group(1))}")
+            elif m := re.fullmatch(r"(?:const )?int (.+)", stmt, re.S):
+                # declarators split at the commas outside parentheses
+                parts, depth, cur = [], 0, ""
+                for ch in m.group(1):
+                    depth += (ch == "(") - (ch == ")")
+                    if ch == "," and depth == 0:
+                        parts, cur = parts + [cur], ""
+                    else:
+                        cur += ch
+                lines += [f"{a.split('=')[0].strip()} = {expr(a.split('=', 1)[1])}"
+                          for a in parts + [cur]]
+            elif m := re.fullmatch(r"(\w+) (\+?=) (.+)", stmt, re.S):
+                lines.append(f"{m.group(1)} {m.group(2)} {expr(m.group(3))}")
+            else:
+                raise AssertionError(f"untranslated statement: {stmt}")
+        out[name] = "\n".join(lines)
+    return out
+
+
+@pytest.mark.parametrize("sp", [False, True])
+def test_bwd_shared_memory_equals_the_kernel_layout(sp):
+    """`_smem_bwd` against csrc/fused_nms_train.cu's `BwdLayout` (translated
+    from the source) for every weight-sum strategy of B5 and B5-SP (no
+    weights, per-slot, per-bit, per-item, in registers), with and without
+    UCN, on codes of odd and even E*z, at every G."""
+    src = (Path(fused_decoder.__file__).parent.parent / "csrc" /
+           "fused_nms_train.cu").read_text()
+    fns = _cu_functions(src)
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+
+    def method(name, cfg):
+        def f(*args):
+            env = {**consts, **vars(cfg), "sp": args[0] if args else None}
+            exec("def _f():\n" + "\n".join("    " + ln for ln in fns[name].splitlines()), env)
+            return env["_f"]()
+        return f
+
+    for name in (WMAN, "802_11n_N648_R56_z27", "MACKAY_N96_K48", "Polar_64_48"):
+        graph = TannerGraph(get_code(name))
+        code = graph.code
+        for sharing in ((3, 3, 3), (3, 0, 3), (2, 2, 2), (1, 1, 0), (5, 0, 5), (4, 4, 0),
+                        (0, 0, 0), (0, 0, 2)):
+            spec = WeightSpec(sharing=sharing, n_iters=2, fixed_iter=1)
+            for G in (1, 2, 4, 8, 16, 32):
+                cfg = type("Cfg", (), {})()
+                cfg.__dict__.update(N=code.N, M=code.M, z=code.z, E=graph.E, G=G,
+                                    dim_cn=spec.dim("cn", graph), dim_vn=spec.dim("vn", graph),
+                                    cn_mode=sharing[0], vn_mode=sharing[2],
+                                    ucn=int(spec.ucn_enabled))
+                for m in ("cn_sum", "vn_sum", "R"):
+                    setattr(cfg, m, method(m, cfg))
+                env = {**consts, "c": cfg, "sp": sp,
+                       "table_bytes": lambda N, M, E: _table_bytes(N, M, E)}
+                exec(fns["layout"], env)
+                assert env["end"] == _smem_bwd(graph, spec, G, sp), (name, sharing, G)
+                assert env["stage"] % 16 == 0  # the bulk copy's destination
+
+
+@pytest.mark.parametrize("name, fwd, bwd", [
+    (WMAN, (8, 384), (8, 768)), ("802_11n_N648_R56_z27", (4, 576), (4, 576)),
+    ("MACKAY_N96_K48", (32, 256), (32, 384))])
+def test_sp_train_launch_shapes_are_the_fastest_measured(name, fwd, bwd):
+    """B4-SP's and B5-SP's launch shapes (G, threads) on each code whose every
+    shape was timed on the H100 (`tools/torch_kernel_ab.py --kernels
+    sp_train_shapes`, the neural BP base block at batch 32768): the fastest
+    of them, or within 1.6% of it, with and without UCN."""
+    graph = TannerGraph(get_code(name))
+    for sharing in ((3, 0, 3), (3, 3, 3)):
+        spec = WeightSpec(sharing=sharing, n_iters=2)
+        assert train_launch_shape(graph, spec, False, sp=True)[:2] == fwd
+        assert train_launch_shape(graph, spec, True, sp=True)[:2] == bwd

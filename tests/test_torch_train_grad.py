@@ -40,13 +40,16 @@ from ldpc_error_floor_tpu_torch.models import (DecoderConfig, NMSDecoder,
 from ldpc_error_floor_tpu_torch.ops.fused_decoder import (_SMEM_LIMIT,
                                                           _SMEM_PER_SM,
                                                           _SMEM_RESERVED,
+                                                          _SP_THREADS,
+                                                          _SP_WARPS_PER_SM,
                                                           _TWO_BLOCK_THREADS,
                                                           _ExtMin,
                                                           _graph_table,
                                                           _smem_bytes,
                                                           check_sp_degree,
                                                           ext_min_bwd,
-                                                          launch_shape)
+                                                          launch_shape,
+                                                          sp_launch_shape)
 from ldpc_error_floor_tpu_torch.ops.fused_train import (FusedTrainKernel,
                                                         _smem_bwd,
                                                         _train_table,
@@ -226,7 +229,11 @@ def test_tie_splitting_backward_is_exact():
 @pytest.mark.parametrize("name", available_codes())
 def test_train_launch_shape_and_table(name):
     """B4's and B5's launch shapes and graph table for every bundled code
-    (the parts of the CUDA path that run on the host)."""
+    (the parts of the CUDA path that run on the host); B4-SP's and B5-SP's
+    shapes, the ones `sp_launch_shape` picks for their memory (B4-SP's the
+    SP decode layout with the lifted slot table) under their launch bounds
+    (the SP decode kernel's where every check fits one chunk of 16 slots,
+    else the pair's), and B5-SP's staged run a multiple of 16 bytes."""
     code = get_code(name)
     graph = TannerGraph(code)
     N, M, z, E = code.N, code.M, code.z, graph.E
@@ -253,13 +260,27 @@ def test_train_launch_shape_and_table(name):
                 assert launch_shape(graph, spec.ucn_enabled)[0] >= G
                 continue
             # B5 stages one residual run, a multiple of 16 bytes, into shared
-            # memory beside the slot cotangents; SP stages none
+            # memory beside the slot cotangents
             R = 4 if spec.ucn_enabled else 3
             assert E * z * G % 4 == 0 and R * M * z * G % 4 == 0
             assert smem == _smem_bwd(graph, spec, G, False)
             assert smem >= 4 * (2 * E * z + R * M * z) * G
-            G_sp, _, smem_sp = train_launch_shape(graph, spec, True, sp=True)
-            assert smem_sp == _smem_bwd(graph, spec, G_sp, True) <= _SMEM_LIMIT
+        for backward in (False, True):
+            G, threads, smem = train_launch_shape(graph, spec, backward, sp=True)
+            smem_of = ((lambda g: _smem_bwd(graph, spec, g, True)) if backward else
+                       (lambda g: _smem_bytes(N, M, z, E, g, spec.ucn_enabled, sp=True)))
+            # checks of one chunk: SP's bound; past it, the pair's
+            wide = graph.Dc > 16
+            top, warps = ((_TWO_BLOCK_THREADS, 2 * _TWO_BLOCK_THREADS // 32) if wide else
+                          (_SP_THREADS, _SP_WARPS_PER_SM))
+            assert (G, threads) == sp_launch_shape(graph, smem_of, top, warps,
+                                                   two_blocks_first=not backward or wide)
+            assert smem == smem_of(G) <= _SMEM_LIMIT
+            assert threads % G == 0 and threads % 32 == 0 and threads <= top
+            if backward:  # the lifted slot table; the staged run: hist and
+                R = 1 if spec.ucn_enabled else 0  # (with UCN) the UCN masks; gc
+                assert E * z * G % 4 == 0 and R * M * z * G % 4 == 0
+                assert smem >= 8 * E * z + 4 * (2 * E * z + R * M * z) * G
     tab = _train_table(graph)
     assert tab.dtype == np.int32 and tab.shape == (4 * E + N + M + 2 + 2 * E,)
     np.testing.assert_array_equal(tab[:-2 * E], _graph_table(graph))
@@ -282,7 +303,7 @@ def test_train_kernel_build_and_window_checks(monkeypatch, tmp_path):
         for dec in (0, 1, 2, 3) for s in (spec, ucn)}
     assert rows == {(0, False): 0, (0, True): 1, (1, False): 3, (1, True): 4,
                     (2, False): 3, (2, True): 4, (3, False): 3, (3, True): 4}
-    check_sp_degree(graph)  # the SP kernels' per-slot arrays hold 64
+    check_sp_degree(graph)  # the SP kernels' 64-bit clip masks hold 64 slots
     with pytest.raises(ValueError, match="check degrees up to 64"):
         check_sp_degree(types.SimpleNamespace(Dc=65, code=code))
     monkeypatch.setattr(fused_decoder, "_BUILD_DIR", tmp_path)
