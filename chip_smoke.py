@@ -55,26 +55,38 @@ exits non-zero:
 4. end to end, each path driven through `FERSimulator.run_point` with the
    launch counts set to 0 just before and read just after (wman_N0576_R34_z24,
    QMS q_bit 5, sharing (3,3,3), 4.0 dB, seed 0, 2^20 frames in batches of
-   65536):
-   - base20, fixed T=20: FER_genie in [1.5e-4, 2.7e-4]; plain min-sum
-     (all-ones weights) at least 2x worse;
+   65536, `inner_steps` K = 8: each host read one replay of a CUDA graph of
+   8 batches; the launch counts are the batches'):
+   - base20, fixed T=20: FER_genie in [1.5e-4, 2.7e-4] and exactly 211 genie
+     errors; plain min-sum (all-ones weights) at least 2x worse, exactly
+     846;
    - base20 with the genie early stop: FER_genie exactly 2.0122528e-4, the
      fixed-T run's;
    - boosted30 (composed from base20 at boundary 20, T=30) with the early
-     stop: genie errors at most 0.8x base20's, and identical without it;
+     stop: genie errors at most 0.8x base20's, exactly 121, and identical
+     without it;
    - base20 with the syndrome stop: FER_last >= base20's FER_genie,
-     FER_undetected <= FER_last, mean iterations in [3.05, 3.35];
+     FER_undetected <= FER_last, mean iterations in [3.05, 3.35] and
+     3.18807 to five decimals;
    - belief propagation (SP, no weights, T=20): FER_genie at most plain
      min-sum's;
    - the deep error-floor anchor: base20 with the early stop at 5.5 dB,
-     seed 0, over 2^25 frames: its genie error count consistent with the
-     JAX package's 32 errors over 22,020,096 frames
-     (benchmarks/runs/boosted_wman_full/DEEP_FLOOR.json, "base", 5.5 dB)
-     under a two-sample conditional binomial test at p >= 0.01;
+     seed 0, over 2^25 frames, at K = 1 and at K = 8: 35 genie errors in
+     both, consistent with the JAX package's 32 errors over 22,020,096
+     frames (benchmarks/runs/boosted_wman_full/DEEP_FLOOR.json, "base",
+     5.5 dB) under a two-sample conditional binomial test at p >= 0.01;
+   - a point in the error floor: the bundled iter50 weights (sharing
+     (3,3,3), T=50) with the early stop at 5.0 dB, seed 0, over 2^27
+     frames at K = 8: its genie count consistent with JAX's 40 over
+     185,466,880 frames (benchmarks/RESULTS.md, the iter50 table) under the
+     same test;
 5. harvest: `run_collection` with base20 and the early stop at 4.2 dB
    collects 256 words into a temporary Uncor file; the fixed-T kernel finds
    every one wrong at every iteration, boosted30 rescues at least 25%, and
-   the file holds as many rows as words were returned;
+   the file holds as many rows as words were returned; then
+   `classify_failures` (analyze-uncor) over those words: with boosted30 its
+   `rescued` equals the count above, with base20 it is 0, one launch of
+   the fixed-T kernel each;
 6. training end to end through `run_training` (launch counts from the run):
    - base block: `base_config_wman` (sharing (3,0,3), T=20, soft FER,
      eta 0) at batch 32768, 20 steps per epoch, 2 epochs, learning rate
@@ -91,7 +103,20 @@ exits non-zero:
      otherwise as the base block; the weight and perf-log files appear, the
      rows moved, and the valid FER_last sum at epoch 2 is at most 5% above
      epoch 0's (plain BP: neural BP gains little over BP on this code);
-7. timing with CUDA events at batch 65536 unless noted: each kernel and its
+7. the host loop: one base20 early-stop batch run eagerly (K = 1, as the
+   port ran every batch before it had the graph) and one replay of the
+   graph of K = 1 and of K = 8 batches, each traced through
+   `utils.profiling.trace` into `build/host_loop/` (and a warm run_point
+   of 2^20 frames of each): the card's time per kernel, the idle gaps
+   between its first and last activity, the host's time to issue the
+   call, the time of a first read (with the capture) and of a second, and
+   the device memory the two reads took at their peak; then run_point
+   frames/s, cold (a new simulator) and warm (the same point again), and
+   the kernel's share of a warm batch for K = 1 eager, K = 1 graph and
+   K = 8 graph on base20 and boosted30 with the early stop, the syndrome
+   stop, BP and the deep anchor (each point's counters equal in all six
+   runs);
+   timing with CUDA events at batch 65536 unless noted: each kernel and its
    plain version, the early stop at 4.0, 5.0 and 5.5 dB against the
    fixed-T kernel on the same LLRs with the distribution of iterations per
    tile of G words (mean, max, share that runs all T), SP at 16384 too,
@@ -138,6 +163,12 @@ FER_DROP = 0.05          # the base block's valid FER_last must fall by this
 PR1_FER_GENIE = 211 / 2 ** 20  # 2.0122528e-4: base20, fixed T, seed 0
 DEEP_SNR, DEEP_FRAMES = 5.5, 2 ** 25  # the deep error-floor anchor
 JAX_DEEP = (32, 22_020_096)  # JAX: base20 genie errors, frames at 5.5 dB
+DEEP_ERRORS = 35             # the port's deep anchor, seed 0
+K_MAIN = 8                   # batches per host read (one CUDA graph replay)
+PLAIN_MS_ERRORS, BOOST_ERRORS = 846, 121  # plain min-sum, boosted30: seed 0
+SYNDROME_MEAN_ITERS = 3.18807  # base20's syndrome stop, seed 0
+ITER50_SNR, ITER50_FRAMES = 5.0, 2 ** 27  # the iter50 weights in the error floor
+JAX_ITER50 = (40, 185_466_880)  # JAX: iter50 genie errors, frames at 5.0 dB
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_SIMPLE_OPS_PER_S = 33.5e12  # 67 TFLOP/s f32 counts an FMA as 2; adds,
 #                                  compares and selects issue at half that
@@ -372,6 +403,48 @@ def deploy_block_iters(iters, G: int, T: int) -> dict:
             "share_all_T": float((blk == T).float().mean())}
 
 
+def trace_summary(trace_path: str, span: str) -> dict:
+    """From a Chrome trace of `utils.profiling.trace`: the card's time per
+    kernel name and in copies and fills (ms), its busy time (the union of
+    its activities), the idle gaps between its first and last activity, and
+    the host's time inside the `annotate`d `span` with the CUDA runtime
+    calls made there (count and ms)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels, other, spans, iv = {}, 0.0, [], []
+    runtime_n, runtime_ms = 0, 0.0
+    for e in events:
+        cat, dur = e.get("cat"), e.get("dur", 0) / 1e3
+        if cat == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0.0) + dur
+        elif cat in ("gpu_memcpy", "gpu_memset"):
+            other += dur
+        elif cat == "user_annotation" and e.get("name") == span:
+            spans.append((e["ts"], e["ts"] + e["dur"]))
+            continue
+        else:
+            continue
+        iv.append((e["ts"], e["ts"] + e["dur"]))
+    for e in events:  # the runtime calls inside the span
+        if e.get("cat") == "cuda_runtime" and any(a <= e["ts"] < b for a, b in spans):
+            runtime_n += 1
+            runtime_ms += e.get("dur", 0) / 1e3
+    iv.sort()
+    busy, end = 0.0, None
+    for a, b in iv:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    span_ms = (iv[-1][1] - iv[0][0]) / 1e3 if iv else 0.0
+    return {"kernel_ms": kernels, "copy_fill_ms": other, "device_busy_ms": busy / 1e3,
+            "device_span_ms": span_ms, "idle_gaps_ms": span_ms - busy / 1e3,
+            "host_issue_ms": sum(b - a for a, b in spans) / 1e3,
+            "runtime_calls": runtime_n, "runtime_ms": runtime_ms}
+
+
 def ptxas_by_instance(log: str, kern_name) -> dict:
     """ptxas' registers, stack frame and spill bytes of each kernel instance
     in a library's build log (`-Xptxas -v`), by kernel name: the decode
@@ -440,7 +513,16 @@ def main() -> int:
     from ldpc_error_floor_tpu_torch.ops.fused_decoder import kernel_name as kern_name
     from ldpc_error_floor_tpu_torch.pipelines import (ExperimentConfig,
                                                       run_collection)
-    from ldpc_error_floor_tpu_torch.sim import FERSimulator
+    from ldpc_error_floor_tpu_torch.sim import FERSimulator, classify_failures
+    from ldpc_error_floor_tpu_torch.utils import annotate, trace
+
+    class EagerFERSimulator(FERSimulator):
+        """The host loop as the port ran it before the CUDA graph: each
+        chunk's steps issued from Python (the timing phase's K = 1 eager)."""
+
+        def _chunk(self, params, generator, sigma):
+            with torch.no_grad():
+                return self._steps(params, generator, sigma)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -789,10 +871,12 @@ def main() -> int:
     dec_sp, ch_sp, llrs_sp = adam_check(0, gen_sp)
 
     # ---- 4. end to end: each path -------------------------------------------------
-    def simulator(spec, cfg, batch=MAIN_B, stop="genie", dec=2):
+    def simulator(spec, cfg, batch=MAIN_B, stop="genie", dec=2, inner_steps=K_MAIN,
+                  cls=None):
         decoder = NMSDecoder(wman, cfg, spec, graph=wman_graph, device=dev)
         channel = AWGNChannel(wman, decoding_type=dec, device=dev)
-        return FERSimulator(decoder, channel, batch=batch, stop=stop)
+        return (cls or FERSimulator)(decoder, channel, batch=batch, stop=stop,
+                                     inner_steps=inner_steps)
 
     def drive(label, sim, params, seed, snr=4.0):
         """One run_point of a path, launch counts zeroed just before."""
@@ -800,7 +884,7 @@ def main() -> int:
         pt = sim.run_point(params, snr, torch.Generator(device=dev).manual_seed(seed),
                            max_frames=MAX_FRAMES, target_frame_errors=None)
         launches = dict(sim.decoder.kernel.launches)
-        emit({"phase": "end_to_end", "path": label, **vars(pt),
+        emit({"phase": "end_to_end", "path": label, **vars(pt), "inner_steps": sim.inner_steps,
               "genie_errors": round(pt.fer_genie * pt.frames) if pt.fer_genie == pt.fer_genie else None,
               "kernel_launches": launches})
         check(pt.frames == MAX_FRAMES, f"{label}: {pt.frames} frames, wanted {MAX_FRAMES}")
@@ -813,10 +897,15 @@ def main() -> int:
     pt, main_launches["fused_nms_stats"] = drive("base20 fixed T=20", sim_fixed, base20, 0)
     check(1.5e-4 <= pt.fer_genie <= 2.7e-4,
           f"base20 FER_genie {pt.fer_genie} outside [1.5e-4, 2.7e-4]")
+    check(pt.fer_genie == PR1_FER_GENIE, f"base20 FER_genie {pt.fer_genie}, wanted "
+                                         f"{PR1_FER_GENIE}")
     pt_ms, _ = drive("all-ones (plain min-sum) fixed T=20", sim_fixed,
                      init_weights(spec20, wman_graph, device=dev), 1)
     check(pt_ms.fer_genie >= 2.0 * pt.fer_genie,
           f"plain min-sum FER {pt_ms.fer_genie} not 2x base20's {pt.fer_genie}")
+    check(round(pt_ms.fer_genie * pt_ms.frames) == PLAIN_MS_ERRORS,
+          f"plain min-sum: {pt_ms.fer_genie * pt_ms.frames} genie errors, wanted "
+          f"{PLAIN_MS_ERRORS}")
 
     pt_es, _ = drive("base20 early stop", simulator(spec20, DecoderConfig(early_stop=True)),
                      base20, 0)
@@ -831,6 +920,8 @@ def main() -> int:
           f"boosted30 FER_genie {pt_b.fer_genie} not <= 0.8x base20's {pt.fer_genie}")
     check(pt_b.fer_genie == pt_bf.fer_genie,
           f"boosted30 FER_genie {pt_b.fer_genie} with early stop, {pt_bf.fer_genie} without")
+    check(round(pt_b.fer_genie * pt_b.frames) == BOOST_ERRORS,
+          f"boosted30: {pt_b.fer_genie * pt_b.frames} genie errors, wanted {BOOST_ERRORS}")
 
     pt_d, main_launches["fused_nms_deploy"] = drive(
         "base20 syndrome stop", simulator(spec20, DecoderConfig(), stop="syndrome"), base20, 0)
@@ -838,6 +929,8 @@ def main() -> int:
           f"syndrome FER_last {pt_d.fer_last} below base20 FER_genie {pt.fer_genie}")
     check(pt_d.fer_undetected <= pt_d.fer_last, "FER_undetected above FER_last")
     check(3.05 <= pt_d.avg_iters <= 3.35, f"mean iterations {pt_d.avg_iters} outside [3.05, 3.35]")
+    check(round(pt_d.avg_iters, 5) == SYNDROME_MEAN_ITERS,
+          f"mean iterations {pt_d.avg_iters}, wanted {SYNDROME_MEAN_ITERS}")
 
     spec_bp = WeightSpec(sharing=(0, 0, 0), n_iters=T_MAIN)
     pt_sp, main_launches["fused_nms_stats_sp"] = drive(
@@ -847,23 +940,41 @@ def main() -> int:
     check(pt_sp.fer_genie <= pt_ms.fer_genie,
           f"SP FER_genie {pt_sp.fer_genie} above plain min-sum's {pt_ms.fer_genie}")
 
-    # the deep error-floor anchor: B2 where the deep runs use it
-    sim_deep = simulator(spec20, DecoderConfig(early_stop=True))
-    sim_deep.decoder.kernel.launches.clear()
-    pt_deep = sim_deep.run_point(base20, DEEP_SNR, torch.Generator(device=dev).manual_seed(0),
-                                 max_frames=DEEP_FRAMES, target_frame_errors=None)
-    deep_launches = dict(sim_deep.decoder.kernel.launches)
-    deep_errors = round(pt_deep.fer_genie * pt_deep.frames)
-    deep_p = binomial_two_sample_p(deep_errors, pt_deep.frames, *JAX_DEEP)
-    emit({"phase": "end_to_end", "path": f"base20 early stop, deep anchor at {DEEP_SNR} dB",
-          **vars(pt_deep), "genie_errors": deep_errors, "jax_genie_errors": JAX_DEEP[0],
-          "jax_frames": JAX_DEEP[1], "two_sample_binomial_p": deep_p,
-          "kernel_launches": deep_launches})
-    check(pt_deep.frames == DEEP_FRAMES, f"deep anchor: {pt_deep.frames} frames")
-    check(deep_launches == {"fused_nms_early_stop": DEEP_FRAMES // MAIN_B},
-          f"deep anchor launches {deep_launches}")
-    check(deep_p >= 0.01, f"deep anchor: {deep_errors} genie errors over {DEEP_FRAMES} "
-                          f"frames against JAX's {JAX_DEEP[0]} over {JAX_DEEP[1]} (p {deep_p})")
+    def floor_point(label, spec, params, snr, frames, jax_ref, inner_steps):
+        """A point deep in the error floor with the early stop (seed 0), its
+        genie count held to the JAX package's under the two-sample binomial
+        test at p >= 0.01; launch counts set to 0 just before."""
+        sim = simulator(spec, DecoderConfig(early_stop=True), inner_steps=inner_steps)
+        sim.decoder.kernel.launches.clear()
+        p = sim.run_point(params, snr, torch.Generator(device=dev).manual_seed(0),
+                          max_frames=frames, target_frame_errors=None)
+        launches = dict(sim.decoder.kernel.launches)
+        errors = round(p.fer_genie * p.frames)
+        pval = binomial_two_sample_p(errors, p.frames, *jax_ref)
+        emit({"phase": "end_to_end", "path": label, **vars(p), "inner_steps": sim.inner_steps,
+              "genie_errors": errors, "jax_genie_errors": jax_ref[0],
+              "jax_frames": jax_ref[1], "two_sample_binomial_p": pval,
+              "kernel_launches": launches})
+        check(p.frames == frames, f"{label}: {p.frames} frames")
+        check(launches == {"fused_nms_early_stop": frames // MAIN_B},
+              f"{label}: launches {launches}")
+        check(pval >= 0.01, f"{label}: {errors} genie errors over {frames} frames against "
+                            f"JAX's {jax_ref[0]} over {jax_ref[1]} (p {pval})")
+        return p, errors
+
+    # the deep error-floor anchor: B2 where the deep runs use it, one batch
+    # per host read and eight
+    for k in (1, K_MAIN):
+        pt_deep, deep_errors = floor_point(
+            f"base20 early stop, deep anchor at {DEEP_SNR} dB, K={k}", spec20, base20,
+            DEEP_SNR, DEEP_FRAMES, JAX_DEEP, k)
+        check(deep_errors == DEEP_ERRORS,
+              f"deep anchor at K={k}: {deep_errors} genie errors, wanted {DEEP_ERRORS}")
+    # a point in the error floor: the published 50-iteration weights
+    spec50 = WeightSpec(sharing=(3, 3, 3), n_iters=50)
+    iter50 = load_params(spec50, wman_graph, f"{WMAN}_iter50", device=dev)
+    pt50, _ = floor_point(f"iter50 early stop at {ITER50_SNR} dB", spec50, iter50,
+                          ITER50_SNR, ITER50_FRAMES, JAX_ITER50, K_MAIN)
 
     # ---- 5. harvest ------------------------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -889,6 +1000,26 @@ def main() -> int:
     check(file_rows == words.shape[0], f"{file_rows} rows on file, {words.shape[0]} returned")
     check(bool(err_h.all()), "a harvested word decodes at some iteration")
     check(rescued >= 0.25 * words.shape[0], f"boosted30 rescued {rescued} of {len(words)}")
+
+    # ---- 5b. analyze-uncor over the harvested words -------------------------------
+    reports = {}
+    for wname, spec, params in (("boosted30", spec30, boosted30), ("base20", spec20, base20)):
+        dec_a = NMSDecoder(wman, DecoderConfig(), spec, graph=wman_graph, device=dev)
+        rep = classify_failures(dec_a, params, words, batch=MAIN_B)
+        reports[wname] = rep
+        emit({"phase": "analyze_uncor", "weights": wname, "words": rep.total_words,
+              "still_failing": rep.still_failing, "rescued": rep.rescued,
+              "top_classes": [[list(ab), n] for ab, n in rep.top_classes[:10]],
+              "most_hit_vns": [int(i) for i in (-rep.vn_hits).argsort()[:10]],
+              "kernel_launches": dict(dec_a.kernel.launches)})
+        check(dec_a.kernel.launches == {"fused_nms_stats": 1},
+              f"analyze-uncor {wname}: launches {dec_a.kernel.launches}")
+        check(rep.total_words == len(words), f"analyze-uncor {wname}: {rep.total_words} words")
+    check(reports["boosted30"].rescued == rescued,
+          f"analyze-uncor: boosted30 rescued {reports['boosted30'].rescued}, the harvest "
+          f"phase {rescued}")
+    check(reports["base20"].rescued == 0,
+          f"analyze-uncor: base20 rescued {reports['base20'].rescued} of its own harvest")
 
     # ---- 6. training end to end ---------------------------------------------------
     import dataclasses
@@ -1081,6 +1212,93 @@ def main() -> int:
     check(launch_shapes["fused_nms_stats_sp"]["resident_blocks_per_sm"] >= 2,
           f"B1-SP: {launch_shapes['fused_nms_stats_sp']} resident blocks per SM")
     smem_traffic = (T_MAIN * MAIN_B * 4 * wman_graph.E * wman.z * 6)  # bytes
+
+    # the host loop: one base20 early-stop batch issued eagerly (K = 1, as
+    # the port ran every batch before the graph) and one replay of K = 8,
+    # each traced after a warm call; then a warm run_point of 2^20 frames of
+    # each, traced too
+    trace_root = os.path.join(REPO, "build", "host_loop")  # ignored by git
+    sigma40 = float(wman.snr_sigmas([4.0])[0])
+    host_loop = {}
+    for label, k, cls in (("K1_eager", 1, EagerFERSimulator), ("K1_graph", 1, None),
+                          (f"K{K_MAIN}_graph", K_MAIN, None)):
+        sim = simulator(spec20, DecoderConfig(early_stop=True), inner_steps=k, cls=cls)
+        g_t = torch.Generator(device=dev).manual_seed(7)
+        first_ms = []
+        torch.cuda.reset_peak_memory_stats()
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        for _ in range(2):  # the first read (with the capture), then a warm one
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sim._chunk(base20, g_t, sigma40)
+            torch.cuda.synchronize()
+            first_ms.append(1e3 * (time.perf_counter() - t0))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 - base_gb
+        tdir = os.path.join(trace_root, f"{label}_one_read")
+        with trace(tdir):
+            with annotate("host_read"):
+                sim._chunk(base20, g_t, sigma40)
+            torch.cuda.synchronize()
+        one = trace_summary(os.path.join(tdir, "trace.json"), "host_read")
+        sim.run_point(base20, 4.0, g_t.manual_seed(0), max_frames=MAIN_B * K_MAIN,
+                      target_frame_errors=None)  # warm: the point's graph
+        rdir = os.path.join(trace_root, f"{label}_run_point")
+        with trace(rdir):
+            with annotate("run_point"):
+                pt_t = sim.run_point(base20, 4.0, g_t.manual_seed(0), max_frames=MAX_FRAMES,
+                                     target_frame_errors=None)
+        whole = trace_summary(os.path.join(rdir, "trace.json"), "run_point")
+        host_loop[label] = {"one_host_read": one, "run_point_2^20": whole,
+                            "run_point_frames_per_sec_traced": pt_t.frames_per_sec,
+                            "first_read_ms": first_ms[0], "second_read_ms": first_ms[1],
+                            "peak_device_gb_above_start": peak_gb,
+                            "batches_per_read": k}
+        check(round(pt_t.fer_genie * pt_t.frames) == round(PR1_FER_GENIE * MAX_FRAMES),
+              f"host loop {label}: {pt_t.fer_genie * pt_t.frames} genie errors")
+        check(sum(one["kernel_ms"].get(kn, 0.0) for kn in one["kernel_ms"]
+                  if "fused_nms_kernel" in kn) > 0.0,
+              f"host loop {label}: no decode kernel in the trace ({list(one['kernel_ms'])})")
+    emit({"phase": "host_loop", "card": smi, "traces": trace_root, **host_loop})
+
+    # run_point frames/s and the kernel's share of a batch, K = 1 eager,
+    # K = 1 graph, K = 8 graph: a point on a new simulator (cold: the graph's
+    # capture and the decoder's first use included), then the same point
+    # again on the same generator (warm)
+    st_bp_params = init_weights(spec_bp, wman_graph, device=dev)
+    host_paths = {  # (spec, config, stop, decoding type, params, SNR, frames, kernel ms)
+        "base20_early_stop": (spec20, DecoderConfig(early_stop=True), "genie", 2, base20, 4.0,
+                              MAX_FRAMES, timing["early_stop20_ms_4.0dB"]),
+        "boosted30_early_stop": (spec30, DecoderConfig(early_stop=True), "genie", 2, boosted30,
+                                 4.0, MAX_FRAMES, timing["early_stop30_ms"]),
+        "base20_syndrome": (spec20, DecoderConfig(), "syndrome", 2, base20, 4.0, MAX_FRAMES,
+                            timing["deploy20_ms"]),
+        "bp_sp": (spec_bp, DecoderConfig(decoding_type=0), "genie", 0, st_bp_params, 4.0,
+                  MAX_FRAMES, timing[f"sp20_ms_B{MAIN_B}"]),
+        "deep_anchor_5.5dB": (spec20, DecoderConfig(early_stop=True), "genie", 2, base20,
+                              DEEP_SNR, DEEP_FRAMES, timing[f"early_stop20_ms_{DEEP_SNR}dB"]),
+    }
+    host_rows = {}
+    for pname, (spec, cfg, stop, dt, params, snr, frames, kern_ms) in host_paths.items():
+        row, outcomes = {"kernel_ms": kern_ms}, set()
+        for label, k, cls in (("K1_eager", 1, EagerFERSimulator), ("K1_graph", 1, None),
+                              (f"K{K_MAIN}_graph", K_MAIN, None)):
+            sim = simulator(spec, cfg, stop=stop, dec=dt, inner_steps=k, cls=cls)
+            g_t = torch.Generator(device=dev)
+            cold, p = (sim.run_point(params, snr, g_t.manual_seed(0), max_frames=frames,
+                                     target_frame_errors=None) for _ in range(2))
+            ms_batch = 1e3 * MAIN_B / p.frames_per_sec
+            row[label] = {"frames_per_sec": p.frames_per_sec, "ms_per_batch": ms_batch,
+                          "kernel_share": kern_ms / ms_batch,
+                          "frames_per_sec_cold": cold.frames_per_sec}
+            for q in (cold, p):
+                outcomes.add(tuple(None if v != v else v for k_, v in vars(q).items()
+                                   if k_ not in ("seconds", "frames_per_sec")))
+        host_rows[pname] = row
+        check(len(outcomes) == 1, f"{pname}: the counters differ between K = 1 eager, "
+                                  f"K = 1 graph and K = {K_MAIN} graph, cold or warm: "
+                                  f"{outcomes}")
+    timing["run_point_host_loop"] = host_rows
+    timing["iter50_frames_per_sec"] = pt50.frames_per_sec
     emit({"phase": "timing", "card": smi, **timing,
           "run_point_frames_per_sec": {"base20_fixed": pt.frames_per_sec,
                                        "base20_early_stop": pt_es.frames_per_sec,

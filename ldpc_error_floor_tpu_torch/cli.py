@@ -16,10 +16,14 @@
     python -m ldpc_error_floor_tpu_torch.cli evaluate --config base.json \
         --weights Weights/C0_wman_N0576_R34_z24_Opt_Weight_End20.txt
     python -m ldpc_error_floor_tpu_torch.cli weights
+    python -m ldpc_error_floor_tpu_torch.cli convert-weights --src w.txt --out w.json
+    python -m ldpc_error_floor_tpu_torch.cli analyze-uncor --uncor Uncor.txt \
+        --code wman_N0576_R34_z24 --weights wman_N0576_R34_z24_boosted30 --iters 30
 
-`simulate`, `collect` and `evaluate` print one JSON line per SNR (or split).
-`train` writes the weight files and the perf log under the config's
-`out_dir`.  They run on the card unless ``--device cpu`` is given.
+`simulate`, `collect` and `evaluate` print one JSON line per SNR (or split);
+`analyze-uncor` prints the JAX package's report text.  `train` writes the
+weight files and the perf log under the config's `out_dir`.  They run on
+the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -45,6 +49,48 @@ def _cmd_weights(args) -> int:
         sharing, blocks = read_weight_json(name)
         rows = next(len(v) for v in blocks.values() if v is not None)
         print(f"{name}: sharing {sharing}, {rows} iterations")
+    return 0
+
+
+def _cmd_convert_weights(args) -> int:
+    """Convert between the reference text format and the JSON format (both
+    directions, by file extension)."""
+    from ldpc_error_floor_tpu_torch.io.weight_files import (read_weight_file,
+                                                            read_weight_json,
+                                                            write_weight_file,
+                                                            write_weight_json)
+    if args.src.endswith(".json"):
+        sharing, blocks = read_weight_json(args.src)
+    else:
+        sharing, blocks = read_weight_file(args.src)
+    if args.out.endswith(".json"):
+        write_weight_json(args.out, sharing, blocks)
+    else:
+        write_weight_file(args.out, sharing, blocks)
+    print(f"converted {args.src} -> {args.out} (sharing {sharing})")
+    return 0
+
+
+def _cmd_analyze_uncor(args) -> int:
+    """Trapping-set classification of a harvested Uncor dataset: decode it
+    with the given weights and report the (a, b) failure classes and the
+    most-hit variable nodes (`sim/analysis.py`)."""
+    from ldpc_error_floor_tpu_torch.codes import TannerGraph, get_code
+    from ldpc_error_floor_tpu_torch.io.uncor_files import read_uncor_file
+    from ldpc_error_floor_tpu_torch.models import (DecoderConfig, NMSDecoder,
+                                                   WeightSpec, load_params)
+    from ldpc_error_floor_tpu_torch.sim import classify_failures
+
+    code = get_code(args.code)
+    graph = TannerGraph(code)
+    spec = WeightSpec(sharing=tuple(args.sharing), n_iters=args.iters)
+    dec = NMSDecoder(code, DecoderConfig(decoding_type=args.decoding_type,
+                                         q_bit=args.q_bit), spec, graph=graph,
+                     device=args.device)
+    params = load_params(spec, graph, args.weights, device=args.device)
+    rows = read_uncor_file(args.uncor, max_rows=args.max_rows or None)
+    rep = classify_failures(dec, params, rows, batch=args.batch)
+    print(rep.summary(args.top))
     return 0
 
 
@@ -193,7 +239,7 @@ def _cmd_simulate(args) -> int:
     ch = AWGNChannel(code, decoding_type=args.decoding_type, q_bit=args.q_bit,
                      device=args.device)
     sim = FERSimulator(dec, ch, batch=args.batch, stop=args.stop,
-                       codewords=args.codewords)
+                       codewords=args.codewords, inner_steps=args.inner_steps)
     gen = torch.Generator(device=dec.device).manual_seed(args.seed)
     points = sim.run_curve(params, args.snrs, gen,
                            max_frames=args.max_frames,
@@ -214,6 +260,11 @@ def main(argv=None) -> int:
         sp.add_argument("--device", default="cuda",
                         help="torch device (default: cuda; cpu runs the "
                              "plain PyTorch versions)")
+
+    pw = sub.add_parser("convert-weights",
+                        help="convert weight files text<->json by extension")
+    pw.add_argument("--src", required=True)
+    pw.add_argument("--out", required=True)
 
     pc = sub.add_parser("init-config", help="write a template config")
     pc.add_argument("--out", default="config.json")
@@ -249,6 +300,22 @@ def main(argv=None) -> int:
     pe.add_argument("--frames", type=int, default=10000,
                     help="frames per SNR for fresh-noise evaluation")
     device_arg(pe)
+
+    pa = sub.add_parser("analyze-uncor",
+                        help="trapping-set (a,b) classification of a "
+                             "harvested Uncor dataset")
+    pa.add_argument("--uncor", required=True)
+    pa.add_argument("--code", required=True)
+    pa.add_argument("--weights", required=True)
+    pa.add_argument("--sharing", type=int, nargs=3, default=[3, 3, 3])
+    pa.add_argument("--iters", type=int, default=20)
+    pa.add_argument("--decoding-type", type=int, default=2,
+                    dest="decoding_type")
+    pa.add_argument("--q-bit", type=int, default=5, dest="q_bit")
+    pa.add_argument("--batch", type=int, default=1024)
+    pa.add_argument("--max-rows", type=int, default=0, dest="max_rows")
+    pa.add_argument("--top", type=int, default=10)
+    device_arg(pa)
 
     ps = sub.add_parser("split-uncor", help="split Uncor.txt into datasets")
     ps.add_argument("--uncor", required=True)
@@ -287,6 +354,9 @@ def main(argv=None) -> int:
                     dest="max_frames")
     pm.add_argument("--target-errors", type=int, default=100,
                     dest="target_errors")
+    pm.add_argument("--inner-steps", type=int, default=1, dest="inner_steps",
+                    help="batches per host read, run as one CUDA graph "
+                         "replay on the card")
     pm.add_argument("--codewords", choices=["zero", "random"], default="zero",
                     help="random: encode fresh random messages per batch "
                          "instead of the all-zero word")
@@ -305,6 +375,8 @@ def main(argv=None) -> int:
 
     args = p.parse_args(argv)
     return {"codes": _cmd_codes, "weights": _cmd_weights,
+            "convert-weights": _cmd_convert_weights,
+            "analyze-uncor": _cmd_analyze_uncor,
             "init-config": _cmd_init_config, "train": _cmd_train,
             "evaluate": _cmd_evaluate, "collect": _cmd_collect,
             "split-uncor": _cmd_split_uncor,

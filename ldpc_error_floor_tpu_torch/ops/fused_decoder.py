@@ -640,7 +640,10 @@ class FusedNMSKernel:
     """The fused decode for one (graph, config, spec).
 
     `launches` counts the CUDA kernel launches made by this wrapper, by
-    kernel name (`kernel_name`).  Under QMS the kernel keeps its state in
+    kernel name (`kernel_name`).  A launch made while the current stream is
+    captured into a CUDA graph runs only when the graph is replayed: it
+    counts in `captured`, and the graph's owner adds it to `launches` at
+    each replay (`sim/fer.py`).  Under QMS the kernel keeps its state in
     codes (`code_grid`).
     """
 
@@ -653,6 +656,7 @@ class FusedNMSKernel:
         self.T = spec.n_iters
         self.target = cfg.target_node if cfg.target_node > 0 else self.N
         self.launches: collections.Counter = collections.Counter()
+        self.captured: collections.Counter = collections.Counter()
         self._plain_tables: Dict[torch.device, PlainTables] = {}
         self._graph_tabs: Dict[torch.device, torch.Tensor] = {}
         self.code = cfg.decoding_type == QMS  # the code-domain state
@@ -724,6 +728,18 @@ class FusedNMSKernel:
         return decode_deploy_plain(self.graph, self._tables(llr.device),
                                    self.cfg, self.spec, stacked, llr)
 
+    def graph_table(self, device) -> torch.Tensor:
+        """The kernel's graph table (`_graph_table`) on `device`, copied
+        there once."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        tab = self._graph_tabs.get(device)
+        if tab is None:
+            tab = self._graph_tabs[device] = torch.as_tensor(
+                _graph_table(self.graph), device=device)
+        return tab
+
     def _weights(self, stacked: Stacked, kind: str, device) -> Tuple[Optional[torch.Tensor], int]:
         w = stacked[kind] if self.spec.mode(kind) else None
         return w, check_weights(self.graph, self.spec, kind, w, device)
@@ -742,10 +758,7 @@ class FusedNMSKernel:
         w_cn, dim_cn = self._weights(stacked, "cn", dev)
         w_vn, dim_vn = self._weights(stacked, "vn", dev)
         w_ucn = self._weights(stacked, "ucn", dev)[0] if spec.ucn_enabled else None
-        tab = self._graph_tabs.get(dev)
-        if tab is None:
-            tab = self._graph_tabs[dev] = torch.as_tensor(
-                _graph_table(self.graph), device=dev)
+        tab = self.graph_table(dev)
         deploy = mode == DEPLOY
         rows = () if deploy else (self.T,)
         app = torch.empty((Nz, B), dtype=torch.float32, device=dev)
@@ -778,5 +791,8 @@ class FusedNMSKernel:
         if rc != 0:
             raise RuntimeError(f"fused_nms_launch ({kernel_name(mode, sp)}) "
                                f"failed: CUDA error {rc}")
-        self.launches[kernel_name(mode, sp)] += 1
+        if torch.cuda.is_current_stream_capturing():
+            self.captured[kernel_name(mode, sp)] += 1
+        else:
+            self.launches[kernel_name(mode, sp)] += 1
         return outs

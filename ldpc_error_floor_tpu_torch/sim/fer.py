@@ -14,28 +14,34 @@ iterations.  ``codewords='random'`` transmits fresh encoded random messages
 and decodes the sign-folded LLRs against the zero word.
 
 Each step samples a batch on the device, decodes it and reduces it to a
-few counters there; the host reads those integers per batch.  One step is
-kept in flight: step k+1 is enqueued before the host waits for step k's
-counters, which are copied to pinned memory behind an event, so the card
-never idles on the host's read.  `run_point(ckpt_path=...)` keeps an atomic
-JSON checkpoint of the counters and the generator state, so a killed point
-resumes where it was counted.
+few counters there.  `inner_steps` = K steps make one chunk, whose counters
+are summed on the device; the host reads them once per chunk (JAX runs the
+K steps under one `lax.scan` in one jitted dispatch).  On the card a chunk
+is one replay of a CUDA graph that holds the K steps, captured once for
+each parameter set, generator, SNR and configuration (`_GraphedChunk`); on
+the CPU the K steps run in a loop.  One chunk is kept in flight: chunk k+1
+is enqueued before the host waits for chunk k's counters, which are copied
+to pinned memory behind an event, so the card never idles on the host's
+read.  `run_point(ckpt_path=...)` keeps an atomic JSON checkpoint of the
+counters and the generator state, so a killed point resumes where it was
+counted.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ldpc_error_floor_tpu_torch.channel.awgn import AWGNChannel
 from ldpc_error_floor_tpu_torch.models.nms import NMSDecoder
-from ldpc_error_floor_tpu_torch.models.weights import Params
+from ldpc_error_floor_tpu_torch.models.weights import KINDS, Params, stack_weights
 
 _COUNTERS = ("frames", "bit_errors_last", "frame_errors_last",
              "frame_errors_genie", "frame_errors_undetected", "iters_sum")
@@ -129,12 +135,38 @@ class _Pending:
         return self._host.tolist()
 
 
+class _GraphedChunk:
+    """One chunk of K steps captured as a CUDA graph, with what it was
+    captured for: the parameter tensors and the generator (by identity,
+    kept alive here so an identity is never reused), sigma and the
+    simulator's configuration.  Its `launches` are the kernel launches the
+    capture recorded, which every replay makes once."""
+
+    def __init__(self, key: tuple, params: Params, generator: torch.Generator,
+                 graph: "torch.cuda.CUDAGraph", out: torch.Tensor,
+                 launches: collections.Counter):
+        self.key, self.params, self.generator = key, params, generator
+        self.graph, self.out, self.launches = graph, out, launches
+
+    def fits(self, key: tuple, params: Params, generator: torch.Generator) -> bool:
+        return (self.key == key and self.generator is generator
+                and all(self.params.get(k) is params.get(k) for k in KINDS))
+
+
 class FERSimulator:
-    """Fused sample+decode+count Monte-Carlo engine for one (decoder, channel)."""
+    """Fused sample+decode+count Monte-Carlo engine for one (decoder, channel).
+
+    `inner_steps` = K batches make one chunk, counted on the device and read
+    by the host once (`run_point`).  As in the JAX package, K is clamped to
+    ``max(1, (2**31 - 1) // (batch * nbits))`` (nbits: the bits counted per
+    word), JAX's int32 headroom for the bit-error counter.  The port counts
+    in int64 and needs no such bound, but keeps the clamp: it sets how many
+    frames one chunk holds, and that decides where `max_frames` stops a
+    point, so both packages stop a point at the same frame count."""
 
     def __init__(self, decoder: NMSDecoder, channel: AWGNChannel,
                  batch: int = 1024, stop: str = "genie",
-                 codewords: str = "zero"):
+                 codewords: str = "zero", inner_steps: int = 1):
         if decoder.device.type != channel.device.type:
             raise ValueError(f"decoder on {decoder.device}, channel on "
                              f"{channel.device}")
@@ -151,6 +183,12 @@ class FERSimulator:
         if codewords == "random":
             from ldpc_error_floor_tpu_torch.codes.encoder import Encoder
             self._encoder = Encoder(decoder.graph, device=self.device)
+        if inner_steps < 1:
+            raise ValueError("inner_steps must be >= 1")
+        nbits = decoder.target * decoder.z
+        self.inner_steps = min(inner_steps,
+                               max(1, (2 ** 31 - 1) // max(batch * nbits, 1)))
+        self._graphed: Optional[_GraphedChunk] = None
 
     def _sample(self, generator: torch.Generator, sigma: float) -> torch.Tensor:
         sig = torch.full((self.batch,), sigma, dtype=torch.float32,
@@ -182,6 +220,68 @@ class FERSimulator:
                             res.err_flags[-1].sum(dtype=torch.int64),
                             res.uncor_mask.sum(dtype=torch.int64)])
 
+    def _steps(self, params: Params, generator: torch.Generator,
+               sigma: float) -> torch.Tensor:
+        """K steps of `_local_step`, their counters summed on the device."""
+        acc = self._local_step(params, generator, sigma)
+        for _ in range(self.inner_steps - 1):
+            acc = acc + self._local_step(params, generator, sigma)
+        return acc
+
+    def _chunk(self, params: Params, generator: torch.Generator,
+               sigma: float) -> torch.Tensor:
+        """One chunk's counters on the device: on the card one replay of
+        the CUDA graph of `_steps`, on the CPU `_steps` itself."""
+        with torch.no_grad():
+            if self.device.type == "cpu":
+                return self._steps(params, generator, sigma)
+            key = (float(sigma), self.batch, self.inner_steps, self.stop,
+                   self.codewords)
+            g = self._graphed
+            if g is None or not g.fits(key, params, generator):
+                self._graphed = None  # free the stale graph's memory first
+                g = self._graphed = self._capture(key, params, generator, sigma)
+            g.graph.replay()
+            self.decoder.kernel.launches.update(g.launches)
+            return g.out
+
+    def _capture(self, key: tuple, params: Params, generator: torch.Generator,
+                 sigma: float) -> _GraphedChunk:
+        """Capture `_steps` as a CUDA graph that draws from `generator`.
+
+        Nothing runs while a graph is captured: a replay draws from the
+        generator's state at the replay, exactly the numbers K eager steps
+        would, and leaves the generator where they would.  Whatever a step
+        first copies from the host (the weights' row index, the kernel's
+        graph table, the encoder's first product) is made before the
+        capture, which allows no host copy; the capture itself must not
+        synchronise, and raises if a step does."""
+        kernel = self.decoder.kernel
+        stack_weights(self.decoder.spec, params)
+        kernel.graph_table(self.device)
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        if self.codewords == "random":
+            with torch.cuda.stream(stream):
+                self._encoder.encode(torch.zeros((self._encoder.k, 1),
+                                                 device=self.device))
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(generator)
+        kernel.captured.clear()
+        # capture_begin/capture_end, not the `torch.cuda.graph` context: it
+        # also synchronises, collects garbage and empties the allocator's
+        # cache, which a point's first host read would wait for
+        with torch.cuda.stream(stream):
+            graph.capture_begin()
+            try:
+                out = self._steps(params, generator, sigma)
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        launches = collections.Counter(kernel.captured)
+        kernel.captured.clear()
+        return _GraphedChunk(key, dict(params), generator, graph, out, launches)
+
     @staticmethod
     def _ckpt_obj(snr_db: float, c: SimCounters, state: List[int],
                   done: bool = False) -> dict:
@@ -193,19 +293,21 @@ class FERSimulator:
                   max_frames: int = 10_000_000,
                   target_frame_errors: Optional[int] = 100,
                   min_frames: int = 0,
+                  progress: Optional[Callable[[SimCounters], None]] = None,
                   ckpt_path: Optional[str] = None,
                   ckpt_every_s: float = 60.0) -> FERPoint:
         """Simulate one SNR point until `target_frame_errors` frame errors
         (genie errors, or errors at the stop under ``stop='syndrome'``)
         once at least `min_frames` frames are counted, or `max_frames`
         frames.  `max_frames` is a strict bound: the point runs whole
-        batches and never counts more than `max_frames` frames (a
-        `max_frames` below one batch is an error).
+        chunks of ``batch * inner_steps`` frames and never counts more than
+        `max_frames` frames (a `max_frames` below one chunk is an error).
+        `progress(counters)` is called after every 50th host read.
 
         `ckpt_path`: JSON checkpoint of the counters and the generator state
-        that regenerates every batch not yet counted, written atomically at
+        that regenerates every chunk not yet counted, written atomically at
         most every `ckpt_every_s` seconds.  Re-running with the same path
-        resumes exactly: the batch in flight at a crash is simulated again,
+        resumes exactly: the chunk in flight at a crash is simulated again,
         so every frame counts once.  A finished point's record is marked
         ``"done"``; re-running the same command then returns its counters
         without new work, since the stop rules are checked against the
@@ -218,10 +320,12 @@ class FERSimulator:
                 setattr(c, f, int(resumed.get(f, 0)))
             set_generator_state(generator, resumed["generator_state"])
         frames0 = c.frames
-        if max_frames < self.batch and c.frames == 0:
-            raise ValueError(f"max_frames {max_frames} below one batch "
-                             f"({self.batch}); raise max_frames or shrink "
-                             "the batch")
+        frames_per_step = self.batch * self.inner_steps
+        if max_frames < frames_per_step and c.frames == 0:
+            raise ValueError(
+                f"max_frames {max_frames} below one simulation chunk "
+                f"(batch {self.batch} * inner_steps {self.inner_steps}); "
+                "raise max_frames or shrink the batch")
         syndrome = self.stop == "syndrome"
 
         def target_met() -> bool:
@@ -233,21 +337,25 @@ class FERSimulator:
         t0 = time.perf_counter()
         t_ckpt = t0
         pending = None
-        # the generator state that regenerates every batch not yet counted
+        reads = 0
+        # the generator state that regenerates every chunk not yet counted
         state_unacc = generator_state(generator) if ckpt_path else None
-        if c.frames + self.batch <= max_frames and not target_met():
-            pending = _Pending(self._local_step(params, generator, sigma))
+        if c.frames + frames_per_step <= max_frames and not target_met():
+            pending = _Pending(self._chunk(params, generator, sigma))
         while pending is not None:
             nxt = None
             state_next = generator_state(generator) if ckpt_path else None
-            if c.frames + 2 * self.batch <= max_frames:
-                nxt = _Pending(self._local_step(params, generator, sigma))
+            if c.frames + 2 * frames_per_step <= max_frames:
+                nxt = _Pending(self._chunk(params, generator, sigma))
             if syndrome:
-                c.add_deploy(self.batch, *pending.get())
+                c.add_deploy(frames_per_step, *pending.get())
             else:
-                c.add(self.batch, *pending.get())
+                c.add(frames_per_step, *pending.get())
             pending = nxt
             state_unacc = state_next
+            reads += 1
+            if progress is not None and reads % 50 == 0:
+                progress(c)
             now = time.perf_counter()
             if ckpt_path and now - t_ckpt >= ckpt_every_s:
                 t_ckpt = now
@@ -279,7 +387,8 @@ class FERSimulator:
         """One `run_point` per SNR, each on a generator of its own seeded
         from `generator` (one draw per point, whether or not the point
         resumes), so a resumed curve repeats an uninterrupted one.
-        `ckpt_prefix`: per-SNR resume files ``{prefix}_snr{s}.json``."""
+        `ckpt_prefix`: per-SNR resume files ``{prefix}_snr{s}.json``; `kw`
+        (`max_frames`, `progress`, ...) goes to each `run_point`."""
         out = []
         for s in snrs_db:
             seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,

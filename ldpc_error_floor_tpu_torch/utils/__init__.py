@@ -1,8 +1,11 @@
-"""Device selection shared by the port's entry points."""
+"""Device selection shared by the port's entry points, and the tracing
+helpers (`utils/profiling.py`)."""
 
 from __future__ import annotations
 
 import torch
+
+from ldpc_error_floor_tpu_torch.utils.profiling import Timer, annotate, trace
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -19,3 +22,6 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(dev)!r}")
     return dev
+
+
+__all__ = ["resolve_device", "trace", "annotate", "Timer"]

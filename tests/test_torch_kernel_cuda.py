@@ -26,7 +26,12 @@ through the plain version within rtol 1e-4 and atol 1e-5 x max|g|, and
 bit-identical over two launches, also for ragged batches (the residual
 streams' last tile padded).  The SP cases cover every way B5-SP sums a
 weight gradient and checks of more than one chunk of 16 slots (802.11n,
-BCH_63_51).
+BCH_63_51).  The host loop's CUDA graph (`sim/fer.py`): a replay of K
+steps counts exactly what K eager steps count from the same generator
+state and leaves the generator where they leave it, on the fixed-T, early
+stop, syndrome stop, SP and random-codeword paths; neither the steps nor a
+replay synchronise with the host; a new sigma, parameter set or generator
+captures a new graph.
 """
 
 import pytest
@@ -475,3 +480,111 @@ def test_sp_train_last_app_equals_b1_sp_on_card(case):
     torch.cuda.synchronize()
     assert kern.launches == {"fused_nms_train_fwd_sp": 1}
     assert torch.equal(apps[-1], app)
+
+
+# The host loop's CUDA graph (`sim/fer.py`): (path, sharing, decoding type,
+# early stop, stop mode, codewords, SNR dB) on wman at T = 6, B = 1000
+GRAPH_PATHS = [
+    ("fixed", (3, 3, 3), 2, False, "genie", "zero", 3.0),
+    ("early_stop", (3, 3, 3), 2, True, "genie", "zero", 3.0),
+    ("syndrome", (3, 3, 3), 2, False, "syndrome", "zero", 3.0),
+    ("sp", (3, 0, 3), 0, False, "genie", "zero", 3.0),
+    ("fixed_random_words", (3, 3, 3), 2, False, "genie", "random", 3.0),
+]
+
+
+def _graph_sim(dev, path, K, B=1000):
+    from ldpc_error_floor_tpu_torch.models import NMSDecoder, init_weights
+    from ldpc_error_floor_tpu_torch.sim import FERSimulator
+    _, sharing, dec, early_stop, stop, words, snr = path
+    code = get_code(WMAN)
+    graph = TannerGraph(code)
+    spec = WeightSpec(sharing=sharing, n_iters=6)
+    decoder = NMSDecoder(code, DecoderConfig(decoding_type=dec, early_stop=early_stop),
+                         spec, graph=graph, device=dev)
+    params = init_weights(spec, graph, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    params = {k: None if v is None else
+              0.7 + 0.6 * torch.rand(v.shape, generator=gen, device=dev)
+              for k, v in params.items()}
+    sim = FERSimulator(decoder, AWGNChannel(code, decoding_type=dec, device=dev),
+                       batch=B, stop=stop, codewords=words, inner_steps=K)
+    return sim, params, float(code.snr_sigmas([snr])[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("path", GRAPH_PATHS, ids=lambda p: p[0])
+def test_graph_replay_equals_eager_steps_on_card(path, K):
+    """One replay of the captured K steps counts what K eager steps count
+    from the same generator state, leaves the generator where they leave
+    it, and counts its K launches once per replay (none at the capture)."""
+    dev = _cuda()
+    sim, params, sigma = _graph_sim(dev, path, K)
+    kern = sim.decoder.kernel
+    gen = torch.Generator(device=dev).manual_seed(5)
+    s0 = gen.get_state()
+    graphed = [sim._chunk(params, gen, sigma).clone() for _ in range(2)]
+    s_graph = gen.get_state()
+    launches = dict(kern.launches)
+    gen.set_state(s0)
+    with torch.no_grad():
+        eager = [sim._steps(params, gen, sigma) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert [g.tolist() for g in graphed] == [e.tolist() for e in eager]
+    assert graphed[0].tolist() != graphed[1].tolist()  # two chunks, two draws
+    assert torch.equal(gen.get_state(), s_graph)
+    assert sum(launches.values()) == 2 * K and len(launches) == 1
+    assert sum(kern.launches.values()) == 4 * K and not kern.captured
+
+
+@pytest.mark.cuda
+def test_k_step_call_does_not_synchronise_on_card():
+    """The steps and a replay enqueue work without waiting for the card."""
+    dev = _cuda()
+    sim, params, sigma = _graph_sim(dev, GRAPH_PATHS[1], 4)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sim._chunk(params, gen, sigma)  # the capture
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sim._chunk(params, gen, sigma)
+        with torch.no_grad():
+            sim._steps(params, gen, sigma)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_changed_sigma_or_params_capture_a_new_graph_on_card():
+    dev = _cuda()
+    sim, params, sigma = _graph_sim(dev, GRAPH_PATHS[0], 2)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sim._chunk(params, gen, sigma)
+    first = sim._graphed
+    sim._chunk(params, gen, sigma)
+    assert sim._graphed is first
+    for args in ((params, gen, sigma * 1.25),
+                 ({k: None if v is None else v.clone() for k, v in params.items()},
+                  gen, sigma),
+                 (params, torch.Generator(device=dev).manual_seed(5), sigma)):
+        before = sim._graphed
+        sim._chunk(*args)
+        assert sim._graphed is not before and sim._graphed.fits(
+            sim._graphed.key, args[0], args[1])
+    # a replay reads the parameters' current values: an in-place change
+    # shows without a new capture
+    s = gen.get_state()
+    a = sim._chunk(params, gen, sigma).clone()
+    g = sim._graphed
+    for v in params.values():
+        if v is not None:
+            v.mul_(0.5)
+    gen.set_state(s)
+    b = sim._chunk(params, gen, sigma).clone()
+    with torch.no_grad():
+        gen.set_state(s)
+        c = sim._steps(params, gen, sigma)
+    assert sim._graphed is g
+    assert b.tolist() == c.tolist() and a.tolist() != b.tolist()

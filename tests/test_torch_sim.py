@@ -103,7 +103,7 @@ def test_run_point_stop_rules():
     pt = sim.run_point(params, 3.0, gen, max_frames=400, target_frame_errors=5,
                        min_frames=20)
     assert pt.frames == 20
-    with pytest.raises(ValueError, match="below one batch"):
+    with pytest.raises(ValueError, match="below one simulation chunk"):
         sim.run_point(params, 3.0, gen, max_frames=3)
 
 

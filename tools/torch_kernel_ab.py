@@ -37,7 +37,9 @@ process; it builds that tree's kernels, makes the inputs from fixed seeds
   early-stop, boosted30 early-stop, base20 syndrome-stop and BP fixed-T
   paths (4.0 dB, 2^20 frames, seed 0); and the deep anchor: base20 with
   the early stop at 5.5 dB over 2^25 frames, seed 0, its genie error count
-  and frames/s;
+  and frames/s; each point twice on one generator, cold (a new simulator:
+  the decoder's first use and, where the tree has one, the host loop's
+  CUDA graph capture) and warm (``frames_per_sec``);
 - sp_wide: B1-SP (batch 65536, 4.0 dB) on the bundled codes other than
   wman (`SP_CODES`), and B4-SP and B5-SP (the neural BP base block, batch
   32768) on those whose checks pass SP's chunk of 16 slots (802.11n, check
@@ -350,8 +352,11 @@ def decode_runs(out: dict, gen) -> None:
                              spec, graph=graph, device=dev)
         sim = FERSimulator(decoder, AWGNChannel(wman, decoding_type=dec, device=dev),
                            batch=DECODE_B, stop=stop)
-        return sim.run_point(params, snr, torch.Generator(device=dev).manual_seed(0),
-                             max_frames=frames, target_frame_errors=None)
+        g = torch.Generator(device=dev)
+        cold = sim.run_point(params, snr, g.manual_seed(0), max_frames=frames,
+                             target_frame_errors=None)
+        return cold.frames_per_sec, sim.run_point(params, snr, g.manual_seed(0),
+                                                  max_frames=frames, target_frame_errors=None)
 
     out["run_point"] = {}
     bp = init_weights(spec_bp, graph, device=dev)
@@ -361,16 +366,18 @@ def decode_runs(out: dict, gen) -> None:
             ("boosted30_early_stop", spec30, boosted30, True, "genie", 2),
             ("base20_syndrome", spec20, base20, False, "syndrome", 2),
             ("bp_sp_fixed20", spec_bp, bp, False, "genie", 0)):
-        pt = run_point(spec, params, es, 4.0, 2 ** 20, stop, dec)
+        cold_fps, pt = run_point(spec, params, es, 4.0, 2 ** 20, stop, dec)
         out["run_point"][name] = {"frames_per_sec": pt.frames_per_sec,
+                                  "frames_per_sec_cold": cold_fps,
                                   "frame_errors": round(pt.fer_last * pt.frames)}
         if stop == "syndrome":
             out["run_point"][name]["mean_iters"] = pt.avg_iters
         else:
             out["run_point"][name]["genie_errors"] = round(pt.fer_genie * pt.frames)
-    pt = run_point(spec20, base20, True, 5.5, 2 ** 25)
+    cold_fps, pt = run_point(spec20, base20, True, 5.5, 2 ** 25)
     out["run_point"]["deep_base20_early_stop_5.5dB"] = {
         "frames": pt.frames, "frames_per_sec": pt.frames_per_sec,
+        "frames_per_sec_cold": cold_fps,
         "genie_errors": round(pt.fer_genie * pt.frames)}
 
 
