@@ -110,7 +110,9 @@ exits non-zero:
    of 2^20 frames of each): the card's time per kernel, the idle gaps
    between its first and last activity, the host's time to issue the
    call, the time of a first read (with the capture) and of a second, and
-   the device memory the two reads took at their peak; then run_point
+   the device memory the two reads took at their peak (a trace in which
+   the profiler recorded no activity of the card is taken again, at most
+   three times in all, and the count is printed); then run_point
    frames/s, cold (a new simulator) and warm (the same point again), and
    the kernel's share of a warm batch for K = 1 eager, K = 1 graph and
    K = 8 graph on base20 and boosted30 with the early stop, the syndrome
@@ -133,7 +135,28 @@ exits non-zero:
    shapes; ptxas' report of every training instance, and 0 stack bytes and
    0 spills in B4-SP's and B5-SP's instances on the main path (wman's
    checks fit one chunk);
-8. the `kernels` line (eight entries), then the card's nvidia-smi line,
+8. the mesh (`parallel/mesh.py`), launch counts set to 0 just before each
+   path and read just after:
+   - an NCCL world of one (`data_mesh()`): base20 with the early stop and
+     with the syndrome stop through `FERSimulator(mesh=...)` at 4.0 dB,
+     seed 0, 2^20 frames at 65536, K = 8: exactly 211 genie errors and
+     3.18807 mean iterations, 16 launches each; warm frames/s of the
+     early-stop path with and without the mesh, in turns; a traced warm
+     point (`build/host_loop/mesh_run_point/`): the all-reduce's time per
+     host read, on the card and on the host;
+   - the base block through `run_training(mesh=...)` (3 steps at 32768,
+     one epoch): weights, losses and metrics bit-equal to the run without
+     the mesh; the channel sampler at 32768 and 16384 words (what a rank
+     of a world of two draws, against what it decodes);
+   - two gloo ranks sharing the card (NCCL refuses two ranks on one
+     device), each a process of this script (``--mesh-rank r port dir``)
+     under a timeout of its own: base20's two points at the global batch,
+     their pooled counters equal to both rank generators (`rank_generator`)
+     run here at 32768; a harvest of 64 words at 4.2 dB whose
+     ``uncor.txt.part{r}`` files hold exactly the rank generators' rows;
+     one train step whose loss and weights agree with a world of one's
+     within rtol 1e-5;
+9. the `kernels` line (eight entries), then the card's nvidia-smi line,
    then the result.
 
 It imports neither JAX nor the JAX package. It exits 2, printing nothing
@@ -175,6 +198,10 @@ F32_SIMPLE_OPS_PER_S = 33.5e12  # 67 TFLOP/s f32 counts an FMA as 2; adds,
 SFU_OPS_PER_S = 132 * 16 * 1.98e9  # 132 SMs x 16 special-function results
 #                                    per clock (compute capability 9.0) x boost clock
 SMEM_BYTES_PER_S = 132 * 128 * 1.98e9  # 132 SMs x 128 B/clk x boost clock
+MESH_RANKS = 2            # the mesh phase's gloo ranks sharing the card
+MESH_TIMEOUT_S = 300      # each rank process, and each collective of theirs
+MESH_WORDS = 64           # the two ranks' harvest, words in all
+TRACE_ATTEMPTS = 3        # a trace with no activity of the card is taken again
 
 
 def emit(obj) -> None:
@@ -445,6 +472,30 @@ def trace_summary(trace_path: str, span: str) -> dict:
             "runtime_calls": runtime_n, "runtime_ms": runtime_ms}
 
 
+def traced(run, tdir: str, span: str) -> dict:
+    """Run `run()` inside an `annotate`d `span` under `utils.profiling.trace`
+    into `tdir`, then the card's summary of it (`trace_summary`).  A trace
+    in which the profiler recorded no activity of the card at all (no
+    kernel, copy or fill; it happened once to a one-replay trace on the
+    H100, whose launch counts and errors showed the kernels ran) is taken
+    again, at most TRACE_ATTEMPTS times in all; `trace_attempts` says how
+    many it took, and the last trace is the one kept and summed."""
+    import torch
+
+    from ldpc_error_floor_tpu_torch.utils import annotate, trace
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        with trace(tdir):
+            with annotate(span):
+                run()
+            torch.cuda.synchronize()
+        out = trace_summary(os.path.join(tdir, "trace.json"), span)
+        if out["device_busy_ms"] > 0.0:
+            break
+        print(f"chip_smoke: the trace in {tdir} holds no activity of the card "
+              f"(attempt {attempt})", file=sys.stderr)
+    return {**out, "trace_attempts": attempt}
+
+
 def ptxas_by_instance(log: str, kern_name) -> dict:
     """ptxas' registers, stack frame and spill bytes of each kernel instance
     in a library's build log (`-Xptxas -v`), by kernel name: the decode
@@ -485,6 +536,109 @@ def ptxas_by_instance(log: str, kern_name) -> dict:
     return out
 
 
+def point_counts(pt, nbits: int) -> dict:
+    """A point's integer counters, from its rates."""
+    out = {"frames": pt.frames, "bit_errors": round(pt.ber_last * pt.frames * nbits),
+           "frame_errors": round(pt.fer_last * pt.frames)}
+    if pt.avg_iters is None:
+        out["genie_errors"] = round(pt.fer_genie * pt.frames)
+    else:
+        out["undetected"] = round(pt.fer_undetected * pt.frames)
+        out["iters_sum"] = round(pt.avg_iters * pt.frames)
+    return out
+
+
+def mesh_paths(dev, mesh=None, batch=MAIN_B):
+    """The mesh phase's two Monte-Carlo paths on wman at `batch`, K = 8:
+    base20 with the genie early stop and with the syndrome stop; ((label,
+    simulator), ...) and base20's parameters."""
+    from ldpc_error_floor_tpu_torch.channel import AWGNChannel
+    from ldpc_error_floor_tpu_torch.codes import TannerGraph, get_code
+    from ldpc_error_floor_tpu_torch.models import (DecoderConfig, NMSDecoder, WeightSpec,
+                                                   load_params)
+    from ldpc_error_floor_tpu_torch.sim import FERSimulator
+    code = get_code(WMAN)
+    graph = TannerGraph(code)
+    spec = WeightSpec(sharing=(3, 3, 3), n_iters=T_MAIN)
+    params = load_params(spec, graph, f"{WMAN}_base20", device=dev)
+    sims = tuple(
+        (label, FERSimulator(NMSDecoder(code, cfg, spec, graph=graph, device=dev),
+                             AWGNChannel(code, device=dev), batch=batch, stop=stop,
+                             inner_steps=K_MAIN, mesh=mesh))
+        for label, cfg, stop in (("early_stop", DecoderConfig(early_stop=True), "genie"),
+                                 ("syndrome", DecoderConfig(), "syndrome")))
+    return sims, params
+
+
+def mesh_train_once(dev, mesh=None):
+    """One Adam step (learning rate 1e-2) on the base block ((3,0,3), T=20,
+    soft FER, eta 0) from all-ones weights, on this rank's lanes of a batch
+    of TRAIN_B words at the base config's five SNRs drawn from seed 3 (the
+    whole batch without a mesh); (loss, weights on the host, launches)."""
+    import torch
+    from ldpc_error_floor_tpu_torch.channel import AWGNChannel
+    from ldpc_error_floor_tpu_torch.channel.awgn import mix_sigma_lanes
+    from ldpc_error_floor_tpu_torch.codes import TannerGraph, get_code
+    from ldpc_error_floor_tpu_torch.models import (DecoderConfig, NMSDecoder, WeightSpec,
+                                                   init_weights)
+    from ldpc_error_floor_tpu_torch.parallel import batch_constraint
+    from ldpc_error_floor_tpu_torch.pipelines import base_config_wman
+    from ldpc_error_floor_tpu_torch.training import make_optimizer, make_train_step
+    code = get_code(WMAN)
+    graph = TannerGraph(code)
+    spec = WeightSpec(sharing=(3, 0, 3), n_iters=T_MAIN)
+    dec = NMSDecoder(code, DecoderConfig(app_t0=T_MAIN - 1), spec, graph=graph, device=dev)
+    sig = torch.as_tensor(mix_sigma_lanes(code.snr_sigmas(base_config_wman().snrs), TRAIN_B),
+                          device=dev)
+    llr = AWGNChannel(code, device=dev).sample(
+        torch.Generator(device=dev).manual_seed(3), sig)
+    shard = batch_constraint(mesh)
+    params = init_weights(spec, graph, device=dev)
+    opt = make_optimizer(params, 1e-2)
+    step = make_train_step(dec, spec, 2, 0, T_MAIN, static_etha=0.0, mesh=mesh)
+    loss = float(step(params, opt, shard(llr), shard(torch.zeros_like(llr)), 0.0))
+    return loss, {k: None if v is None else v.detach().cpu() for k, v in params.items()}, \
+        dict(dec.train_kernel.launches)
+
+
+def mesh_worker(rank: int, port: str, out_dir: str) -> int:
+    """Rank `rank` of the mesh phase's MESH_RANKS gloo ranks sharing the
+    card (NCCL refuses two ranks on one device): base20's early-stop and
+    syndrome-stop points at 4.0 dB over 2^20 frames at the global batch, a
+    harvest of MESH_WORDS words at 4.2 dB into ``uncor.txt.part{rank}`` and
+    one train step, through the mesh; results into `out_dir`."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ldpc_error_floor_tpu_torch.parallel import data_mesh, initialize_distributed
+    from ldpc_error_floor_tpu_torch.sim import UncorHarvester
+    initialize_distributed(f"127.0.0.1:{port}", MESH_RANKS, rank, device="cuda",
+                           backend="gloo", timeout_s=MESH_TIMEOUT_S)
+    mesh = data_mesh(MESH_RANKS, device="cuda")
+    sims, base20 = mesh_paths(mesh.device, mesh)
+    out = {"rank": mesh.rank, "world": mesh.world, "backend": dist.get_backend()}
+    for label, sim in sims:
+        pt = sim.run_point(base20, 4.0, torch.Generator(device=mesh.device).manual_seed(0),
+                           max_frames=MAX_FRAMES, target_frame_errors=None)
+        out[label] = point_counts(pt, sim.decoder.target * sim.decoder.z)
+        out[label + "_launches"] = dict(sim.decoder.kernel.launches)
+        out[label + "_frames_per_sec"] = pt.frames_per_sec  # cold, the ranks in turn
+    sim = sims[0][1]  # harvest with the early stop, as run_collection does
+    harv = UncorHarvester(sim.decoder, sim.channel, batch=MAIN_B, mesh=mesh)
+    words = harv.collect(base20, 4.2, torch.Generator(device=mesh.device).manual_seed(0),
+                         target_words=MESH_WORDS, out_file=os.path.join(out_dir, "uncor.txt"))
+    out["harvest"] = {"frames": harv.frames, "hits": harv.hits, "words": int(words.shape[0])}
+    loss, weights, out["train_launches"] = mesh_train_once(mesh.device, mesh)
+    out["loss"] = loss
+    np.savez(os.path.join(out_dir, f"weights_{rank}.npz"),
+             **{k: v.numpy() for k, v in weights.items() if v is not None})
+    with open(os.path.join(out_dir, f"rank_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -496,6 +650,8 @@ def main() -> int:
               "run it from a checkout of the repo", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    if sys.argv[1:2] == ["--mesh-rank"]:  # a rank process of the mesh phase
+        return mesh_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     from concurrent.futures import ThreadPoolExecutor
 
     from ldpc_error_floor_tpu_torch.channel import AWGNChannel
@@ -514,7 +670,6 @@ def main() -> int:
     from ldpc_error_floor_tpu_torch.pipelines import (ExperimentConfig,
                                                       run_collection)
     from ldpc_error_floor_tpu_torch.sim import FERSimulator, classify_failures
-    from ldpc_error_floor_tpu_torch.utils import annotate, trace
 
     class EagerFERSimulator(FERSimulator):
         """The host loop as the port ran it before the CUDA graph: each
@@ -1234,20 +1389,15 @@ def main() -> int:
             torch.cuda.synchronize()
             first_ms.append(1e3 * (time.perf_counter() - t0))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9 - base_gb
-        tdir = os.path.join(trace_root, f"{label}_one_read")
-        with trace(tdir):
-            with annotate("host_read"):
-                sim._chunk(base20, g_t, sigma40)
-            torch.cuda.synchronize()
-        one = trace_summary(os.path.join(tdir, "trace.json"), "host_read")
+        one = traced(lambda: sim._chunk(base20, g_t, sigma40),
+                     os.path.join(trace_root, f"{label}_one_read"), "host_read")
         sim.run_point(base20, 4.0, g_t.manual_seed(0), max_frames=MAIN_B * K_MAIN,
                       target_frame_errors=None)  # warm: the point's graph
-        rdir = os.path.join(trace_root, f"{label}_run_point")
-        with trace(rdir):
-            with annotate("run_point"):
-                pt_t = sim.run_point(base20, 4.0, g_t.manual_seed(0), max_frames=MAX_FRAMES,
-                                     target_frame_errors=None)
-        whole = trace_summary(os.path.join(rdir, "trace.json"), "run_point")
+        pts = []
+        whole = traced(lambda: pts.append(sim.run_point(
+            base20, 4.0, g_t.manual_seed(0), max_frames=MAX_FRAMES, target_frame_errors=None)),
+            os.path.join(trace_root, f"{label}_run_point"), "run_point")
+        pt_t = pts[-1]
         host_loop[label] = {"one_host_read": one, "run_point_2^20": whole,
                             "run_point_frames_per_sec_traced": pt_t.frames_per_sec,
                             "first_read_ms": first_ms[0], "second_read_ms": first_ms[1],
@@ -1494,7 +1644,218 @@ def main() -> int:
     bounds[FWD], bounds[BWD] = train_bounds["base_fwd"], train_bounds["base_bwd"]
     bounds[FWD_SP], bounds[BWD_SP] = train_bounds["base_sp_fwd"], train_bounds["base_sp_bwd"]
 
-    # ---- 8. summary -----------------------------------------------------------------
+    # ---- 8. the mesh ----------------------------------------------------------------
+    # (i) base20's early-stop and syndrome-stop paths through an NCCL world of
+    # one, launch counts set to 0 just before each and read just after
+    import socket
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from ldpc_error_floor_tpu_torch.io import append_uncor_file
+    from ldpc_error_floor_tpu_torch.parallel import DataMesh, data_mesh, rank_generator
+    from ldpc_error_floor_tpu_torch.sim import UncorHarvester
+    mesh = data_mesh(device="cuda")
+    check(mesh.world == 1 and dist.get_backend() == "nccl",
+          f"world of one: {mesh}, backend {dist.get_backend()}")
+    mesh_row = {"backend": dist.get_backend(), "device": str(mesh.device)}
+    mesh_sims, _ = mesh_paths(dev, mesh)
+    plain_sims, _ = mesh_paths(dev)
+    n_reads = MAX_FRAMES // (MAIN_B * K_MAIN)
+    g_m = torch.Generator(device=dev)  # one generator: a warm point needs no capture
+    for (label, sim), kname in zip(mesh_sims, ("fused_nms_early_stop", "fused_nms_deploy")):
+        sim.decoder.kernel.launches.clear()
+        p = sim.run_point(base20, 4.0, g_m.manual_seed(0), max_frames=MAX_FRAMES,
+                          target_frame_errors=None)
+        launches = dict(sim.decoder.kernel.launches)
+        mesh_row[label] = {**point_counts(p, wman.n_full), "cold_frames_per_sec":
+                           p.frames_per_sec, "kernel_launches": launches}
+        check(launches == {kname: MAX_FRAMES // MAIN_B},
+              f"mesh {label}: launches {launches}")
+    anchor = round(pt_es.fer_genie * pt_es.frames)  # the early-stop path without the mesh
+    check(mesh_row["early_stop"]["genie_errors"] == anchor,
+          f"mesh early stop: {mesh_row['early_stop']['genie_errors']} genie errors, "
+          f"wanted {anchor}")
+    iters = mesh_row["syndrome"]["iters_sum"] / MAX_FRAMES
+    check(round(iters, 5) == SYNDROME_MEAN_ITERS, f"mesh syndrome stop: {iters} iterations")
+    # warm frames/s of the early-stop path, non-mesh and mesh in turns
+    plain_sims[0][1].run_point(base20, 4.0, g_m.manual_seed(0), max_frames=MAX_FRAMES,
+                               target_frame_errors=None)  # its cold run
+    warm = {"plain": [], "mesh": []}
+    for which in ("plain", "mesh", "mesh", "plain"):
+        sim = (plain_sims if which == "plain" else mesh_sims)[0][1]
+        p = sim.run_point(base20, 4.0, g_m.manual_seed(0), max_frames=MAX_FRAMES,
+                          target_frame_errors=None)
+        warm[which].append(p.frames_per_sec)
+        check(round(p.fer_genie * p.frames) == anchor,
+              f"warm {which}: {p.fer_genie * p.frames} genie errors")
+    mesh_row["warm_frames_per_sec"] = warm
+    # the all-reduce in a traced warm point: the card's and the host's time
+    # of the collective per host read
+    tdir = os.path.join(trace_root, "mesh_run_point")
+    mesh_row["run_point_trace"] = traced(
+        lambda: mesh_sims[0][1].run_point(base20, 4.0, g_m.manual_seed(0),
+                                          max_frames=MAX_FRAMES, target_frame_errors=None),
+        tdir, "run_point")
+    with open(os.path.join(tdir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    coll = {}
+    for e in events:
+        name = str(e.get("name", ""))
+        if "nccl" in name.lower() or "all_reduce" in name.lower() or "allreduce" in name.lower():
+            key = f"{e.get('cat')}:{name}"
+            n, ms = coll.get(key, (0, 0.0))
+            coll[key] = (n + 1, ms + e.get("dur", 0) / 1e3)
+    mesh_row["all_reduce_trace"] = {k: {"count": n, "ms": ms, "ms_per_read": ms / n_reads}
+                                    for k, (n, ms) in coll.items()}
+    check(any(v["count"] >= n_reads for v in mesh_row["all_reduce_trace"].values()),
+          f"no all-reduce per host read in the trace: {list(coll)}")
+
+    # (ii) the base block through run_training, an NCCL world of one against
+    # no mesh: 3 steps at TRAIN_B, bit-equal weights
+    trained = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, m in (("plain", None), ("mesh", mesh)):
+            cfg = dataclasses.replace(base_config_wman(), batch_size=TRAIN_B,
+                                      training_num=3 * TRAIN_B, epochs=1,
+                                      valid_num=TRAIN_B, learn_rate_start=1e-2, seed=0,
+                                      out_dir=os.path.join(tmp, label))
+            t0 = time.perf_counter()
+            trained[label] = (run_training(cfg, verbose=False, device=dev, mesh=m),
+                              time.perf_counter() - t0)
+    res_m = trained["mesh"][0]
+    mesh_row["train"] = {label: {"seconds": t, "train_loss": [h["train_loss"] for h in
+                                                              r.history],
+                                 "valid_fer_last_sum": [h["metric"] for h in r.history],
+                                 "kernel_launches": r.launches}
+                         for label, (r, t) in trained.items()}
+    check(res_m.launches.get(BWD) == 3 and res_m.launches.get(FWD, 0) > 3,
+          f"mesh training launches {res_m.launches}")
+    check(all(v is None or torch.equal(v, trained["plain"][0].params[k])
+              for k, v in res_m.params.items()),
+          "mesh training: weights differ from the run without the mesh")
+    check(res_m.history == trained["plain"][0].history,
+          "mesh training: losses or metrics differ from the run without the mesh")
+    # the global draw: at W ranks each rank samples the whole batch of
+    # TRAIN_B words to decode TRAIN_B / W of them
+    g_s = torch.Generator(device=dev).manual_seed(0)
+    ch_s = AWGNChannel(wman, device=dev)
+    mesh_row["train_sample_ms"] = {
+        f"B{n}": time_ms(lambda: ch_s.sample(g_s, sig_train[:n]), reps=20)
+        for n in (TRAIN_B, TRAIN_B // MESH_RANKS)}
+    mesh_row["train_step_ms"] = train_timing["base_step_ms"]
+
+    # (iii) MESH_RANKS gloo ranks sharing the card, each a process of this
+    # script under its own timeout, against the rank generators run here
+    with tempfile.TemporaryDirectory() as mdir:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = str(sock.getsockname()[1])
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                                   str(r), port, mdir], cwd=REPO, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(MESH_RANKS)]
+        logs = []
+        try:
+            for proc in procs:
+                logs.append(proc.communicate(timeout=MESH_TIMEOUT_S)[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        mesh_row["two_rank_seconds"] = time.perf_counter() - t0
+        for r, (proc, log) in enumerate(zip(procs, logs)):
+            check(proc.returncode == 0, f"mesh rank {r} exited {proc.returncode}:\n"
+                                        f"{log[-3000:]}")
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(mdir, f"rank_{r}.json")) as f:
+                ranks.append(json.load(f))
+        # the per-rank sum: both rank generators, each at its share of the batch
+        g0 = torch.Generator(device=dev).manual_seed(0)
+        s0 = g0.get_state()
+
+        def rank_gens():
+            gens = []
+            for r in range(MESH_RANKS):
+                g0.set_state(s0)
+                gens.append(rank_generator(g0, DataMesh(r, MESH_RANKS, dev)))
+            return gens
+
+        local_sims, _ = mesh_paths(dev, batch=MAIN_B // MESH_RANKS)
+        pooled = {}
+        for label, sim in local_sims:
+            want = {}
+            for g in rank_gens():
+                p = sim.run_point(base20, 4.0, g, max_frames=MAX_FRAMES // MESH_RANKS,
+                                  target_frame_errors=None)
+                for k, v in point_counts(p, wman.n_full).items():
+                    want[k] = want.get(k, 0) + v
+            pooled[label] = want
+            check(all(rk[label] == want for rk in ranks),
+                  f"two ranks, {label}: {[rk[label] for rk in ranks]} against the per-rank "
+                  f"sum {want}")
+            check(all(sum(rk[label + "_launches"].values()) == MAX_FRAMES // MAIN_B
+                      for rk in ranks), f"two ranks, {label}: launches "
+                                        f"{[rk[label + '_launches'] for rk in ranks]}")
+        # the harvest: both rank generators in step, at the rank's batch
+        h = UncorHarvester(local_sims[0][1].decoder, local_sims[0][1].channel,
+                           batch=MAIN_B // MESH_RANKS)
+        sigma42 = float(np.float32(wman.snr_sigmas([4.2])[0]))
+        rows, n_words, frames = [[] for _ in range(MESH_RANKS)], 0, 0
+        gens = rank_gens()
+        while n_words < MESH_WORDS:
+            for r, g in enumerate(gens):
+                count, picked = h._step(base20, g, sigma42)
+                kept = min(int(count), h.cap)
+                rows[r].append(picked[:, :kept].T.cpu().numpy())
+                n_words += kept
+            frames += MAIN_B
+        part_rows = [read_uncor_file(os.path.join(mdir, f"uncor.txt.part{r}"))
+                     for r in range(MESH_RANKS)]
+        want_path = os.path.join(mdir, "want.txt")
+        same_rows = []
+        for r in range(MESH_RANKS):  # the rows through the Uncor format
+            if os.path.exists(want_path):
+                os.remove(want_path)
+            append_uncor_file(want_path, np.concatenate(rows[r]))
+            same_rows.append(bool(np.array_equal(read_uncor_file(want_path), part_rows[r])))
+        union = np.concatenate(part_rows)
+        # one train step, the ranks' lanes against a world of one's
+        loss1, w1, _ = mesh_train_once(dev)
+        w_rank = [dict(np.load(os.path.join(mdir, f"weights_{r}.npz")))
+                  for r in range(MESH_RANKS)]
+    worst = max(float(np.max(np.abs(w[k] - w1[k].numpy())
+                             / np.maximum(np.abs(w1[k].numpy()), 1e-30)))
+                for w in w_rank for k in w)
+    mesh_row["two_ranks"] = {
+        "backend": ranks[0]["backend"], "counters": pooled, "harvest": ranks[0]["harvest"],
+        "cold_frames_per_sec": {label: [rk[label + "_frames_per_sec"] for rk in ranks]
+                                for label, _ in local_sims},
+        "harvest_frames_here": frames, "harvest_words_here": n_words,
+        "harvest_rows_per_rank": [len(x) for x in part_rows],
+        "loss": [rk["loss"] for rk in ranks], "loss_world_of_one": loss1,
+        "weights_max_rel_diff": worst,
+        "train_launches": [rk["train_launches"] for rk in ranks]}
+    emit({"phase": "mesh", "card": smi, **mesh_row})
+    check(all(rk["backend"] == "gloo" and rk["world"] == MESH_RANKS for rk in ranks),
+          f"two ranks: {[(rk['backend'], rk['world']) for rk in ranks]}")
+    check(all(rk["harvest"]["frames"] == frames and rk["harvest"]["words"] == len(part_rows[r])
+              for r, rk in enumerate(ranks)),
+          f"two ranks' harvest {[rk['harvest'] for rk in ranks]} against {frames} frames here")
+    check(all(same_rows) and len(union) == n_words,
+          f"two ranks' .part files: rows equal to the rank generators' {same_rows}, "
+          f"{len(union)} rows against {n_words}")
+    check(all(abs(rk["loss"] - loss1) <= 1e-5 * abs(loss1) for rk in ranks),
+          f"two ranks' loss {[rk['loss'] for rk in ranks]} against {loss1}")
+    check(worst <= 1e-5, f"two ranks' weights {worst} off a world of one's (rtol 1e-5)")
+    check(all(rk["train_launches"] == {FWD: 1, BWD: 1} for rk in ranks),
+          f"two ranks' train launches {[rk['train_launches'] for rk in ranks]}")
+    dist.destroy_process_group()
+
+    # ---- 9. summary -----------------------------------------------------------------
     src = "ldpc_error_floor_tpu_torch/csrc/fused_nms_stats.cu"
     src_train = "ldpc_error_floor_tpu_torch/csrc/fused_nms_train.cu"
     rows = [  # (name, source, replaces, ms, plain ms)

@@ -24,6 +24,20 @@
 `analyze-uncor` prints the JAX package's report text.  `train` writes the
 weight files and the perf log under the config's `out_dir`.  They run on
 the card unless ``--device cpu`` is given.
+
+Data parallelism: `simulate --mesh` and `train --mesh` run on every rank of
+the world, one process per device (a card: NCCL, ``cuda:{rank %
+device_count}``; ``--device cpu``: gloo).  Each process of a world of N is
+started with ``--coordinator host:port --num-processes N --process-id i``
+(before the subcommand), or the variables LDPC_TPU_COORDINATOR,
+LDPC_TPU_NUM_PROCESSES and LDPC_TPU_PROCESS_ID; rank 0 listens at the
+address and alone prints.  Without a coordinator `--mesh` is a world of
+one:
+
+    python -m ldpc_error_floor_tpu_torch.cli --coordinator localhost:29500 \
+        --num-processes 2 --process-id 0 simulate --mesh --code ... &
+    python -m ldpc_error_floor_tpu_torch.cli --coordinator localhost:29500 \
+        --num-processes 2 --process-id 1 simulate --mesh --code ...
 """
 
 from __future__ import annotations
@@ -125,11 +139,15 @@ def _cmd_split_uncor(args) -> int:
 
 
 def _cmd_train(args) -> int:
+    from ldpc_error_floor_tpu_torch.parallel import data_mesh
     from ldpc_error_floor_tpu_torch.pipelines import (ExperimentConfig,
                                                       run_training)
     cfg = ExperimentConfig.from_json(args.config)
-    res = run_training(cfg, eval_batch=args.eval_batch, device=args.device)
-    print(f"done; best metric {res.best_metric:.3e}")
+    mesh = data_mesh(args.mesh_devices, device=args.device) if args.mesh else None
+    res = run_training(cfg, eval_batch=args.eval_batch, device=args.device,
+                       mesh=mesh)
+    if mesh is None or mesh.rank == 0:
+        print(f"done; best metric {res.best_metric:.3e}")
     return 0
 
 
@@ -206,8 +224,11 @@ def _cmd_simulate(args) -> int:
                                                    WeightSpec,
                                                    compose_boosted_params,
                                                    init_weights, load_params)
+    from ldpc_error_floor_tpu_torch.parallel import data_mesh
     from ldpc_error_floor_tpu_torch.sim import FERSimulator
 
+    mesh = data_mesh(device=args.device) if args.mesh else None
+    device = args.device if mesh is None else mesh.device
     code = get_code(args.code)
     graph = TannerGraph(code)
     spec = WeightSpec(sharing=tuple(args.sharing), n_iters=args.iters,
@@ -218,11 +239,11 @@ def _cmd_simulate(args) -> int:
                                          neural_mode=args.neural_mode,
                                          target_node=target,
                                          early_stop=args.early_stop),
-                     spec, graph=graph, device=args.device)
+                     spec, graph=graph, device=device)
     if args.weights:
-        params = load_params(spec, graph, args.weights, device=args.device)
+        params = load_params(spec, graph, args.weights, device=device)
     else:
-        params = init_weights(spec, graph, device=args.device)
+        params = init_weights(spec, graph, device=device)
     if args.base_weights:
         # boosted composition: iterations [0, boundary) take the base
         # stage's rows
@@ -233,25 +254,55 @@ def _cmd_simulate(args) -> int:
         base_spec = WeightSpec(sharing=tuple(args.base_sharing or args.sharing),
                                n_iters=boundary)
         base_params = load_params(base_spec, graph, args.base_weights,
-                                  device=args.device)
+                                  device=device)
         params = compose_boosted_params(graph, base_spec, base_params, spec,
                                         params)
     ch = AWGNChannel(code, decoding_type=args.decoding_type, q_bit=args.q_bit,
-                     device=args.device)
+                     device=device)
     sim = FERSimulator(dec, ch, batch=args.batch, stop=args.stop,
-                       codewords=args.codewords, inner_steps=args.inner_steps)
+                       codewords=args.codewords, inner_steps=args.inner_steps,
+                       mesh=mesh)
     gen = torch.Generator(device=dec.device).manual_seed(args.seed)
     points = sim.run_curve(params, args.snrs, gen,
                            max_frames=args.max_frames,
                            target_frame_errors=args.target_errors,
                            ckpt_prefix=args.ckpt)
-    for pt in points:
-        print(json.dumps(vars(pt)))
+    if mesh is None or mesh.rank == 0:
+        for pt in points:
+            print(json.dumps(vars(pt)))
     return 0
+
+
+def _init_distributed(args) -> None:
+    """Join the world given by the flags or the LDPC_TPU_COORDINATOR /
+    LDPC_TPU_NUM_PROCESSES / LDPC_TPU_PROCESS_ID variables; nothing without
+    a coordinator."""
+    import os
+
+    from ldpc_error_floor_tpu_torch.parallel import initialize_distributed
+    coord = args.coordinator or os.environ.get("LDPC_TPU_COORDINATOR")
+    if not coord:
+        return
+    nprocs = args.num_processes
+    if nprocs is None and os.environ.get("LDPC_TPU_NUM_PROCESSES"):
+        nprocs = int(os.environ["LDPC_TPU_NUM_PROCESSES"])
+    pid = args.process_id
+    if pid is None and os.environ.get("LDPC_TPU_PROCESS_ID"):
+        pid = int(os.environ["LDPC_TPU_PROCESS_ID"])
+    initialize_distributed(coord, nprocs, pid,
+                           device=getattr(args, "device", "cuda"))
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="ldpc_error_floor_tpu_torch")
+    p.add_argument("--coordinator", default=None,
+                   help="data parallelism: rank 0's address host:port (or "
+                        "env LDPC_TPU_COORDINATOR)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   dest="num_processes",
+                   help="ranks in the world (or env LDPC_TPU_NUM_PROCESSES)")
+    p.add_argument("--process-id", type=int, default=None, dest="process_id",
+                   help="this process's rank (or env LDPC_TPU_PROCESS_ID)")
     sub = p.add_subparsers(dest="cmd", required=True)
     sub.add_parser("codes", help="list bundled codes")
     sub.add_parser("weights", help="list bundled trained weight sets")
@@ -287,6 +338,13 @@ def main(argv=None) -> int:
     pt = sub.add_parser("train", help="train a decoder (base or post)")
     pt.add_argument("--config", required=True)
     pt.add_argument("--eval-batch", type=int, default=None, dest="eval_batch")
+    pt.add_argument("--mesh", action="store_true",
+                    help="data-parallel training: each rank trains on its "
+                         "lanes of every batch (parameters replicated, "
+                         "gradients averaged over the ranks)")
+    pt.add_argument("--mesh-devices", type=int, default=None,
+                    dest="mesh_devices",
+                    help="the world's size, checked (one device per rank)")
     device_arg(pt)
 
     pe = sub.add_parser("evaluate",
@@ -372,15 +430,26 @@ def main(argv=None) -> int:
                          "{ckpt}_snr{s}.json")
     pm.add_argument("--systematic", action="store_true",
                     help="count errors over the systematic columns only")
+    pm.add_argument("--mesh", action="store_true",
+                    help="data-parallel Monte-Carlo: each rank decodes its "
+                         "lanes of every batch, the counters are summed")
 
     args = p.parse_args(argv)
-    return {"codes": _cmd_codes, "weights": _cmd_weights,
-            "convert-weights": _cmd_convert_weights,
-            "analyze-uncor": _cmd_analyze_uncor,
-            "init-config": _cmd_init_config, "train": _cmd_train,
-            "evaluate": _cmd_evaluate, "collect": _cmd_collect,
-            "split-uncor": _cmd_split_uncor,
-            "simulate": _cmd_simulate}[args.cmd](args)
+    import torch.distributed as dist
+    joined = dist.is_initialized()
+    _init_distributed(args)
+    try:
+        return {"codes": _cmd_codes, "weights": _cmd_weights,
+                "convert-weights": _cmd_convert_weights,
+                "analyze-uncor": _cmd_analyze_uncor,
+                "init-config": _cmd_init_config, "train": _cmd_train,
+                "evaluate": _cmd_evaluate, "collect": _cmd_collect,
+                "split-uncor": _cmd_split_uncor,
+                "simulate": _cmd_simulate}[args.cmd](args)
+    finally:
+        # the process group this call made (the flags' or `--mesh`'s)
+        if not joined and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

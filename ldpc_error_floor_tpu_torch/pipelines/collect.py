@@ -18,6 +18,7 @@ from ldpc_error_floor_tpu_torch.io.uncor_files import (append_uncor_file,
                                                        read_uncor_file)
 from ldpc_error_floor_tpu_torch.models import (DecoderConfig, NMSDecoder,
                                                WeightSpec, load_params)
+from ldpc_error_floor_tpu_torch.parallel.mesh import DataMesh
 from ldpc_error_floor_tpu_torch.pipelines.config import ExperimentConfig
 from ldpc_error_floor_tpu_torch.sim.harvest import UncorHarvester
 
@@ -27,13 +28,18 @@ def run_collection(cfg: ExperimentConfig, weight_file: Optional[str] = None,
                    out_file: str = "Uncor.txt",
                    max_frames: int = 1_000_000_000,
                    ckpt_path: Optional[str] = None,
-                   device="cuda") -> np.ndarray:
+                   device="cuda", mesh: Optional[DataMesh] = None) -> np.ndarray:
     """Collect `target_words` uncorrected words at cfg.snrs[0]; returns them
     [num, N*z] and appends them to `out_file`.
 
     `weight_file` defaults to the trained base decoder's best snapshot
-    ({out_dir}/{prefix}_Opt_Weight_End{iters_max}.txt)."""
+    ({out_dir}/{prefix}_Opt_Weight_End{iters_max}.txt).  With `mesh` the
+    batch is global and every rank harvests on its mesh device; in a world
+    of W > 1 each appends to ``{out_file}.part{rank}`` and returns its own
+    words (`UncorHarvester`)."""
     cfg = cfg.validate()
+    if mesh is not None:
+        device = mesh.device
     if len(cfg.snrs) != 1:
         raise ValueError("collection runs at a single SNR")
     code = get_code(cfg.code, z=cfg.z, punct=cfg.punct, short=cfg.short)
@@ -52,7 +58,7 @@ def run_collection(cfg: ExperimentConfig, weight_file: Optional[str] = None,
     decoder = NMSDecoder(code, dcfg, spec, graph=graph, device=device)
     channel = AWGNChannel(code, decoding_type=cfg.decoding_type,
                           q_bit=cfg.q_bit, clip_llr=cfg.clip_llr, device=device)
-    harvester = UncorHarvester(decoder, channel, batch=batch)
+    harvester = UncorHarvester(decoder, channel, batch=batch, mesh=mesh)
     generator = torch.Generator(device=decoder.device).manual_seed(cfg.seed)
     return harvester.collect(params, cfg.snrs[0], generator, target_words,
                              max_frames=max_frames, out_file=out_file,

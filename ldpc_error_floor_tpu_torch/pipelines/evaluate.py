@@ -11,6 +11,11 @@ its APPs: ``app_t0 = 0``); without it, from the stats kernel B1 (the loss row
 then reads 0; all-zero labels).  Batch counters stay on the device until
 the end of a run; the host then reduces them in float64, as the reference's
 NumPy accumulation does.
+
+Under a mesh `batch` is global: every rank draws the whole batch (or reads
+the rows) and decodes its own lanes; the counters are summed and the loss
+averaged over the ranks once per run, and in collect mode rank 0 writes the
+words every rank flagged, in lane order, to the one Uncor file.
 """
 
 from __future__ import annotations
@@ -25,17 +30,24 @@ from ldpc_error_floor_tpu_torch.channel.awgn import AWGNChannel
 from ldpc_error_floor_tpu_torch.io.uncor_files import append_uncor_file
 from ldpc_error_floor_tpu_torch.models.nms import NMSDecoder
 from ldpc_error_floor_tpu_torch.models.weights import Params
+from ldpc_error_floor_tpu_torch.parallel.mesh import (DataMesh, all_sum,
+                                                      batch_constraint,
+                                                      gather_lanes)
 from ldpc_error_floor_tpu_torch.training.losses import multi_iteration_loss
 
 
 class Evaluator:
     def __init__(self, decoder: NMSDecoder, channel: AWGNChannel,
                  loss_type: int, t_lo: int = 0, batch: int = 0,
-                 compute_loss: bool = True):
+                 compute_loss: bool = True, mesh: Optional[DataMesh] = None):
         if compute_loss and decoder.cfg.app_t0:
             raise ValueError("the loss needs every iteration's APPs: "
                              "evaluate with a decoder whose app_t0 is 0")
+        if mesh is not None and batch % mesh.world:
+            raise ValueError(f"batch {batch} not divisible by the mesh's "
+                             f"{mesh.world} ranks")
         self.decoder = decoder
+        self.mesh = mesh
         self.channel = channel
         self.batch = batch
         self.loss_type = loss_type
@@ -83,9 +95,11 @@ class Evaluator:
             raise ValueError("fresh-noise evaluation needs a generator")
         dev = self.decoder.device
         nbits = self.decoder.target * self.decoder.z
-        labels = torch.zeros((nbits, batch), dtype=torch.float32, device=dev)
+        shard = batch_constraint(self.mesh)
+        labels = shard(torch.zeros((nbits, batch), dtype=torch.float32, device=dev))
         rows_dev = (None if data is None else torch.as_tensor(
             np.asarray(data[:batch_num * batch], np.float32), device=dev))
+        writer = self.mesh is None or self.mesh.rank == 0
         ints, losses = [], []
         for bi in range(batch_num):
             for si in range(n_snr):
@@ -94,20 +108,25 @@ class Evaluator:
                                      dtype=torch.float32, device=dev)
                     llr = self.channel.sample(generator, sig)
                 else:
-                    llr = rows_dev[bi * batch:(bi + 1) * batch].T.contiguous()
-                c, loss, uncor = self._metrics(params, llr, labels, etha)
+                    llr = rows_dev[bi * batch:(bi + 1) * batch].T
+                c, loss, uncor = self._metrics(params, shard(llr).contiguous(),
+                                               labels, etha)
                 ints.append(c)
                 losses.append(loss)
                 if collect_uncor_path is not None:
+                    uncor = gather_lanes(self.mesh, uncor.to(torch.uint8)).bool()
                     hits = llr[:, uncor]
-                    if hits.shape[1]:
+                    if hits.shape[1] and writer:
                         append_uncor_file(collect_uncor_path,
                                           hits.T.cpu().numpy())
-        # per-batch [batch_num, n_snr, 3] -> float64 totals on the host
-        ints = torch.stack(ints).cpu().numpy().astype(np.float64)
+        # per-batch [batch_num, n_snr, 3] -> float64 totals on the host;
+        # under a mesh, the ranks' counters summed and their losses averaged
+        ints = all_sum(self.mesh, torch.stack(ints)).cpu().numpy().astype(np.float64)
         ints = ints.reshape(batch_num, n_snr, 3).sum(axis=0)
-        losses = torch.stack(losses).cpu().numpy().astype(np.float64)
+        losses = all_sum(self.mesh, torch.stack(losses)).cpu().numpy().astype(np.float64)
         losses = losses.reshape(batch_num, n_snr).sum(axis=0)
+        if self.mesh is not None:
+            losses /= self.mesh.world
         results = np.zeros((4, n_snr), np.float64)
         results[0] = ints[:, 0] / (batch * nbits) / batch_num
         results[1] = ints[:, 1] / batch / batch_num

@@ -18,6 +18,13 @@ stack to the last iteration (``app_t0 = end - 1``), the loss its last
 iteration.  On the card the steps run through the CUDA pair B4/B5 and the
 evaluation through B4 (with the loss) or B1; a failure raises — there is no
 other backend to fall back to.
+
+With a mesh (`parallel.mesh`) every rank runs this loop in step: each draws
+the whole global batch from the generator every rank holds in the same
+state and trains on its own lanes (gradients averaged over the ranks), so a
+world of W trains on the numbers a world of one trains on.  Rank 0 alone
+writes the weight files, the perf log and the resume snapshots, on a file
+system every rank reads; every rank reads them back.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from ldpc_error_floor_tpu_torch.models.weights import (WeightSpec, init_weights,
                                                        params_from_blocks,
                                                        params_to_blocks,
                                                        partial_update_from_blocks)
+from ldpc_error_floor_tpu_torch.parallel.mesh import DataMesh, barrier, replicate
 from ldpc_error_floor_tpu_torch.pipelines.config import (ExperimentConfig,
                                                          SAMPLING_COLLECT,
                                                          SAMPLING_READ_UNCOR)
@@ -90,18 +98,25 @@ def _opt_metric_value(results: np.ndarray, opt_metric: int) -> float:
 
 def run_training(cfg: ExperimentConfig, verbose: bool = True,
                  eval_batch: Optional[int] = None,
-                 device="cuda") -> TrainResult:
+                 device="cuda", mesh: Optional[DataMesh] = None) -> TrainResult:
     """Train every block of `cfg`'s schedule; returns the last block's
     parameters and best valid metric.  Writes the weight files, the perf log
-    and (with `checkpoint_every`) the resume snapshots under `cfg.out_dir`."""
+    and (with `checkpoint_every`) the resume snapshots under `cfg.out_dir`.
+    With `mesh` the run is data-parallel on the mesh's device (the batch
+    sizes must divide by the world's size)."""
     cfg = cfg.validate()
-    dev = resolve_device(device)
+    if mesh is not None and cfg.batch_size % mesh.world:
+        raise ValueError(f"batch_size {cfg.batch_size} not divisible by the "
+                         f"mesh's {mesh.world} ranks")
+    dev = resolve_device(device if mesh is None else mesh.device)
+    writer = mesh is None or mesh.rank == 0
     code = _load_code(cfg)
     graph = TannerGraph(code)
     target_node = (code.N - code.M) if cfg.systematic else 0
     os.makedirs(cfg.out_dir, exist_ok=True)
     prefix = os.path.join(cfg.out_dir, cfg.out_prefix)
-    log = PerfLog(prefix + "_Performance.txt", echo=verbose)
+    log = PerfLog(prefix + "_Performance.txt" if writer else os.devnull,
+                  echo=verbose and writer)
     log.header(cfg)
 
     channel = AWGNChannel(code, decoding_type=cfg.decoding_type,
@@ -136,6 +151,7 @@ def run_training(cfg: ExperimentConfig, verbose: bool = True,
             _, blocks = read_weight_file(frozen_file)
             params = partial_update_from_blocks(spec, params, blocks, start,
                                                 graph)
+        params = replicate(mesh, params)
 
         dcfg = DecoderConfig(decoding_type=cfg.decoding_type, q_bit=cfg.q_bit,
                              clip_llr=cfg.clip_llr, target_node=target_node,
@@ -153,7 +169,7 @@ def run_training(cfg: ExperimentConfig, verbose: bool = True,
         need_loss = bool(cfg.eval_loss) or cfg.opt_metric == 3
         eval_decoder = NMSDecoder(code, dcfg, spec, graph=graph, device=dev)
         evaluator = Evaluator(eval_decoder, channel, cfg.loss_type, t_lo=t_lo,
-                              batch=eb, compute_loss=need_loss)
+                              batch=eb, compute_loss=need_loss, mesh=mesh)
         nbits = decoder.target * code.z
         labels = torch.zeros((nbits, cfg.batch_size), dtype=torch.float32,
                              device=dev)
@@ -167,7 +183,7 @@ def run_training(cfg: ExperimentConfig, verbose: bool = True,
             decoder, spec, cfg.loss_type, start, end, cfg.fixed_init,
             n_steps=n_train_batches, labels=labels, channel=channel,
             sigmas=train_sigmas, data_mode=data_mode, encoder=encoder,
-            static_etha=static_etha)
+            static_etha=static_etha, mesh=mesh)
         data_train_dev = None
         if data_mode:
             data_train_dev = torch.as_tensor(
@@ -205,8 +221,9 @@ def run_training(cfg: ExperimentConfig, verbose: bool = True,
             t_train = time.perf_counter() - t0
 
             # dump weights + train log
-            write_weight_file(f"{prefix}_Weight_End{end}.txt", cfg.sharing,
-                              params_to_blocks(spec, params))
+            if writer:
+                write_weight_file(f"{prefix}_Weight_End{end}.txt", cfg.sharing,
+                                  params_to_blocks(spec, params))
             log.train_result(epoch, cfg.epochs, start, end, avg_loss)
 
             # validation (in collect mode also the harvesting pass)
@@ -222,8 +239,9 @@ def run_training(cfg: ExperimentConfig, verbose: bool = True,
                 improved = metric < opt_valid
                 if improved:
                     opt_valid = metric
-                    shutil.copyfile(f"{prefix}_Weight_End{end}.txt",
-                                    f"{prefix}_Opt_Weight_End{end}.txt")
+                    if writer:
+                        shutil.copyfile(f"{prefix}_Weight_End{end}.txt",
+                                        f"{prefix}_Opt_Weight_End{end}.txt")
                 best_metric = opt_valid
                 log.eval_result("Valid", results, opt_valid)
                 history.append({"epoch": epoch, "block": (start, end),
@@ -250,15 +268,17 @@ def run_training(cfg: ExperimentConfig, verbose: bool = True,
                     (epoch + 1) % cfg.learn_rate_step == 0:
                 lr_curr *= cfg.learn_rate_discount
 
-            if cfg.checkpoint_every and epoch % cfg.checkpoint_every == 0:
+            if cfg.checkpoint_every and epoch % cfg.checkpoint_every == 0 \
+                    and writer:
                 save_train_state(ckpt_dir, epoch, params, optimizer, generator,
                                  extra={"etha": etha_curr, "lr": lr_curr,
                                         "opt_valid": opt_valid})
 
         # an Opt file exists even without validation
-        if not cfg.valid_flag:
+        if not cfg.valid_flag and writer:
             shutil.copyfile(f"{prefix}_Weight_End{end}.txt",
                             f"{prefix}_Opt_Weight_End{end}.txt")
+        barrier(mesh)  # rank 0's files are written before any rank reads them
         for d in (decoder, eval_decoder):
             launches.update(d.kernel.launches)
             launches.update(d.train_kernel.launches)

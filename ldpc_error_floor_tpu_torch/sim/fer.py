@@ -25,6 +25,13 @@ to pinned memory behind an event, so the card never idles on the host's
 read.  `run_point(ckpt_path=...)` keeps an atomic JSON checkpoint of the
 counters and the generator state, so a killed point resumes where it was
 counted.
+
+With a mesh (`parallel.mesh`), `batch` is the global batch: each rank
+samples and decodes its share of the lanes from its own generator
+(`rank_generator`), and one `all_reduce` sums a chunk's counters after the
+replay, on the same stream, before they are copied to the host: one
+collective per host read and no host synchronisation.  Every stop rule
+reads the summed counters, so every rank stops on the same read.
 """
 
 from __future__ import annotations
@@ -42,6 +49,8 @@ import torch
 from ldpc_error_floor_tpu_torch.channel.awgn import AWGNChannel
 from ldpc_error_floor_tpu_torch.models.nms import NMSDecoder
 from ldpc_error_floor_tpu_torch.models.weights import KINDS, Params, stack_weights
+from ldpc_error_floor_tpu_torch.parallel.mesh import (DataMesh, all_max, all_sum,
+                                                      rank_generator)
 
 _COUNTERS = ("frames", "bit_errors_last", "frame_errors_last",
              "frame_errors_genie", "frame_errors_undetected", "iters_sum")
@@ -92,6 +101,51 @@ def _load_ckpt(path: Optional[str], snr_db: float) -> Optional[dict]:
     return obj
 
 
+def part_path(path: Optional[str], mesh: Optional[DataMesh]) -> Optional[str]:
+    """This rank's file for `path`: `path` itself in a world of one,
+    ``{path}.part{rank}`` in a larger one."""
+    if path is None or mesh is None or mesh.world == 1:
+        return path
+    return f"{path}.part{mesh.rank}"
+
+
+def resume_ckpt(ckpt_path: Optional[str], snr_db: float,
+                mesh: Optional[DataMesh]):
+    """(this rank's checkpoint file, what it holds or None).  Each file
+    records the world's size; under a mesh every rank raises together (the
+    checks are reduced over the ranks, so no rank is left waiting) when a
+    rank's file cannot be read, when a file was written by a world of
+    another size, or when the ranks' files count different frames."""
+    path = part_path(ckpt_path, mesh)
+    if path is None:
+        return path, None
+    world = 1 if mesh is None else mesh.world
+    other = path + ".part0" if world == 1 else ckpt_path
+    error = None
+    try:
+        resumed = _load_ckpt(path, snr_db)
+        foreign = int(resumed.get("world", 1) != world if resumed is not None
+                      else os.path.exists(other))
+        frames = 0 if resumed is None else int(resumed["frames"])
+    except (OSError, ValueError, KeyError, TypeError, AttributeError) as e:
+        resumed, foreign, frames, error = None, 0, 0, e
+    failed, most, fewest = int(error is not None), frames, frames
+    if mesh is not None:
+        failed, foreign, most, fewest = all_max(
+            mesh, [failed, foreign, frames, -frames])
+        fewest = -fewest
+    if failed:
+        raise ValueError(f"{ckpt_path}: a rank's checkpoint cannot be read"
+                         + (f" ({path}: {error!r})" if error else "")) from error
+    if foreign:
+        raise ValueError(f"{ckpt_path}: checkpoint written by a world of "
+                         f"another size than {world}")
+    if most != fewest:
+        raise ValueError(f"{ckpt_path}: the ranks' checkpoints count "
+                         f"{fewest} to {most} frames")
+    return path, resumed
+
+
 def generator_state(generator: torch.Generator) -> List[int]:
     """A generator's state as a JSON-able list (read on the host: for a
     CUDA generator it is seed and offset, no device sync)."""
@@ -117,9 +171,12 @@ class FERPoint:
 
 
 class _Pending:
-    """One step's counters on their way to the host."""
+    """One chunk's counters on their way to the host, with the flag that
+    says whether its read checkpoints: under a mesh the flag travels as the
+    counters' last entry, summed over the ranks."""
 
-    def __init__(self, counters: torch.Tensor):
+    def __init__(self, counters: torch.Tensor, ckpt_due: bool,
+                 reduced: bool = False):
         if counters.is_cuda:
             self._host = torch.empty(counters.shape, dtype=counters.dtype,
                                      pin_memory=True)
@@ -128,11 +185,16 @@ class _Pending:
             self._event.record()
         else:
             self._host, self._event = counters, None
+        self._due, self._reduced = ckpt_due, reduced
 
-    def get(self) -> List[int]:
+    def get(self):
+        """(the counters, whether to checkpoint after them)."""
         if self._event is not None:
             self._event.synchronize()
-        return self._host.tolist()
+        vals = self._host.tolist()
+        if self._reduced:
+            return vals[:-1], vals[-1] > 0
+        return vals, self._due
 
 
 class _GraphedChunk:
@@ -162,11 +224,15 @@ class FERSimulator:
     word), JAX's int32 headroom for the bit-error counter.  The port counts
     in int64 and needs no such bound, but keeps the clamp: it sets how many
     frames one chunk holds, and that decides where `max_frames` stops a
-    point, so both packages stop a point at the same frame count."""
+    point, so both packages stop a point at the same frame count.
+
+    `mesh`: `batch` is global and must divide by the world's size; each
+    rank decodes ``batch // world`` lanes and the counters are summed."""
 
     def __init__(self, decoder: NMSDecoder, channel: AWGNChannel,
                  batch: int = 1024, stop: str = "genie",
-                 codewords: str = "zero", inner_steps: int = 1):
+                 codewords: str = "zero", inner_steps: int = 1,
+                 mesh: Optional[DataMesh] = None):
         if decoder.device.type != channel.device.type:
             raise ValueError(f"decoder on {decoder.device}, channel on "
                              f"{channel.device}")
@@ -174,9 +240,14 @@ class FERSimulator:
             raise ValueError(f"bad stop mode {stop!r}")
         if codewords not in ("zero", "random"):
             raise ValueError(f"bad codewords mode {codewords!r}")
+        if mesh is not None and batch % mesh.world:
+            raise ValueError(f"batch {batch} not divisible by the mesh's "
+                             f"{mesh.world} ranks")
         self.decoder = decoder
         self.channel = channel
         self.batch = batch
+        self.mesh = mesh
+        self.local_batch = batch if mesh is None else batch // mesh.world
         self.device = decoder.device
         self.stop = stop
         self.codewords = codewords
@@ -191,14 +262,14 @@ class FERSimulator:
         self._graphed: Optional[_GraphedChunk] = None
 
     def _sample(self, generator: torch.Generator, sigma: float) -> torch.Tensor:
-        sig = torch.full((self.batch,), sigma, dtype=torch.float32,
+        sig = torch.full((self.local_batch,), sigma, dtype=torch.float32,
                          device=self.device)
         if self.codewords == "zero":
             return self.channel.sample(generator, sig)
         # random codewords, decoded as sign-folded LLRs against the zero
         # word (exact for continuous channels; under QMS zero-LLR ties
         # follow the zero-word semantics, as in the JAX package)
-        bits = self._encoder.random_codewords(generator, self.batch)
+        bits = self._encoder.random_codewords(generator, self.local_batch)
         llr = self.channel.sample_codewords(generator, sig, bits)
         return llr * (1.0 - 2.0 * bits)
 
@@ -245,6 +316,23 @@ class FERSimulator:
             self.decoder.kernel.launches.update(g.launches)
             return g.out
 
+    def _read(self, params: Params, generator: torch.Generator, sigma: float,
+              ckpt_due: bool) -> _Pending:
+        """One chunk, enqueued, its counters on their way to the host.
+        Under a mesh they are summed over the ranks, with `ckpt_due` (this
+        rank's checkpoint timer ran out) appended, so that every rank
+        checkpoints on the same read.  The sum runs outside the captured
+        graph, after the replay on the same stream; the next replay, which
+        overwrites the graph's output, is enqueued after the copy."""
+        counters = self._chunk(params, generator, sigma)
+        if self.mesh is None:
+            return _Pending(counters, ckpt_due)
+        flagged = torch.empty(counters.numel() + 1, dtype=torch.int64,
+                              device=counters.device)
+        flagged[:-1].copy_(counters)
+        flagged[-1:].fill_(int(ckpt_due))
+        return _Pending(all_sum(self.mesh, flagged), ckpt_due, reduced=True)
+
     def _capture(self, key: tuple, params: Params, generator: torch.Generator,
                  sigma: float) -> _GraphedChunk:
         """Capture `_steps` as a CUDA graph that draws from `generator`.
@@ -282,11 +370,11 @@ class FERSimulator:
         kernel.captured.clear()
         return _GraphedChunk(key, dict(params), generator, graph, out, launches)
 
-    @staticmethod
-    def _ckpt_obj(snr_db: float, c: SimCounters, state: List[int],
+    def _ckpt_obj(self, snr_db: float, c: SimCounters, state: List[int],
                   done: bool = False) -> dict:
         return {"snr_db": float(snr_db), **{f: getattr(c, f) for f in _COUNTERS},
-                "generator_state": state, "done": done}
+                "generator_state": state, "done": done,
+                "world": 1 if self.mesh is None else self.mesh.world}
 
     def run_point(self, params: Params, snr_db: float,
                   generator: torch.Generator,
@@ -311,10 +399,17 @@ class FERSimulator:
         so every frame counts once.  A finished point's record is marked
         ``"done"``; re-running the same command then returns its counters
         without new work, since the stop rules are checked against the
-        resumed counters before anything is launched."""
+        resumed counters before anything is launched.
+
+        Under a mesh every rank passes the same `generator` state and draws
+        from its `rank_generator`; in a world of W > 1 each rank keeps its
+        checkpoint in ``{ckpt_path}.part{rank}`` (the summed counters and
+        its generator's state), and a resume under another world size
+        raises (`resume_ckpt`)."""
         sigma = float(np.float32(self.channel.code.snr_sigmas([snr_db])[0]))
         c = SimCounters()
-        resumed = _load_ckpt(ckpt_path, snr_db)
+        ckpt_path, resumed = resume_ckpt(ckpt_path, snr_db, self.mesh)
+        generator = rank_generator(generator, self.mesh)
         if resumed is not None:
             for f in _COUNTERS:
                 setattr(c, f, int(resumed.get(f, 0)))
@@ -336,29 +431,39 @@ class FERSimulator:
 
         t0 = time.perf_counter()
         t_ckpt = t0
+
+        def read() -> _Pending:
+            # the timer restarts when a due read is queued, so the read
+            # queued behind it (before its checkpoint) is not due as well
+            nonlocal t_ckpt
+            now = time.perf_counter()
+            due = bool(ckpt_path) and now - t_ckpt >= ckpt_every_s
+            if due:
+                t_ckpt = now
+            return self._read(params, generator, sigma, due)
+
         pending = None
         reads = 0
         # the generator state that regenerates every chunk not yet counted
         state_unacc = generator_state(generator) if ckpt_path else None
         if c.frames + frames_per_step <= max_frames and not target_met():
-            pending = _Pending(self._chunk(params, generator, sigma))
+            pending = read()
         while pending is not None:
             nxt = None
             state_next = generator_state(generator) if ckpt_path else None
             if c.frames + 2 * frames_per_step <= max_frames:
-                nxt = _Pending(self._chunk(params, generator, sigma))
+                nxt = read()
+            counts, ckpt_due = pending.get()
             if syndrome:
-                c.add_deploy(frames_per_step, *pending.get())
+                c.add_deploy(frames_per_step, *counts)
             else:
-                c.add(frames_per_step, *pending.get())
+                c.add(frames_per_step, *counts)
             pending = nxt
             state_unacc = state_next
             reads += 1
             if progress is not None and reads % 50 == 0:
                 progress(c)
-            now = time.perf_counter()
-            if ckpt_path and now - t_ckpt >= ckpt_every_s:
-                t_ckpt = now
+            if ckpt_due:
                 _save_ckpt(ckpt_path, self._ckpt_obj(snr_db, c, state_unacc))
             if target_met():
                 break

@@ -15,6 +15,12 @@ marks them); a step updates them in place.  On the card the decode goes
 through the CUDA pair B4/B5 (`ops/fused_train.py`); on the CPU through the
 plain version.  Nothing here reads a value back to the host: an epoch's
 losses stay on the device until the caller reads their mean.
+
+Under a mesh (`parallel.mesh`) each rank steps on its lanes of the global
+batch; the masked gradients and the loss are summed over the ranks as one
+flat buffer and divided by the world's size, so every rank takes the same
+Adam step on the global batch's mean gradient and the parameters stay
+replicated.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ from ldpc_error_floor_tpu_torch.models.nms import NMSDecoder
 from ldpc_error_floor_tpu_torch.models.weights import (Params, WeightSpec,
                                                        clip_weights,
                                                        trainable_mask)
+from ldpc_error_floor_tpu_torch.parallel.mesh import (DataMesh, all_sum,
+                                                      batch_constraint)
 from ldpc_error_floor_tpu_torch.training.losses import multi_iteration_loss
 
 
@@ -50,12 +58,17 @@ class TrainStep:
     ``static_etha``: 0.0 when the configuration's eta is identically zero;
     the loss then takes its last-iteration path, and a decoder whose
     ``app_t0`` windows the APP stack is legal (its loss window shifts with
-    it)."""
+    it).
+
+    ``mesh``: `llr` and `labels` are this rank's lanes, and the returned
+    loss is the mean over the ranks."""
 
     def __init__(self, decoder: NMSDecoder, spec: WeightSpec, loss_type: int,
                  train_start: int, train_end: int, fixed_init: int = 0,
-                 static_etha: Optional[float] = None):
+                 static_etha: Optional[float] = None,
+                 mesh: Optional[DataMesh] = None):
         self.decoder = decoder
+        self.mesh = mesh
         self.spec = spec
         self.loss_type = loss_type
         self.static_etha = static_etha
@@ -92,21 +105,30 @@ class TrainStep:
                 if p.grad is None:  # Adam must still see the (zero) gradient
                     p.grad = torch.zeros_like(p)
                 p.grad.mul_(masks[k])
+            loss = loss.detach()
+            if self.mesh is not None:
+                grads = [p.grad for p in live.values()]
+                flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
+                all_sum(self.mesh, flat).div_(self.mesh.world)
+                for g, v in zip(grads, flat[:-1].split([g.numel() for g in grads])):
+                    g.copy_(v.view_as(g))
+                loss = flat[-1]
         optimizer.step()
         with torch.no_grad():
             clipped = clip_weights(self.spec, {k: p.detach() for k, p in live.items()},
                                    masks=masks)
             for k, p in live.items():
                 p.copy_(clipped[k])
-        return loss.detach()
+        return loss
 
 
 def make_train_step(decoder: NMSDecoder, spec: WeightSpec, loss_type: int,
                     train_start: int, train_end: int, fixed_init: int = 0,
-                    static_etha: Optional[float] = None) -> TrainStep:
+                    static_etha: Optional[float] = None,
+                    mesh: Optional[DataMesh] = None) -> TrainStep:
     """The step for the training block [train_start, train_end)."""
     return TrainStep(decoder, spec, loss_type, train_start, train_end,
-                     fixed_init, static_etha)
+                     fixed_init, static_etha, mesh)
 
 
 def make_epoch_step(decoder: NMSDecoder, spec: WeightSpec, loss_type: int,
@@ -114,8 +136,13 @@ def make_epoch_step(decoder: NMSDecoder, spec: WeightSpec, loss_type: int,
                     n_steps: int, labels: torch.Tensor, channel=None,
                     sigmas: Optional[torch.Tensor] = None,
                     data_mode: bool = False, encoder=None,
-                    static_etha: Optional[float] = None) -> Callable:
-    """`n_steps` train steps, sampling on the device.  Returns
+                    static_etha: Optional[float] = None,
+                    mesh: Optional[DataMesh] = None) -> Callable:
+    """`n_steps` train steps, sampling on the device.  Under a mesh each
+    rank draws (or slices) the whole global batch of ``labels.shape[-1]``
+    lanes, from the generator every rank holds in the same state, and
+    steps on its own lanes: a world of W trains on the numbers a world of
+    one trains on.  Returns
 
       data_mode=False: epoch(params, optimizer, generator, etha) -> mean loss
         (mixed-SNR AWGN lanes `sigmas` [B] from the channel; with `encoder`,
@@ -125,17 +152,19 @@ def make_epoch_step(decoder: NMSDecoder, spec: WeightSpec, loss_type: int,
 
     The mean loss is a 0-d tensor on the device."""
     step = make_train_step(decoder, spec, loss_type, train_start, train_end,
-                           fixed_init, static_etha)
+                           fixed_init, static_etha, mesh)
     batch = labels.shape[-1]
     nbits = labels.shape[0]
+    shard = batch_constraint(mesh)
+    local_labels = shard(labels)
 
     def batch_of(source, i):
         if data_mode:
-            return source[i * batch:(i + 1) * batch].T.contiguous(), labels
+            return shard(source[i * batch:(i + 1) * batch].T).contiguous(), local_labels
         if encoder is None:
-            return channel.sample(source, sigmas), labels
+            return shard(channel.sample(source, sigmas)), local_labels
         bits = encoder.random_codewords(source, batch)
-        return channel.sample_codewords(source, sigmas, bits), bits[:nbits]
+        return shard(channel.sample_codewords(source, sigmas, bits)), shard(bits[:nbits])
 
     def epoch(params: Params, optimizer: torch.optim.Optimizer, source,
               etha) -> torch.Tensor:

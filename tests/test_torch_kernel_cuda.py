@@ -31,7 +31,9 @@ steps counts exactly what K eager steps count from the same generator
 state and leaves the generator where they leave it, on the fixed-T, early
 stop, syndrome stop, SP and random-codeword paths; neither the steps nor a
 replay synchronise with the host; a new sigma, parameter set or generator
-captures a new graph.
+captures a new graph.  The mesh's host read under an NCCL world of one: its
+summed counters equal the replay's (==) at K = 1 and 4, it does not
+synchronise, and a point on a new generator captures a new graph.
 """
 
 import pytest
@@ -493,7 +495,7 @@ GRAPH_PATHS = [
 ]
 
 
-def _graph_sim(dev, path, K, B=1000):
+def _graph_sim(dev, path, K, B=1000, mesh=None):
     from ldpc_error_floor_tpu_torch.models import NMSDecoder, init_weights
     from ldpc_error_floor_tpu_torch.sim import FERSimulator
     _, sharing, dec, early_stop, stop, words, snr = path
@@ -508,7 +510,7 @@ def _graph_sim(dev, path, K, B=1000):
               0.7 + 0.6 * torch.rand(v.shape, generator=gen, device=dev)
               for k, v in params.items()}
     sim = FERSimulator(decoder, AWGNChannel(code, decoding_type=dec, device=dev),
-                       batch=B, stop=stop, codewords=words, inner_steps=K)
+                       batch=B, stop=stop, codewords=words, inner_steps=K, mesh=mesh)
     return sim, params, float(code.snr_sigmas([snr])[0])
 
 
@@ -588,3 +590,69 @@ def test_changed_sigma_or_params_capture_a_new_graph_on_card():
         c = sim._steps(params, gen, sigma)
     assert sim._graphed is g
     assert b.tolist() == c.tolist() and a.tolist() != b.tolist()
+
+
+# The mesh's host read (`sim/fer.py::_read`) under an NCCL world of one:
+# the replay, then one all-reduce of its counters and the checkpoint flag
+
+
+@pytest.fixture(scope="module")
+def nccl_world_of_one():
+    import torch.distributed as dist
+
+    from ldpc_error_floor_tpu_torch.parallel import data_mesh
+    _cuda()
+    made = not dist.is_initialized()
+    yield data_mesh(device="cuda")
+    if made and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 4])
+def test_mesh_read_equals_plain_read_on_card(nccl_world_of_one, K):
+    """A read's counters summed over a world of one are the replay's, from
+    the same generator state, and the flag comes back summed."""
+    dev = _cuda()
+    mesh = nccl_world_of_one
+    reads = []
+    for m, due in ((None, False), (mesh, True)):
+        sim, params, sigma = _graph_sim(dev, GRAPH_PATHS[1], K, mesh=m)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        reads.append([sim._read(params, gen, sigma, due).get() for _ in range(2)])
+    assert [r[0] for r in reads[0]] == [r[0] for r in reads[1]]
+    assert reads[0][0][0] != reads[0][1][0]
+    assert [r[1] for r in reads[0]] == [False] * 2
+    assert [r[1] for r in reads[1]] == [True] * 2
+
+
+@pytest.mark.cuda
+def test_mesh_read_does_not_synchronise_on_card(nccl_world_of_one):
+    """The replay, the all-reduce and the copy to pinned memory are
+    enqueued without waiting for the card."""
+    dev = _cuda()
+    sim, params, sigma = _graph_sim(dev, GRAPH_PATHS[1], 4, mesh=nccl_world_of_one)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sim._read(params, gen, sigma, False).get()  # the capture, NCCL's first use
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = [sim._read(params, gen, sigma, False) for _ in range(2)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(p.get()[0] for p in pending)
+
+
+@pytest.mark.cuda
+def test_mesh_point_recaptures_on_a_new_generator_on_card(nccl_world_of_one):
+    """In a world of one a point draws from the caller's generator, so a
+    point on another generator captures its own graph."""
+    dev = _cuda()
+    sim, params, _ = _graph_sim(dev, GRAPH_PATHS[1], 2, mesh=nccl_world_of_one)
+    graphs = []
+    for seed in (5, 6):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        sim.run_point(params, 3.0, gen, max_frames=4000, target_frame_errors=None)
+        assert sim._graphed.generator is gen
+        graphs.append(sim._graphed)
+    assert graphs[0] is not graphs[1]
