@@ -52,6 +52,21 @@ exits non-zero:
      1e-5 x max|g| of the plain gradients, summed over chunks of 4096
      words, each scaled by 4096 / 32768, and bit-identical over two
      launches;
+3b. the decoder's API (`decoder_api`) at the main path's width: base20 at
+   4.0 dB on 65536 LLRs drawn from seed 0; `NMSDecoder.decode` with
+   all-zero labels through B1 (stats), B2 (early stop) and B3 (deploy),
+   every output bit-equal (signs of zero included) to the decode without
+   labels, one launch each; labels with one bit set raise `ValueError`
+   with the launch counts unchanged; a decoder on the card with
+   `track_syndrome` raises; `apply(params, llr)` returns the APP stack
+   (JAX's default 'apps') through one launch of B4 alone, its last
+   iteration bit-equal to B1's APP;
+3c. the executed-reference traces (`ref_traces`): for each of the six
+   `tests/data/ref_traces/*.npz`, `collect='app_last'` on the card through
+   B1 (B1-SP for mackay_sp), one launch, the APP on the target columns held
+   to the trace's last iteration at rtol 1e-5 and atol 2e-4 (SP 2e-3), as
+   `tests/test_torch_reference_trace.py`; the worst error per trace is
+   printed;
 4. end to end, each path driven through `FERSimulator.run_point` with the
    launch counts set to 0 just before and read just after (wman_N0576_R34_z24,
    QMS q_bit 5, sharing (3,3,3), 4.0 dB, seed 0, 2^20 frames in batches of
@@ -1025,6 +1040,119 @@ def main() -> int:
     dec_k, ch_adam, llrs = adam_check(2, gen)
     dec_sp, ch_sp, llrs_sp = adam_check(0, gen_sp)
 
+    # ---- 3b. the decoder's API at the main path's width ---------------------------
+    # base20 at 4.0 dB on the LLRs of the end-to-end seed: all-zero labels
+    # through B1, B2 and B3 bit-equal to none, one launch each; labels with
+    # a bit set raise before any launch; so does track_syndrome on the card;
+    # apply's default is 'apps', through B4
+    import numpy as np
+    sig_api = torch.full((MAIN_B,), float(wman.snr_sigmas([4.0])[0]), device=dev)
+    llr_api = AWGNChannel(wman, device=dev).sample(
+        torch.Generator(device=dev).manual_seed(0), sig_api)
+    zeros_api = torch.zeros((wman.n_full, MAIN_B), device=dev)
+    one_bit = zeros_api.clone()
+    one_bit[0, 0] = 1.0
+    api_row = {"B": MAIN_B, "snr_db": 4.0, "weights": "base20"}
+    for label, cfg_api, collect, kname in (
+            ("B1", DecoderConfig(), "stats", "fused_nms_stats"),
+            ("B2", DecoderConfig(early_stop=True), "stats", "fused_nms_early_stop"),
+            ("B3", DecoderConfig(), "deploy", "fused_nms_deploy")):
+        dec_api = NMSDecoder(wman, cfg_api, spec20, graph=wman_graph, device=dev)
+        ref = dec_api.decode(base20, llr_api, collect=collect)
+        dec_api.kernel.launches.clear()
+        out = dec_api.decode(base20, llr_api, labels=zeros_api, collect=collect)
+        torch.cuda.synchronize()
+        launches = dict(dec_api.kernel.launches)
+        equal = (all(torch.equal(x, y) for x, y in zip(out, ref) if x is not None)
+                 and torch.equal(torch.signbit(out[0]), torch.signbit(ref[0])))
+        try:
+            dec_api.decode(base20, llr_api, labels=one_bit, collect=collect)
+            raised = False
+        except ValueError:
+            raised = True
+        if label == "B1":
+            app_b1 = out[0]
+        api_row[label] = {
+            "collect": collect, "early_stop": cfg_api.early_stop,
+            "kernel_launches": launches, "bit_equal": equal, "one_bit_raised": raised,
+            "launches_after_raise": dict(dec_api.kernel.launches),
+            "wrong": int(ref.wrong.sum()) if collect == "deploy" else int(ref.uncor_mask.sum())}
+        check(launches == {kname: 1}, f"decoder_api {label}: launches {launches}")
+        check(equal, f"decoder_api {label}: zero labels not bit-equal to none")
+        check(raised and dec_api.kernel.launches == launches,
+              f"decoder_api {label}: a set label bit raised {raised}, launches "
+              f"{dict(dec_api.kernel.launches)}")
+    try:
+        NMSDecoder(wman, DecoderConfig(track_syndrome=True), spec20, graph=wman_graph,
+                   device=dev)
+        api_row["track_syndrome_raised"] = False
+    except ValueError:
+        api_row["track_syndrome_raised"] = True
+    check(api_row["track_syndrome_raised"], "decoder_api: track_syndrome on the card")
+    dec_api = NMSDecoder(wman, DecoderConfig(), spec20, graph=wman_graph, device=dev)
+    with torch.no_grad():
+        apps_api = dec_api.apply(base20, llr_api).apps
+    torch.cuda.synchronize()
+    tk = dec_api.train_kernel
+    api_row["apply_default"] = {
+        "apps_shape": list(apps_api.shape), "train_launches": dict(tk.launches),
+        "decode_launches": dict(dec_api.kernel.launches),
+        "last_app_equal_b1": bool(torch.equal(apps_api[-1], app_b1))}
+    emit({"phase": "decoder_api", **api_row})
+    check(tuple(apps_api.shape) == (T_MAIN, wman.n_full, MAIN_B),
+          f"decoder_api: apply's APPs {tuple(apps_api.shape)}")
+    check(tk.launches == {tk.fwd_name: 1} and not dec_api.kernel.launches,
+          f"decoder_api: apply launched {dict(tk.launches)}, {dict(dec_api.kernel.launches)}")
+    check(api_row["apply_default"]["last_app_equal_b1"],
+          "decoder_api: apply's last APP differs from B1's")
+    del apps_api, app_b1, out, ref
+    torch.cuda.empty_cache()
+
+    # ---- 3c. the decode kernels against the executed-reference traces -----------
+    # collect='app_last' through B1 (B1-SP on mackay_sp) on each trace's
+    # inputs and weights, held to its last iteration's APP at the
+    # tolerances of tests/test_torch_reference_trace.py
+    trace_dir = os.path.join(REPO, "tests", "data", "ref_traces")
+    trace_files = sorted(f for f in os.listdir(trace_dir) if f.endswith(".npz"))
+    check(len(trace_files) >= 6 and "mackay_sp.npz" in trace_files,
+          f"reference traces: {trace_files}")
+    trace_rows = {}
+    for fname in trace_files:
+        d = dict(np.load(os.path.join(trace_dir, fname)))
+        tcode = get_code(d["code"].tobytes().decode())
+        sharing = tuple(int(v) for v in d["sharing"])
+        tspec = WeightSpec(sharing=sharing, n_iters=int(d["T"]),
+                           fixed_iter=int(d["fixed_iter"]))
+        dec_type = int(d["decoding_type"])
+        target = int(d["target_node"]) if int(d["target_node"]) != tcode.N else 0
+        dec_t = NMSDecoder(tcode, DecoderConfig(decoding_type=dec_type, q_bit=int(d["q_bit"]),
+                                                target_node=target), tspec, device=dev)
+        tparams = {kind: None if sharing[i] == 0 else torch.tensor(
+            np.stack([d[f"w_var_{i}_{t}"] for t in range(tspec.n_rows(kind))]),
+            dtype=torch.float32, device=dev) for i, kind in enumerate(("cn", "ucn", "vn"))}
+        xa = d["xa"]  # [B, N, z]
+        tllr = torch.tensor(xa.transpose(1, 2, 0).reshape(-1, xa.shape[0]),
+                            dtype=torch.float32, device=dev).contiguous()
+        app_t = dec_t.decode(tparams, tllr, collect="app_last").app_last
+        got = app_t[: dec_t.target * dec_t.z].cpu().numpy().T
+        want = d["apps"][-1]
+        atol = 2e-3 if dec_type == 0 else 2e-4
+        err = np.abs(got - want)
+        trace_rows[fname[:-4]] = {
+            "code": tcode.name, "decoding_type": dec_type, "sharing": list(sharing),
+            "T": tspec.n_iters, "B": int(xa.shape[0]), "target_node": target,
+            "kernel_launches": dict(dec_t.kernel.launches),
+            "max_abs_app_err": float(err.max()), "atol": atol, "rtol": 1e-5,
+            "err_over_tolerance": float((err / (atol + 1e-5 * np.abs(want))).max())}
+    emit({"phase": "ref_traces", "traces": trace_rows})
+    for tid, row in trace_rows.items():
+        kname = "fused_nms_stats_sp" if row["decoding_type"] == 0 else "fused_nms_stats"
+        check(row["kernel_launches"] == {kname: 1},
+              f"ref_traces {tid}: launches {row['kernel_launches']}")
+        check(row["err_over_tolerance"] <= 1.0,
+              f"ref_traces {tid}: APP {row['max_abs_app_err']} off the trace "
+              f"(rtol 1e-5, atol {row['atol']})")
+
     # ---- 4. end to end: each path -------------------------------------------------
     def simulator(spec, cfg, batch=MAIN_B, stop="genie", dec=2, inner_steps=K_MAIN,
                   cls=None):
@@ -1649,7 +1777,6 @@ def main() -> int:
     # one, launch counts set to 0 just before each and read just after
     import socket
 
-    import numpy as np
     import torch.distributed as dist
 
     from ldpc_error_floor_tpu_torch.io import append_uncor_file

@@ -1,4 +1,4 @@
-from ldpc_error_floor_tpu_torch.codes.protograph import Code, load_proto_matrix
+from ldpc_error_floor_tpu_torch.codes.protograph import Code, load_proto_matrix, save_proto_json
 from ldpc_error_floor_tpu_torch.codes.graph import TannerGraph
 from ldpc_error_floor_tpu_torch.codes.encoder import Encoder, gf2_rref
 from ldpc_error_floor_tpu_torch.codes.library import available_codes, get_code
@@ -9,6 +9,7 @@ __all__ = [
     "Encoder",
     "gf2_rref",
     "load_proto_matrix",
+    "save_proto_json",
     "available_codes",
     "get_code",
 ]

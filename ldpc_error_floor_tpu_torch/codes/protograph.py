@@ -48,6 +48,20 @@ def load_proto_matrix(path_or_name: str) -> np.ndarray:
     return np.loadtxt(path, dtype=np.int64, delimiter="\t")
 
 
+def save_proto_json(proto: np.ndarray, path: str, meta: Optional[dict] = None) -> None:
+    """Store a proto matrix in the compact JSON form `load_proto_matrix`
+    reads: ``{"M", "N", "edges": [[i, j, shift], ...]}`` (column-major),
+    with `meta` under "meta" when given."""
+    m, n = proto.shape
+    edges = [[int(i), int(j), int(proto[i, j])] for j in range(n) for i in range(m)
+             if proto[i, j] != -1]
+    obj = {"M": int(m), "N": int(n), "edges": edges}
+    if meta:
+        obj["meta"] = meta
+    with open(path, "w") as f:
+        json.dump(obj, f)
+
+
 @dataclass(frozen=True)
 class Code:
     """A QC-LDPC (or z=1 generic LDPC) code definition.

@@ -64,8 +64,9 @@ class BoostedDecoder:
         self.decoder = NMSDecoder(code, cfg, spec, graph=graph, device=device)
         self.params = params
 
-    def decode(self, llr: torch.Tensor, collect: str = "stats"):
-        return self.decoder.apply(self.params, llr, collect=collect)
+    def decode(self, llr: torch.Tensor, labels: Optional[torch.Tensor] = None,
+               collect: str = "stats"):
+        return self.decoder.decode(self.params, llr, labels=labels, collect=collect)
 
     def base_failure_mask(self, result: DecodeResult) -> torch.Tensor:
         """[B] bool: frames the base stage (iterations < boundary) never

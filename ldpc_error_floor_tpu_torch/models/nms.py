@@ -1,16 +1,20 @@
 """Neural min-sum (NMS) decoder (port of `ldpc_error_floor_tpu/models/nms.py`).
 
-`NMSDecoder.apply(params, llr, collect='stats')` decodes ``llr [N*z, B]``
-(p1/p0 channel LLRs, batch last) for `spec.n_iters` iterations and returns
-the final clipped APP plus per-iteration frame-wrong flags and bit-error
-counts against the all-zero codeword (with ``DecoderConfig.early_stop``,
-the genie early stop).  ``collect='deploy'`` stops each word at its first
+`NMSDecoder.decode(params, llr, labels=None, collect='stats')` decodes
+``llr [N*z, B]`` (p1/p0 channel LLRs, batch last) for `spec.n_iters`
+iterations and returns the final clipped APP plus per-iteration frame-wrong
+flags and bit-error counts against the codeword bits ``labels [target*z,
+B]`` (None: the all-zero codeword; with ``DecoderConfig.early_stop``, the
+genie early stop).  ``collect='deploy'`` stops each word at its first
 iteration whose hard decisions satisfy every check (`DeployResult`).
 ``collect='apps'`` returns the per-iteration APP stack on the target
-columns, differentiable with respect to the weights (training).  The work
-goes to `ops.fused_decoder.FusedNMSKernel` and, for 'apps',
+columns, differentiable with respect to the weights (training);
+`NMSDecoder.apply` is `decode` with that default, as in the JAX package.
+The work goes to `ops.fused_decoder.FusedNMSKernel` and, for 'apps',
 `ops.fused_train.FusedTrainKernel`: hand-written CUDA kernels for a tensor
-on the card, their plain PyTorch versions for a tensor on the CPU.
+on the card, their plain PyTorch versions for a tensor on the CPU.  The
+kernels count against the all-zero codeword: on the card, labels whose
+bits are not all zero raise, and so does ``track_syndrome``.
 
 Sign conventions (as in the JAX package): positive LLR means bit 1; a bit is
 wrong when ``APP >= 0``; the check-node sign is
@@ -56,6 +60,9 @@ class DecoderConfig:
     #   package's pallas_app_t0): only iterations t >= app_t0 are returned,
     #   [T - app_t0, target*z, B].  Legal only under the static eta = 0 loss,
     #   whose cotangents below the window are zero; training sets T-1 then
+    track_syndrome: bool = False  # collect='stats' also returns syndrome_ok,
+    #   [T, B]: H*x == 0 at iteration t.  The plain path only (no kernel
+    #   computes it: a decoder on the card raises), and not with early_stop
 
     def __post_init__(self):
         if self.decoding_type not in (SP, MS, QMS, MS_RAW):
@@ -64,6 +71,8 @@ class DecoderConfig:
             raise ValueError(f"bad neural_mode {self.neural_mode!r}")
         if self.app_t0 < 0:
             raise ValueError(f"bad app_t0 {self.app_t0}")
+        if self.track_syndrome and self.early_stop:
+            raise ValueError("track_syndrome needs every iteration: not with early_stop")
 
 
 class DecodeResult(NamedTuple):
@@ -71,6 +80,7 @@ class DecodeResult(NamedTuple):
     err_flags: Optional[torch.Tensor]      # [T, B] bool — frame wrong at iter t
     bit_errors: Optional[torch.Tensor]     # [T, B] int32 — bit errors at iter t
     apps: Optional[torch.Tensor] = None    # [T - app_t0, target*z, B] clipped APPs
+    syndrome_ok: Optional[torch.Tensor] = None  # [T, B] bool — H*x == 0 at iter t
 
     @property
     def uncor_mask(self) -> torch.Tensor:
@@ -106,18 +116,27 @@ class NMSDecoder:
         self.cfg = cfg
         self.spec = spec
         self.graph = graph if graph is not None else TannerGraph(code)
+        if cfg.track_syndrome and torch.device(device).type != "cpu":
+            raise ValueError("track_syndrome has no kernel: decode on the CPU")
         self.device = resolve_device(device)
         self.N, self.M, self.z = code.N, code.M, code.z
         self.target = cfg.target_node if cfg.target_node > 0 else self.N
         self.kernel = FusedNMSKernel(self.graph, cfg, spec)
         self.train_kernel = FusedTrainKernel(self.graph, cfg, spec)
 
-    def apply(self, params: Params, llr: torch.Tensor,
-              collect: str = "stats"):
+    def decode(self, params: Params, llr: torch.Tensor,
+               labels: Optional[torch.Tensor] = None, collect: str = "stats"):
         """Run `spec.n_iters` decoding iterations on ``llr [N*z, B]``.
 
+        labels: the codeword bits ``[target*z, B]`` (any dtype; bit 1 where
+        ``labels >= 0.5``) that 'stats' and 'deploy' count errors against;
+        None is the all-zero codeword.  The kernels count against the zero
+        word, so on the card labels with a bit set raise `ValueError`.
+        'apps' and 'app_last' ignore them.
+
         collect: 'stats' (final APP + per-iteration error flags and
-        bit-error counts), 'app_last' (final APP only), 'deploy' (syndrome
+        bit-error counts, and with ``cfg.track_syndrome`` the per-iteration
+        syndrome flags), 'app_last' (final APP only), 'deploy' (syndrome
         stop per word; returns a `DeployResult`) or 'apps' (the clipped APPs
         of iterations t >= app_t0 on the target columns, differentiable
         with respect to `params`; `app_last` is then the last of them).
@@ -128,13 +147,17 @@ class NMSDecoder:
             raise ValueError(f"llr on {llr.device}, decoder on {self.device}")
         stacked = stack_weights(self.spec, params)
         if collect == "deploy":
-            return DeployResult(*self.kernel.decode_deploy(stacked, llr))
+            return DeployResult(*self.kernel.decode_deploy(stacked, llr, labels))
         if collect == "apps":
             apps = self.train_kernel.apps(stacked, llr)
             return DecodeResult(apps[-1], None, None, apps)
-        app, err, nerr = self.kernel.decode_stats(stacked, llr)
         if collect == "app_last":
-            return DecodeResult(app, None, None)
-        return DecodeResult(app, err, nerr)
+            return DecodeResult(self.kernel.decode_stats(stacked, llr)[0], None, None)
+        app, err, nerr, *synd = self.kernel.decode_stats(stacked, llr, labels)
+        return DecodeResult(app, err, nerr, None, *synd)
 
-    decode = apply
+    def apply(self, params: Params, llr: torch.Tensor,
+              labels: Optional[torch.Tensor] = None, collect: str = "apps"):
+        """`decode` with the JAX package's default for composing into a
+        training step: ``collect='apps'``."""
+        return self.decode(params, llr, labels, collect)

@@ -4,7 +4,8 @@ versions.
 `FusedNMSKernel` replaces `ldpc_error_floor_tpu/ops/pallas_decoder.py::
 FusedNMSKernel` in all its modes, for every decoding type (SP, MS, QMS,
 MS_RAW).  It takes ``llr [N*z, B]`` float32 and per-iteration weights
-``[T, dim]`` and decodes against the all-zero codeword:
+``[T, dim]`` and decodes against the all-zero codeword (the plain versions
+also against given codeword bits, ``labels``):
 
 * `decode_stats` returns ``(app_last [N*z, B] float32, err_flags [T, B]
   bool, bit_errors [T, B] int32)``: a fixed T, or with
@@ -462,6 +463,14 @@ def _parity_ok(tables: PlainTables, graph: TannerGraph,
     return torch.prod(pm, dim=1) > 0
 
 
+def _syndrome_ok(tables: PlainTables, graph: TannerGraph,
+                 app: torch.Tensor) -> torch.Tensor:
+    """[B] bool: the hard decisions of ``app [N*z, B]`` satisfy every check."""
+    zero_row = app.new_zeros((1, app.shape[-1]))
+    bits_pad = torch.cat([(app >= 0.0).float(), zero_row], dim=0)
+    return _parity_ok(tables, graph, bits_pad).all(dim=1).all(dim=0)
+
+
 def plain_iterations(graph: TannerGraph, tables: PlainTables,
                      cfg: DecoderConfig, spec: WeightSpec, stacked: Stacked,
                      llr: torch.Tensor) -> Iterator[torch.Tensor]:
@@ -570,28 +579,52 @@ def _group_any(x: torch.Tensor, group: int) -> torch.Tensor:
     return xp.view(-1, group).any(dim=1).repeat_interleave(group)[:B]
 
 
+def _label_bits(labels: Optional[torch.Tensor], rows: int,
+                llr: torch.Tensor) -> Optional[torch.Tensor]:
+    """The codeword bits ``labels >= 0.5`` ([rows, B] bool, on llr's
+    device), or None for the all-zero word."""
+    if labels is None:
+        return None
+    want = (rows, llr.shape[-1])
+    if tuple(labels.shape) != want:
+        raise ValueError(f"labels of shape {tuple(labels.shape)}, wanted {want}")
+    if labels.device != llr.device:
+        raise ValueError(f"labels on {labels.device}, llr on {llr.device}")
+    return labels >= 0.5
+
+
 def decode_stats_plain(graph: TannerGraph, tables: PlainTables,
                        cfg: DecoderConfig, spec: WeightSpec, stacked: Stacked,
                        llr: torch.Tensor, early_stop: bool = False,
-                       group: int = 1):
-    """Stats against the all-zero word: (app_last, err_flags [T, B],
-    bit_errors [T, B]).  `early_stop` emulates the kernel's genie stop per
-    `group` of consecutive words: a group stops after the first iteration
-    by which each of its words has decoded at least once; its later rows
-    read 0 and its APP is that of its stop iteration."""
+                       group: int = 1, labels: Optional[torch.Tensor] = None):
+    """Stats against the codeword bits `labels` ([target*z, B], bit 1 where
+    ``labels >= 0.5``; None: the all-zero word): (app_last, err_flags
+    [T, B], bit_errors [T, B]), and under ``cfg.track_syndrome`` a fourth,
+    syndrome_ok [T, B] (H*x == 0 at each iteration).  `early_stop` emulates
+    the kernel's genie stop per `group` of consecutive words: a group stops
+    after the first iteration by which each of its words has decoded at
+    least once; its later rows read 0 and its APP is that of its stop
+    iteration."""
     z = graph.code.z
     target = cfg.target_node if cfg.target_node > 0 else graph.code.N
     T, B, dev = spec.n_iters, llr.shape[-1], llr.device
+    bits = _label_bits(labels, target * z, llr)
     err = torch.zeros((T, B), dtype=torch.bool, device=dev)
     nerr = torch.zeros((T, B), dtype=torch.int32, device=dev)
+    synd = (torch.zeros((T, B), dtype=torch.bool, device=dev)
+            if cfg.track_syndrome else None)
     app_out = None
     running = torch.ones(B, dtype=torch.bool, device=dev)
     still_wrong = torch.ones(B, dtype=torch.bool, device=dev)
     for t, app in enumerate(plain_iterations(graph, tables, cfg, spec,
                                              stacked, llr)):
         wrong = app[: target * z] >= 0.0
+        if bits is not None:
+            wrong = wrong != bits
         nerr_t = wrong.sum(dim=0, dtype=torch.int32)
         err_t = wrong.any(dim=0)
+        if synd is not None:
+            synd[t] = _syndrome_ok(tables, graph, app)
         if not early_stop:
             err[t], nerr[t], app_out = err_t, nerr_t, app
             continue
@@ -602,33 +635,35 @@ def decode_stats_plain(graph: TannerGraph, tables: PlainTables,
         running &= _group_any(still_wrong, group)
         if not running.any():
             break
-    return app_out, err, nerr
+    return (app_out, err, nerr) if synd is None else (app_out, err, nerr, synd)
 
 
 def decode_deploy_plain(graph: TannerGraph, tables: PlainTables,
                         cfg: DecoderConfig, spec: WeightSpec, stacked: Stacked,
-                        llr: torch.Tensor):
+                        llr: torch.Tensor, labels: Optional[torch.Tensor] = None):
     """Syndrome stop (the scan twin at `ldpc_error_floor_tpu/models/nms.py`
     `collect='deploy'`), freezing in the loop: (app, wrong, bit_errors,
     iters, detected_fail), each word's frozen at its first iteration whose
-    hard decisions satisfy every check (else at T-1, with detected_fail)."""
+    hard decisions satisfy every check (else at T-1, with detected_fail);
+    errors against `labels` as in `decode_stats_plain`."""
     z = graph.code.z
     target = cfg.target_node if cfg.target_node > 0 else graph.code.N
     B, dev = llr.shape[-1], llr.device
+    bits = _label_bits(labels, target * z, llr)
     run = torch.ones(B, dtype=torch.bool, device=dev)
     wrong = torch.zeros(B, dtype=torch.bool, device=dev)
     nerr = torch.zeros(B, dtype=torch.int32, device=dev)
     iters = torch.zeros(B, dtype=torch.int32, device=dev)
-    zero_row = torch.zeros((1, B), dtype=torch.float32, device=dev)
     app_out = None
     for app in plain_iterations(graph, tables, cfg, spec, stacked, llr):
         w = app[: target * z] >= 0.0
+        if bits is not None:
+            w = w != bits
         app_out = app if app_out is None else torch.where(run, app, app_out)
         wrong = torch.where(run, w.any(dim=0), wrong)
         nerr = torch.where(run, w.sum(dim=0, dtype=torch.int32), nerr)
         iters += run.int()
-        bits_pad = torch.cat([(app >= 0.0).float(), zero_row], dim=0)
-        run &= ~_parity_ok(tables, graph, bits_pad).all(dim=1).all(dim=0)
+        run &= ~_syndrome_ok(tables, graph, app)
         if not run.any():
             break
     return app_out, wrong, nerr, iters, run
@@ -685,25 +720,43 @@ class FusedNMSKernel:
         return lib.fused_nms_resident_blocks(mode, int(self.cfg.decoding_type == SP),
                                              int(self.code), threads, smem)
 
-    def decode_stats(self, stacked: Stacked, llr: torch.Tensor):
+    def decode_stats(self, stacked: Stacked, llr: torch.Tensor,
+                     labels: Optional[torch.Tensor] = None):
         """llr: [N*z, B] float32.  The CUDA kernel (fixed T, or the genie
         early stop under ``cfg.early_stop``) for a tensor on the card, the
-        plain version for a tensor on the CPU."""
+        plain version for a tensor on the CPU.  `labels` as in
+        `decode_stats_plain`; the kernel counts against the zero word, so
+        on the card labels with a bit set raise, as does
+        ``cfg.track_syndrome``."""
         if llr.device.type == "cpu":
-            return self.decode_stats_plain(stacked, llr)
+            return self.decode_stats_plain(stacked, llr, labels=labels)
         if llr.device.type != "cuda":
             raise ValueError(f"unsupported device {llr.device}")
+        if self.cfg.track_syndrome:
+            raise ValueError("track_syndrome has no kernel: decode on the CPU")
+        self._zero_labels(labels, llr)
         return self._launch(stacked, llr,
                             EARLY_STOP if self.cfg.early_stop else FIXED)
 
-    def decode_deploy(self, stacked: Stacked, llr: torch.Tensor):
+    def decode_deploy(self, stacked: Stacked, llr: torch.Tensor,
+                      labels: Optional[torch.Tensor] = None):
         """llr: [N*z, B] float32.  The syndrome-stop kernel for a tensor on
-        the card, the plain version for a tensor on the CPU."""
+        the card, the plain version for a tensor on the CPU; `labels` as in
+        `decode_stats`."""
         if llr.device.type == "cpu":
-            return self.decode_deploy_plain(stacked, llr)
+            return self.decode_deploy_plain(stacked, llr, labels=labels)
         if llr.device.type != "cuda":
             raise ValueError(f"unsupported device {llr.device}")
+        self._zero_labels(labels, llr)
         return self._launch(stacked, llr, DEPLOY)
+
+    def _zero_labels(self, labels: Optional[torch.Tensor], llr: torch.Tensor) -> None:
+        """Raise unless `labels` is None or the all-zero word (one host
+        read), which is what the kernel counts against."""
+        bits = _label_bits(labels, self.target * self.z, llr)
+        if bits is not None and bool(bits.any()):
+            raise ValueError("the kernel counts errors against the all-zero codeword: "
+                             "labels with a bit set decode on the CPU")
 
     def _tables(self, device) -> PlainTables:
         tabs = self._plain_tables.get(device)
@@ -713,7 +766,8 @@ class FusedNMSKernel:
 
     def decode_stats_plain(self, stacked: Stacked, llr: torch.Tensor,
                            early_stop: Optional[bool] = None,
-                           group: Optional[int] = None):
+                           group: Optional[int] = None,
+                           labels: Optional[torch.Tensor] = None):
         """The plain PyTorch version on any device (the kernel's reference).
         `early_stop` defaults to the config's, `group` to the kernel's G."""
         if early_stop is None:
@@ -721,12 +775,14 @@ class FusedNMSKernel:
         return decode_stats_plain(self.graph, self._tables(llr.device),
                                   self.cfg, self.spec, stacked, llr,
                                   early_stop=early_stop,
-                                  group=self.group if group is None else group)
+                                  group=self.group if group is None else group,
+                                  labels=labels)
 
-    def decode_deploy_plain(self, stacked: Stacked, llr: torch.Tensor):
+    def decode_deploy_plain(self, stacked: Stacked, llr: torch.Tensor,
+                            labels: Optional[torch.Tensor] = None):
         """The plain PyTorch version of `decode_deploy` on any device."""
         return decode_deploy_plain(self.graph, self._tables(llr.device),
-                                   self.cfg, self.spec, stacked, llr)
+                                   self.cfg, self.spec, stacked, llr, labels=labels)
 
     def graph_table(self, device) -> torch.Tensor:
         """The kernel's graph table (`_graph_table`) on `device`, copied

@@ -109,7 +109,7 @@ def test_boosted30_prefix_rows_equal_base20():
                              graph=graph, device="cpu")
     res_b = boosted.decode(llr)
     res_s = NMSDecoder(code, DecoderConfig(), s20, graph=graph,
-                       device="cpu").apply(base20, llr)
+                       device="cpu").apply(base20, llr, collect="stats")
     assert torch.equal(res_b.err_flags[:20], res_s.err_flags)
     assert torch.equal(res_b.bit_errors[:20], res_s.bit_errors)
     assert torch.equal(boosted.base_failure_mask(res_b), res_s.uncor_mask)

@@ -54,13 +54,14 @@ def test_harvester_rows_equal_uncor_columns(setup, cap):
     want, hits = [], 0
     for _ in range(3):
         llr = ch.sample(gen, torch.full((128,), sigma))
-        mask = dec.apply(params, llr).uncor_mask
+        mask = dec.apply(params, llr, collect="stats").uncor_mask
         hits += int(mask.sum())
         want.append(llr[:, mask][:, :cap].T.numpy())
     want = np.concatenate(want)
     assert h.frames == 384 and h.hits == hits > cap
     np.testing.assert_array_equal(words, want)
-    assert bool(dec.apply(params, torch.from_numpy(words.T.copy())).uncor_mask.all())
+    assert bool(dec.apply(params, torch.from_numpy(words.T.copy()),
+                          collect="stats").uncor_mask.all())
 
 
 def test_harvester_resume_appends_identically(setup, tmp_path):

@@ -33,7 +33,10 @@ stop, syndrome stop, SP and random-codeword paths; neither the steps nor a
 replay synchronise with the host; a new sigma, parameter set or generator
 captures a new graph.  The mesh's host read under an NCCL world of one: its
 summed counters equal the replay's (==) at K = 1 and 4, it does not
-synchronise, and a point on a new generator captures a new graph.
+synchronise, and a point on a new generator captures a new graph.  The
+decoder's API: all-zero labels bit-equal to none through B1, B2 and B3,
+labels with a bit set or of the wrong shape and `track_syndrome` raising
+before any launch, and `apply`'s default 'apps' through B4.
 """
 
 import pytest
@@ -41,7 +44,7 @@ import torch
 
 from ldpc_error_floor_tpu_torch.channel import AWGNChannel
 from ldpc_error_floor_tpu_torch.codes import TannerGraph, get_code
-from ldpc_error_floor_tpu_torch.models import DecoderConfig, WeightSpec
+from ldpc_error_floor_tpu_torch.models import DecoderConfig, NMSDecoder, WeightSpec
 from ldpc_error_floor_tpu_torch.ops.fused_decoder import (DEPLOY, EARLY_STOP, FIXED,
                                                           FusedNMSKernel)
 from ldpc_error_floor_tpu_torch.ops.fused_train import FusedTrainKernel
@@ -320,6 +323,68 @@ def test_kernel_rejects_sp_and_bad_inputs_on_card():
     with pytest.raises(ValueError, match="cn weights"):
         kern.decode_stats({**w, "cn": torch.ones((3, 1), device=dev)}, llr)
     assert not kern.launches
+
+
+# (decoder config, collect, the kernel it launches)
+API_PATHS = [
+    ({}, "stats", "fused_nms_stats"),
+    ({"early_stop": True}, "stats", "fused_nms_early_stop"),
+    ({}, "deploy", "fused_nms_deploy"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", API_PATHS, ids=lambda p: p[2])
+def test_decoder_labels_on_card(path):
+    """`NMSDecoder.decode` on the card: all-zero labels (float and bool) run
+    the kernel once and give outputs bit-equal to no labels; labels with a
+    bit set, and labels of the wrong shape, raise before any launch."""
+    dev = _cuda()
+    overrides, collect, name = path
+    kern, stacked, llr = _setup(dev, WMAN, (3, 3, 3), 2, 3.5, T=8, B=1001)
+    dec = NMSDecoder(kern.graph.code, DecoderConfig(**overrides), kern.spec,
+                     graph=kern.graph, device=dev)
+    ref = dec.decode(stacked, llr, collect=collect)
+    zeros = torch.zeros((dec.target * dec.z, llr.shape[1]), device=dev)
+    for labels in (zeros, zeros.bool()):
+        dec.kernel.launches.clear()
+        out = dec.decode(stacked, llr, labels=labels, collect=collect)
+        torch.cuda.synchronize()
+        assert dec.kernel.launches == {name: 1}
+        for x, y in zip(out, ref):
+            assert (x is None and y is None) or (
+                x.device.type == "cuda" and x.dtype == y.dtype and torch.equal(x, y))
+        assert torch.equal(torch.signbit(out[0]), torch.signbit(ref[0]))
+    one_bit = zeros.clone()
+    one_bit[5, 7] = 1.0
+    for labels, msg in ((one_bit, "all-zero codeword"), (zeros[:-1], "labels of shape")):
+        with pytest.raises(ValueError, match=msg):
+            dec.decode(stacked, llr, labels=labels, collect=collect)
+    assert dec.kernel.launches == {name: 1}
+
+
+@pytest.mark.cuda
+def test_track_syndrome_and_apply_default_on_card():
+    """A decoder for the card with `track_syndrome` raises, and so does the
+    kernel wrapper given a card tensor under it; `apply(params, llr)`
+    returns the APP stack through B4 alone, as JAX's default 'apps'."""
+    dev = _cuda()
+    kern, stacked, llr = _setup(dev, WMAN, (3, 3, 3), 2, 3.5, T=8, B=1001)
+    code = kern.graph.code
+    with pytest.raises(ValueError, match="track_syndrome"):
+        NMSDecoder(code, DecoderConfig(track_syndrome=True), kern.spec, device=dev)
+    tracking = FusedNMSKernel(kern.graph, DecoderConfig(track_syndrome=True), kern.spec)
+    with pytest.raises(ValueError, match="track_syndrome"):
+        tracking.decode_stats(stacked, llr)
+    assert not tracking.launches
+    dec = NMSDecoder(code, DecoderConfig(), kern.spec, graph=kern.graph, device=dev)
+    res = dec.apply(stacked, llr)
+    app_b1 = kern.decode_stats(stacked, llr)[0]
+    torch.cuda.synchronize()
+    assert res.err_flags is None and res.apps.shape == (8, code.n_full, 1001)
+    assert dec.train_kernel.launches == {dec.train_kernel.fwd_name: 1}
+    assert not dec.kernel.launches
+    assert torch.equal(res.apps[-1], app_b1)  # B4 and B1 run one loop: QMS bit-equal
 
 
 # (code, sharing, decoding_type, T, loss_type, etha, neural_mode, target_node):

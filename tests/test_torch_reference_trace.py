@@ -6,9 +6,9 @@ respect to its weight variables (`tests/test_reference_trace.py` holds the
 JAX package to them).  These tests hold the port to the same numbers, with
 nothing of JAX: the plain PyTorch path (`NMSDecoder.apply(collect='apps')`
 on CPU tensors: autograd through `ops/fused_decoder.py::plain_iterations`)
-here, and the CUDA training pair (B4/B5, for SP B4-SP/B5-SP) on the card
-(marker `cuda`; `python -m pytest --noconftest -m cuda
-tests/test_torch_reference_trace.py`).
+here, and on the card (marker `cuda`; `python -m pytest --noconftest -m cuda
+tests/test_torch_reference_trace.py`) the CUDA training pair (B4/B5, for SP
+B4-SP/B5-SP) and the decode kernel's final APP (B1, for SP B1-SP).
 
 Tolerances as `tests/test_reference_trace.py`: APPs rtol 1e-5 and atol 2e-4
 (2e-3 for SP: float32 tanh/atanh differ in the last ulps between TF and
@@ -43,9 +43,10 @@ def _load(path):
     return d, meta
 
 
-def _run(path, device):
-    """The port on a trace's inputs and weights: (APPs [T, B, target*z],
-    loss, gradients of the stored weight rows)."""
+def _setup(path, device):
+    """A trace's data and metadata, the port's decoder for its
+    configuration, its weight rows (requiring gradients) and its LLRs
+    [N*z, B]."""
     d, meta = _load(path)
     code = get_code(meta["code"])
     graph = TannerGraph(code)
@@ -66,6 +67,14 @@ def _run(path, device):
     xa = d["xa"]  # [B, N, z]
     llr = torch.tensor(xa.transpose(1, 2, 0).reshape(-1, xa.shape[0]),
                        dtype=torch.float32, device=device).contiguous()
+    return d, meta, dec, params, llr
+
+
+def _run(path, device):
+    """The port on a trace's inputs and weights: (APPs [T, B, target*z],
+    loss, gradients of the stored weight rows)."""
+    d, meta, dec, params, llr = _setup(path, device)
+    code = dec.code
     t_lo = max(meta["fixed_iter"] - meta["fixed_init"], meta["fixed_iter"])
     apps = dec.apply(params, llr, collect="apps").apps
     labels = torch.zeros((dec.target * code.z, llr.shape[1]), device=device)
@@ -118,3 +127,22 @@ def test_training_pair_matches_reference_on_card(path):
     torch.cuda.synchronize()
     assert dec.train_kernel.launches == {dec.train_kernel.fwd_name: 1,
                                          dec.train_kernel.bwd_name: 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", TRACES, ids=IDS)
+def test_decode_kernel_matches_reference_on_card(path):
+    """The decode kernel B1 (mackay_sp: B1-SP), collect='app_last': the
+    final APP on the target columns against the trace's last iteration,
+    in one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    d, meta, dec, params, llr = _setup(path, torch.device("cuda"))
+    with torch.no_grad():
+        app = dec.decode(params, llr, collect="app_last").app_last
+    torch.cuda.synchronize()
+    atol = 2e-3 if meta["decoding_type"] == 0 else 2e-4
+    got = app[: dec.target * dec.z].cpu().numpy().T
+    np.testing.assert_allclose(got, d["apps"][-1], rtol=1e-5, atol=atol)
+    want = "fused_nms_stats_sp" if meta["decoding_type"] == 0 else "fused_nms_stats"
+    assert dec.kernel.launches == {want: 1}
