@@ -10,10 +10,19 @@ exits non-zero:
 
 1. device: `nvidia-smi` name and power limit, torch's device name;
 2. build: nvcc of csrc/fused_nms_stats.cu (every mode of the decode kernel
-   in one library) and of csrc/fused_nms_train.cu (the training pair B4/B5;
-   both include the one decode loop, csrc/fused_nms_kernel.cuh), both
-   started together, timed, with ptxas' register and shared-memory report;
-3. each kernel against its plain PyTorch version on the card, same LLRs:
+   in one library), of csrc/fused_nms_train.cu (the training pair B4/B5;
+   both include the one decode loop, csrc/fused_nms_kernel.cuh) and of
+   csrc/awgn_llr.cu (the channel sampler S1), all started together, timed,
+   with ptxas' register and shared-memory report;
+3. each kernel against its plain PyTorch version on the card:
+   - the channel sampler (S1, `sampler_vs_plain`) on the same noise: wman
+     at 65536 and the 5G code with punctured and shortened rows at 1001
+     words (not a multiple of 4), QMS on every grid (q_bit 6, 5, -5, 4,
+     3), MS, MS_RAW and SP, the zero word, encoded codewords and their
+     fold, one sigma and mixed lanes (`mix_sigma_lanes`), and `sample` /
+     `sample_codewords(fold=True)` against the plain version on their own
+     noise: 0 mismatches as int32 views, one launch each;
+   on the same LLRs:
    - fixed T (B1): QMS counters integer-equal and APPs bit-equal; MS
      counters equal and APPs within atol 1e-4 / rtol 1e-5;
    - genie early stop (B2): flags, counts and QMS APPs equal to the plain
@@ -68,7 +77,8 @@ exits non-zero:
    `tests/test_torch_reference_trace.py`; the worst error per trace is
    printed;
 4. end to end, each path driven through `FERSimulator.run_point` with the
-   launch counts set to 0 just before and read just after (wman_N0576_R34_z24,
+   launch counts (the decode kernel's and the sampler's, one launch of
+   each per batch) set to 0 just before and read just after (wman_N0576_R34_z24,
    QMS q_bit 5, sharing (3,3,3), 4.0 dB, seed 0, 2^20 frames in batches of
    65536, `inner_steps` K = 8: each host read one replay of a CUDA graph of
    8 batches; the launch counts are the batches'):
@@ -98,7 +108,10 @@ exits non-zero:
 5. harvest: `run_collection` with base20 and the early stop at 4.2 dB
    collects 256 words into a temporary Uncor file; the fixed-T kernel finds
    every one wrong at every iteration, boosted30 rescues at least 25%, and
-   the file holds as many rows as words were returned; then
+   the file holds as many rows as words were returned; the harvester's
+   frames and frames/s (`harvest_rate`), cold (a new harvester) and warm
+   (the same one again), each finding run_collection's words, beside a
+   cold and a warm run_point of the same path at 4.2 dB; then
    `classify_failures` (analyze-uncor) over those words: with boosted30 its
    `rescued` equals the count above, with base20 it is 0, one launch of
    the fixed-T kernel each;
@@ -129,12 +142,15 @@ exits non-zero:
    the profiler recorded no activity of the card is taken again, at most
    three times in all, and the count is printed); then run_point
    frames/s, cold (a new simulator) and warm (the same point again), and
+   the sampler's card ms per batch by kernel name (`awgn_llr`, `randn`,
+   the sigma fill), and
    the kernel's share of a warm batch for K = 1 eager, K = 1 graph and
    K = 8 graph on base20 and boosted30 with the early stop, the syndrome
    stop, BP and the deep anchor (each point's counters equal in all six
    runs);
    timing with CUDA events at batch 65536 unless noted: each kernel and its
-   plain version, the early stop at 4.0, 5.0 and 5.5 dB against the
+   plain version (S1 also with the fold, `randn` alone and a whole
+   `sample`), the early stop at 4.0, 5.0 and 5.5 dB against the
    fixed-T kernel on the same LLRs with the distribution of iterations per
    tile of G words (mean, max, share that runs all T), SP at 16384 too,
    run_point frames/s, the syndrome stop's word-iterations and iterations
@@ -171,7 +187,7 @@ exits non-zero:
      ``uncor.txt.part{r}`` files hold exactly the rank generators' rows;
      one train step whose loss and weights agree with a world of one's
      within rtol 1e-5;
-9. the `kernels` line (eight entries), then the card's nvidia-smi line,
+9. the `kernels` line (nine entries), then the card's nvidia-smi line,
    then the result.
 
 It imports neither JAX nor the JAX package. It exits 2, printing nothing
@@ -217,6 +233,10 @@ MESH_RANKS = 2            # the mesh phase's gloo ranks sharing the card
 MESH_TIMEOUT_S = 300      # each rank process, and each collective of theirs
 MESH_WORDS = 64           # the two ranks' harvest, words in all
 TRACE_ATTEMPTS = 3        # a trace with no activity of the card is taken again
+G5 = "5G_LDPC_R0.50_n_dec640_n512_k256_z32_s257_320"  # punctured and shortened rows
+SAMPLER_ODD_B = 1001      # the sampler's ragged batch (B % 4 != 0)
+SAMPLER_TYPES = ((2, 6), (2, 5), (2, -5), (2, 4), (2, 3), (1, 5), (3, 5), (0, 5))
+#                          (decoding type, q_bit): QMS on every grid, MS, MS_RAW, SP
 
 
 def emit(obj) -> None:
@@ -284,6 +304,23 @@ def bound(graph, spec, B: int, word_iters=None, out_bytes_per_word=None,
     out["bound_ms"] = max(bytes_ms, ops_ms)
     out["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
     return out
+
+
+def sampler_bound(R: int, B: int, quantize: bool, fold: bool = False) -> dict:
+    """Least time for S1 on R x B words: device bytes (the noise, the
+    sigmas and, on the fold path, the codeword bits read once; the LLRs
+    written once) over 3.35 TB/s, and its operations over the simple f32
+    rate: per word the multiply and add of y, 2y, sigma^2, the divide, the
+    two blends (subtract, two multiplies, add each), 12; 5 more under QMS
+    (divide, round, multiply, min, max); 5 more on the fold path (2b - 1,
+    then 1 - 2b and its multiply)."""
+    nbytes = 4 * R * B * (3 if fold else 2) + 4 * B
+    ops = R * B * (12 + (5 if quantize else 0) + (5 if fold else 0))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_SIMPLE_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
 def train_bound(kern, B: int, backward: bool) -> dict:
@@ -487,6 +524,17 @@ def trace_summary(trace_path: str, span: str) -> dict:
             "runtime_calls": runtime_n, "runtime_ms": runtime_ms}
 
 
+def sampler_ms_per_batch(summary: dict, batches: int) -> dict:
+    """The channel sampler's card ms per batch in a `trace_summary`, by
+    kernel name: the `awgn_llr` kernel, `randn` (PyTorch's normal
+    distribution kernel) and the sigma fill, and their total."""
+    by = {"awgn_llr": "awgn_llr", "randn": "normal", "fill": "FillFunctor<float>"}
+    out = {k: sum(ms for kn, ms in summary["kernel_ms"].items() if pat in kn) / batches
+           for k, pat in by.items()}
+    out["total"] = sum(out.values())
+    return out
+
+
 def traced(run, tdir: str, span: str) -> dict:
     """Run `run()` inside an `annotate`d `span` under `utils.profiling.trace`
     into `tdir`, then the card's summary of it (`trace_summary`).  A trace
@@ -677,7 +725,7 @@ def main() -> int:
                                                    compose_boosted_params,
                                                    init_weights, load_params,
                                                    stack_weights)
-    from ldpc_error_floor_tpu_torch.ops import fused_train
+    from ldpc_error_floor_tpu_torch.ops import awgn_llr, fused_train
     from ldpc_error_floor_tpu_torch.ops.fused_decoder import (DEPLOY, EARLY_STOP, FIXED,
                                                               FusedNMSKernel,
                                                               load_library)
@@ -709,10 +757,11 @@ def main() -> int:
 
     # ---- 2. build -----------------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
-        builds = [pool.submit(fn) for fn in (load_library, fused_train.load_library)]
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, together
+        builds = [pool.submit(fn) for fn in (load_library, fused_train.load_library,
+                                             awgn_llr.load_library)]
         logs = {src: b.result()[1] for src, b in
-                zip(("fused_nms_stats.cu", "fused_nms_train.cu"), builds)}
+                zip(("fused_nms_stats.cu", "fused_nms_train.cu", "awgn_llr.cu"), builds)}
     ptxas = {src: [ln.strip() for ln in log.splitlines()
                    if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
              for src, log in logs.items()}
@@ -774,6 +823,60 @@ def main() -> int:
             check(bool(torch.allclose(app, app_p, rtol=1e-5, atol=1e-4)),
                   f"{cid}: APP outside atol 1e-4 / rtol 1e-5")
         return diff
+
+    # the channel sampler (S1) against its plain version on the same noise,
+    # every decoding type and grid, the zero word, codewords and the fold,
+    # one sigma and mixed lanes: 0 mismatches as int32 views
+    def sampler_case(ch, noise, sig, bits, fold):
+        ch.launches.clear()
+        out = ch.llr(noise, sig, bits, fold)
+        launches = dict(ch.launches)
+        want = ch.llr_plain(noise, sig, bits, fold)
+        torch.cuda.synchronize()
+        mism = int((out.view(torch.int32) != want.view(torch.int32)).sum())
+        err = float((out - want).abs().max())
+        max_err[awgn_llr.KERNEL] = max(max_err.get(awgn_llr.KERNEL, 0.0), err)
+        check(launches == {awgn_llr.KERNEL: 1}, f"sampler: launches {launches}")
+        check(bool(torch.isfinite(out).all()), "sampler: non-finite LLR")
+        return mism
+
+    from ldpc_error_floor_tpu_torch.channel.awgn import mix_sigma_lanes
+    from ldpc_error_floor_tpu_torch.codes import Encoder
+    sampler_rows = {}
+    g_s = torch.Generator(device=dev).manual_seed(12)  # its own draws
+    for cname, B in ((WMAN, MAIN_B), (G5, SAMPLER_ODD_B)):
+        code = get_code(cname)
+        enc = Encoder(graph_of(cname), device=dev)
+        one = torch.full((B,), float(code.snr_sigmas([4.0])[0]), device=dev)
+        mixed = torch.as_tensor(mix_sigma_lanes(code.snr_sigmas([1.0, 3.0, 5.5]), B),
+                                device=dev)
+        bits = enc.random_codewords(g_s, B)
+        for dec, q in SAMPLER_TYPES:
+            ch = AWGNChannel(code, decoding_type=dec, q_bit=q, device=dev)
+            cases = {}
+            for sname, sig in (("one_sigma", one), ("mixed_lanes", mixed)):
+                noise = torch.randn((code.n_full, B), generator=g_s, device=dev)
+                for path, b, fold in (("zero", None, False), ("codewords", bits, False),
+                                      ("fold", bits, True)):
+                    cases[f"{sname}_{path}"] = sampler_case(ch, noise, sig, b, fold)
+            # the entry points: one launch each, the plain version on their noise
+            for path in ("sample", "sample_codewords_fold"):
+                s0 = g_s.get_state()
+                ch.launches.clear()
+                out = (ch.sample(g_s, mixed) if path == "sample"
+                       else ch.sample_codewords(g_s, mixed, bits, fold=True))
+                launches = dict(ch.launches)
+                g_s.set_state(s0)
+                noise = torch.randn((code.n_full, B), generator=g_s, device=dev)
+                want = ch.llr_plain(noise, mixed, None if path == "sample" else bits,
+                                    path != "sample")
+                cases[path] = int((out.view(torch.int32) != want.view(torch.int32)).sum())
+                check(launches == {awgn_llr.KERNEL: 1}, f"sampler {path}: launches {launches}")
+            sampler_rows[f"{cname[:12]}_B{B}_dec{dec}_q{q}"] = cases
+            check(not any(cases.values()), f"sampler {cname} B={B} dec {dec} q {q}: "
+                                           f"mismatches {cases}")
+    emit({"phase": "sampler_vs_plain", "kernel": awgn_llr.KERNEL, "mismatches": sampler_rows,
+          "max_abs_err": max_err[awgn_llr.KERNEL]})
 
     # (id, code, sharing, decoding type, T, B, neural mode, weights, SNR);
     # the first case of each kernel is the main path's configuration at the
@@ -894,7 +997,6 @@ def main() -> int:
     from ldpc_error_floor_tpu_torch.training import (make_optimizer,
                                                      make_train_step,
                                                      multi_iteration_loss)
-    G5 = "5G_LDPC_R0.50_n_dec640_n512_k256_z32_s257_320"
     spec30_post = WeightSpec(sharing=(3, 3, 3), n_iters=T_BOOST, fixed_iter=T_MAIN)
 
     def post30_stacked():
@@ -1164,15 +1266,20 @@ def main() -> int:
     def drive(label, sim, params, seed, snr=4.0):
         """One run_point of a path, launch counts zeroed just before."""
         sim.decoder.kernel.launches.clear()
+        sim.channel.launches.clear()
         pt = sim.run_point(params, snr, torch.Generator(device=dev).manual_seed(seed),
                            max_frames=MAX_FRAMES, target_frame_errors=None)
         launches = dict(sim.decoder.kernel.launches)
+        sampler = dict(sim.channel.launches)
         emit({"phase": "end_to_end", "path": label, **vars(pt), "inner_steps": sim.inner_steps,
               "genie_errors": round(pt.fer_genie * pt.frames) if pt.fer_genie == pt.fer_genie else None,
-              "kernel_launches": launches})
+              "kernel_launches": launches, "sampler_launches": sampler})
         check(pt.frames == MAX_FRAMES, f"{label}: {pt.frames} frames, wanted {MAX_FRAMES}")
         check(sum(launches.values()) == MAX_FRAMES // MAIN_B and len(launches) == 1,
               f"{label}: launches {launches} for {MAX_FRAMES // MAIN_B} batches")
+        check(sampler == {awgn_llr.KERNEL: MAX_FRAMES // MAIN_B},
+              f"{label}: sampler launches {sampler} for {MAX_FRAMES // MAIN_B} batches")
+        main_launches.setdefault(awgn_llr.KERNEL, sampler)
         return pt, launches
 
     main_launches = {}
@@ -1229,18 +1336,22 @@ def main() -> int:
         test at p >= 0.01; launch counts set to 0 just before."""
         sim = simulator(spec, DecoderConfig(early_stop=True), inner_steps=inner_steps)
         sim.decoder.kernel.launches.clear()
+        sim.channel.launches.clear()
         p = sim.run_point(params, snr, torch.Generator(device=dev).manual_seed(0),
                           max_frames=frames, target_frame_errors=None)
         launches = dict(sim.decoder.kernel.launches)
+        sampler = dict(sim.channel.launches)
         errors = round(p.fer_genie * p.frames)
         pval = binomial_two_sample_p(errors, p.frames, *jax_ref)
         emit({"phase": "end_to_end", "path": label, **vars(p), "inner_steps": sim.inner_steps,
               "genie_errors": errors, "jax_genie_errors": jax_ref[0],
               "jax_frames": jax_ref[1], "two_sample_binomial_p": pval,
-              "kernel_launches": launches})
+              "kernel_launches": launches, "sampler_launches": sampler})
         check(p.frames == frames, f"{label}: {p.frames} frames")
         check(launches == {"fused_nms_early_stop": frames // MAIN_B},
               f"{label}: launches {launches}")
+        check(sampler == {awgn_llr.KERNEL: frames // MAIN_B},
+              f"{label}: sampler launches {sampler}")
         check(pval >= 0.01, f"{label}: {errors} genie errors over {frames} frames against "
                             f"JAX's {jax_ref[0]} over {jax_ref[1]} (p {pval})")
         return p, errors
@@ -1283,6 +1394,29 @@ def main() -> int:
     check(file_rows == words.shape[0], f"{file_rows} rows on file, {words.shape[0]} returned")
     check(bool(err_h.all()), "a harvested word decodes at some iteration")
     check(rescued >= 0.25 * words.shape[0], f"boosted30 rescued {rescued} of {len(words)}")
+    # the harvester's rate: a new harvester (cold: the decoder's first use)
+    # and the same one again (warm), each from seed 0 as run_collection
+    # seeds it, beside a warm run_point of the same path at the same SNR
+    from ldpc_error_floor_tpu_torch.sim import UncorHarvester
+    harv_sim = simulator(spec20, DecoderConfig(early_stop=True))
+    harv = UncorHarvester(harv_sim.decoder, harv_sim.channel, batch=MAIN_B)
+    harvest_rate = {}
+    for label in ("cold", "warm"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = harv.collect(base20, 4.2, torch.Generator(device=dev).manual_seed(0),
+                           target_words=256)
+        dt = time.perf_counter() - t0
+        harvest_rate[label] = {"frames": harv.frames, "seconds": dt,
+                               "frames_per_sec": harv.frames / dt, "words": int(len(got))}
+        check(np.array_equal(got, words), f"harvester ({label}): words differ from "
+                                          f"run_collection's")
+    for label in ("cold", "warm"):
+        p = harv_sim.run_point(base20, 4.2, torch.Generator(device=dev).manual_seed(0),
+                               max_frames=MAX_FRAMES, target_frame_errors=None)
+        harvest_rate[f"run_point_{label}_frames_per_sec"] = p.frames_per_sec
+    emit({"phase": "harvest_rate", "card": smi, "snr_db": 4.2, "batch": MAIN_B,
+          "path": "base20, early stop", **harvest_rate})
 
     # ---- 5b. analyze-uncor over the harvested words -------------------------------
     reports = {}
@@ -1339,7 +1473,8 @@ def main() -> int:
         check(all(files.values()), f"training files missing: {files}")
         check(metrics[-1] <= (1.0 - FER_DROP) * metrics[0],
               f"valid FER_last sum {metrics[0]} -> {metrics[-1]}: no {FER_DROP:.0%} drop")
-        check(res.launches.get(BWD) == 2 * 20 and res.launches.get(FWD, 0) > 2 * 20,
+        check(res.launches.get(BWD) == 2 * 20 and res.launches.get(FWD, 0) > 2 * 20
+              and res.launches.get(awgn_llr.KERNEL, 0) > 2 * 20,
               f"base training launches {res.launches}")
 
         # post block on harvested words, base20 the frozen prefix
@@ -1402,8 +1537,10 @@ def main() -> int:
     check(all(moved_sp.values()), f"SP weights did not move: {moved_sp}")
     check(metrics_sp[-1] <= 1.05 * metrics_sp[0],
           f"SP valid FER_last sum {metrics_sp[0]} -> {metrics_sp[-1]}: more than 5% worse")
-    check(set(res_sp.launches) == {FWD_SP, BWD_SP} and res_sp.launches[BWD_SP] == 2 * 20
-          and res_sp.launches[FWD_SP] > 2 * 20, f"SP training launches {res_sp.launches}")
+    check(set(res_sp.launches) == {FWD_SP, BWD_SP, awgn_llr.KERNEL}
+          and res_sp.launches[BWD_SP] == 2 * 20 and res_sp.launches[FWD_SP] > 2 * 20
+          and res_sp.launches[awgn_llr.KERNEL] > 2 * 20,
+          f"SP training launches {res_sp.launches}")
 
     # ---- 7. timing ----------------------------------------------------------------
     channel = AWGNChannel(wman, device=dev)
@@ -1421,6 +1558,24 @@ def main() -> int:
     st_bp = stack_weights(spec_bp, init_weights(spec_bp, wman_graph, device=dev))
     G = es20.group
     timing, bounds = {}, {}
+
+    # S1, the sampler's kernel, at the main path's batch: the zero word
+    # (QMS q_bit 5, as every run_point samples) and the random-codeword
+    # path's fold, its plain version, randn alone and a whole `sample`
+    sig40 = torch.full((MAIN_B,), float(wman.snr_sigmas([4.0])[0]), device=dev)
+    noise40 = torch.randn((wman.n_full, MAIN_B), generator=gen, device=dev)
+    bits40 = Encoder(wman_graph, device=dev).random_codewords(gen, MAIN_B)
+    timing["awgn_llr_ms"] = time_ms(lambda: channel.llr(noise40, sig40), reps=50)
+    timing["awgn_llr_fold_ms"] = time_ms(lambda: channel.llr(noise40, sig40, bits40, True),
+                                         reps=50)
+    timing["awgn_llr_plain_ms"] = time_ms(lambda: channel.llr_plain(noise40, sig40), reps=10)
+    timing["randn_ms"] = time_ms(lambda: torch.randn((wman.n_full, MAIN_B), generator=gen,
+                                                     device=dev), reps=50)
+    timing["sample_ms"] = time_ms(lambda: channel.sample(gen, sig40), reps=50)
+    bounds[awgn_llr.KERNEL] = sampler_bound(wman.n_full, MAIN_B, quantize=True)
+    bounds["awgn_llr_fold"] = sampler_bound(wman.n_full, MAIN_B, quantize=True, fold=True)
+    timing["awgn_llr_achieved_gb_per_s"] = (bounds[awgn_llr.KERNEL]["bytes"]
+                                            / timing["awgn_llr_ms"] / 1e6)
 
     for B in (16384, MAIN_B, 262144):  # B1, as in PR 1
         llr = llr_at(4.0, B)
@@ -1526,7 +1681,10 @@ def main() -> int:
             base20, 4.0, g_t.manual_seed(0), max_frames=MAX_FRAMES, target_frame_errors=None)),
             os.path.join(trace_root, f"{label}_run_point"), "run_point")
         pt_t = pts[-1]
+        sampler_ms = {"one_host_read": sampler_ms_per_batch(one, k),
+                      "run_point_2^20": sampler_ms_per_batch(whole, MAX_FRAMES // MAIN_B)}
         host_loop[label] = {"one_host_read": one, "run_point_2^20": whole,
+                            "sampler_ms_per_batch": sampler_ms,
                             "run_point_frames_per_sec_traced": pt_t.frames_per_sec,
                             "first_read_ms": first_ms[0], "second_read_ms": first_ms[1],
                             "peak_device_gb_above_start": peak_gb,
@@ -1536,6 +1694,8 @@ def main() -> int:
         check(sum(one["kernel_ms"].get(kn, 0.0) for kn in one["kernel_ms"]
                   if "fused_nms_kernel" in kn) > 0.0,
               f"host loop {label}: no decode kernel in the trace ({list(one['kernel_ms'])})")
+        check(sampler_ms["run_point_2^20"]["awgn_llr"] > 0.0,
+              f"host loop {label}: no awgn_llr kernel in the trace ({list(whole['kernel_ms'])})")
     emit({"phase": "host_loop", "card": smi, "traces": trace_root, **host_loop})
 
     # run_point frames/s and the kernel's share of a batch, K = 1 eager,
@@ -1985,6 +2145,7 @@ def main() -> int:
     # ---- 9. summary -----------------------------------------------------------------
     src = "ldpc_error_floor_tpu_torch/csrc/fused_nms_stats.cu"
     src_train = "ldpc_error_floor_tpu_torch/csrc/fused_nms_train.cu"
+    src_awgn = "ldpc_error_floor_tpu_torch/csrc/awgn_llr.cu"
     rows = [  # (name, source, replaces, ms, plain ms)
         ("fused_nms_stats", src, "ldpc_error_floor_tpu/ops/pallas_decoder.py:435",
          timing[f"fixed20_ms_B{MAIN_B}"], timing["fixed20_plain_ms"]),
@@ -2002,6 +2163,8 @@ def main() -> int:
          train_timing["base_sp_fwd_ms"], train_timing["base_sp_fwd_plain_ms"]),
         (BWD_SP, src_train, "ldpc_error_floor_tpu/ops/pallas_train.py:235",
          train_timing["base_sp_bwd_ms"], train_timing["base_sp_bwd_plain_ms"]),
+        (awgn_llr.KERNEL, src_awgn, "ldpc_error_floor_tpu/channel/awgn.py:61-89",
+         timing["awgn_llr_ms"], timing["awgn_llr_plain_ms"]),
     ]
     emit({"kernels": [{
         "name": kname, "route": "cuda", "source": source, "replaces": replaces,

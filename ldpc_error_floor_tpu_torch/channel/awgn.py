@@ -11,19 +11,29 @@
 * SNR-mix batching: the per-word sigma cycles through an SNR list.
 
 Noise comes from an explicit `torch.Generator` on the channel's device, so
-it is not the JAX package's noise; `_llr` keeps the JAX operation order, so
-the same noise gives the same LLRs bit for bit.  LLRs are ``[N*z, B]``.
+it is not the JAX package's noise; `llr_plain` keeps the JAX operation
+order, so the same noise gives the same LLRs bit for bit.  LLRs are
+``[N*z, B]``.
+
+On the card everything after `torch.randn` is one launch of the
+`ops/awgn_llr.py` kernel (`csrc/awgn_llr.cu`), as the JAX step computes it
+in one XLA fusion; `llr_plain` is the plain version it is held to, which
+the CPU runs.  `launches` counts the kernel's launches; a launch made while
+the current stream is captured into a CUDA graph counts in `captured`, and
+the graph's owner adds it to `launches` at each replay (`sim/fer.py`).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import collections
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from ldpc_error_floor_tpu_torch.codes.protograph import Code
 from ldpc_error_floor_tpu_torch.models.nms import QMS, SP
+from ldpc_error_floor_tpu_torch.ops import awgn_llr
 from ldpc_error_floor_tpu_torch.ops.ste import quantize_llr
 from ldpc_error_floor_tpu_torch.utils import resolve_device
 
@@ -52,26 +62,58 @@ class AWGNChannel:
             device=self.device)[:, None]
         self._punct = mask(ps, pe)
         self._short = mask(ss, se)
+        self.llr_params = awgn_llr.llr_params(code, decoding_type, q_bit, clip_llr)
+        self.launches: collections.Counter = collections.Counter()
+        self.captured: collections.Counter = collections.Counter()
+
+    def _noise(self, generator: torch.Generator, batch: int) -> torch.Tensor:
+        return torch.randn((self.code.n_full, batch), generator=generator,
+                           dtype=torch.float32, device=self.device)
 
     def sample(self, generator: torch.Generator,
                sigma_lanes: torch.Tensor) -> torch.Tensor:
         """Sample a batch of channel LLRs [N*z, B]; sigma_lanes is [B]."""
-        noise = torch.randn((self.code.n_full, sigma_lanes.shape[0]),
-                            generator=generator, dtype=torch.float32,
-                            device=self.device)
-        y = -1.0 + noise * sigma_lanes[None, :]          # all-zero word, BPSK -1
-        return self._llr(y, sigma_lanes)
+        return self.llr(self._noise(generator, sigma_lanes.shape[0]), sigma_lanes)
 
     def sample_codewords(self, generator: torch.Generator,
-                         sigma_lanes: torch.Tensor,
-                         bits: torch.Tensor) -> torch.Tensor:
-        """Channel LLRs [N*z, B] for codeword bits [N*z, B] in {0, 1}."""
-        noise = torch.randn((self.code.n_full, sigma_lanes.shape[0]),
-                            generator=generator, dtype=torch.float32,
-                            device=self.device)
-        s = 2.0 * bits.float() - 1.0                      # bit b -> (-1)^(1-b)
-        y = s + noise * sigma_lanes[None, :]
-        return self._llr(y, sigma_lanes)
+                         sigma_lanes: torch.Tensor, bits: torch.Tensor,
+                         fold: bool = False) -> torch.Tensor:
+        """Channel LLRs [N*z, B] for codeword bits [N*z, B] in {0, 1}; with
+        `fold`, sign-folded to the zero word (``llr * (1 - 2*bits)``)."""
+        return self.llr(self._noise(generator, sigma_lanes.shape[0]), sigma_lanes,
+                        bits, fold)
+
+    def llr(self, noise: torch.Tensor, sigma_lanes: torch.Tensor,
+            bits: Optional[torch.Tensor] = None, fold: bool = False) -> torch.Tensor:
+        """The LLRs of `noise` [N*z, B]: one launch of the kernel for a
+        tensor on the card, `llr_plain` for a tensor on the CPU."""
+        if noise.device.type == "cpu":
+            return self.llr_plain(noise, sigma_lanes, bits, fold)
+        if bits is not None:
+            bits = bits.to(torch.float32)
+        out = awgn_llr.launch(self.llr_params, noise, sigma_lanes, bits, fold)
+        if torch.cuda.is_current_stream_capturing():
+            self.captured[awgn_llr.KERNEL] += 1
+        else:
+            self.launches[awgn_llr.KERNEL] += 1
+        return out
+
+    def llr_plain(self, noise: torch.Tensor, sigma_lanes: torch.Tensor,
+                  bits: Optional[torch.Tensor] = None,
+                  fold: bool = False) -> torch.Tensor:
+        """The plain PyTorch version of the kernel, on any device: the JAX
+        package's `sample` (all-zero word) or `sample_codewords` body after
+        the noise, and with `fold` the sign fold of its random-codeword
+        step."""
+        if bits is None:
+            y = -1.0 + noise * sigma_lanes[None, :]          # all-zero word, BPSK -1
+        else:
+            s = 2.0 * bits.float() - 1.0                      # bit b -> (-1)^(1-b)
+            y = s + noise * sigma_lanes[None, :]
+        llr = self._llr(y, sigma_lanes)
+        if fold:
+            llr = llr * (1.0 - 2.0 * bits)
+        return llr
 
     def _llr(self, y: torch.Tensor, sigma_lanes: torch.Tensor) -> torch.Tensor:
         llr = 2.0 * y / (sigma_lanes[None, :] ** 2)       # p1/p0 LLR

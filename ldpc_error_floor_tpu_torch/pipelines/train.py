@@ -282,6 +282,8 @@ def run_training(cfg: ExperimentConfig, verbose: bool = True,
         for d in (decoder, eval_decoder):
             launches.update(d.kernel.launches)
             launches.update(d.train_kernel.launches)
+        launches.update(channel.launches)  # the one channel of every block
+        channel.launches.clear()
         result = TrainResult(params={k: None if v is None else v.detach()
                                      for k, v in params.items()},
                              spec=spec, best_metric=best_metric,

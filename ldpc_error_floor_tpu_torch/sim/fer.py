@@ -202,11 +202,12 @@ class _GraphedChunk:
     captured for: the parameter tensors and the generator (by identity,
     kept alive here so an identity is never reused), sigma and the
     simulator's configuration.  Its `launches` are the kernel launches the
-    capture recorded, which every replay makes once."""
+    capture recorded, one count for each of `FERSimulator._counted`, which
+    every replay makes once."""
 
     def __init__(self, key: tuple, params: Params, generator: torch.Generator,
                  graph: "torch.cuda.CUDAGraph", out: torch.Tensor,
-                 launches: collections.Counter):
+                 launches: List[collections.Counter]):
         self.key, self.params, self.generator = key, params, generator
         self.graph, self.out, self.launches = graph, out, launches
 
@@ -270,8 +271,7 @@ class FERSimulator:
         # word (exact for continuous channels; under QMS zero-LLR ties
         # follow the zero-word semantics, as in the JAX package)
         bits = self._encoder.random_codewords(generator, self.local_batch)
-        llr = self.channel.sample_codewords(generator, sig, bits)
-        return llr * (1.0 - 2.0 * bits)
+        return self.channel.sample_codewords(generator, sig, bits, fold=True)
 
     def _local_step(self, params: Params, generator: torch.Generator,
                     sigma: float) -> torch.Tensor:
@@ -313,8 +313,14 @@ class FERSimulator:
                 self._graphed = None  # free the stale graph's memory first
                 g = self._graphed = self._capture(key, params, generator, sigma)
             g.graph.replay()
-            self.decoder.kernel.launches.update(g.launches)
+            for owner, n in zip(self._counted(), g.launches):
+                owner.launches.update(n)
             return g.out
+
+    def _counted(self) -> tuple:
+        """The wrappers whose launches a captured chunk counts (each has
+        `launches` and `captured`): the decode kernel's and the channel's."""
+        return self.decoder.kernel, self.channel
 
     def _read(self, params: Params, generator: torch.Generator, sigma: float,
               ckpt_due: bool) -> _Pending:
@@ -355,7 +361,8 @@ class FERSimulator:
                                                  device=self.device))
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(generator)
-        kernel.captured.clear()
+        for owner in self._counted():
+            owner.captured.clear()
         # capture_begin/capture_end, not the `torch.cuda.graph` context: it
         # also synchronises, collects garbage and empties the allocator's
         # cache, which a point's first host read would wait for
@@ -366,8 +373,10 @@ class FERSimulator:
             finally:
                 graph.capture_end()
         torch.cuda.current_stream(self.device).wait_stream(stream)
-        launches = collections.Counter(kernel.captured)
-        kernel.captured.clear()
+        launches = []
+        for owner in self._counted():
+            launches.append(collections.Counter(owner.captured))
+            owner.captured.clear()
         return _GraphedChunk(key, dict(params), generator, graph, out, launches)
 
     def _ckpt_obj(self, snr_db: float, c: SimCounters, state: List[int],

@@ -36,7 +36,13 @@ summed counters equal the replay's (==) at K = 1 and 4, it does not
 synchronise, and a point on a new generator captures a new graph.  The
 decoder's API: all-zero labels bit-equal to none through B1, B2 and B3,
 labels with a bit set or of the wrong shape and `track_syndrome` raising
-before any launch, and `apply`'s default 'apps' through B4.
+before any launch, and `apply`'s default 'apps' through B4.  The channel
+sampler's kernel (S1): its LLRs bit-equal to the plain version's as int32
+views (signs of zero included, grid ties among them) for every decoding
+type and grid, the zero word, codewords and the fold, one sigma and mixed
+lanes, at 65536 and at a batch that is not a multiple of 4; one launch per
+`sample` call and no other kernel but `randn`; a replay counting its K
+launches.
 """
 
 import pytest
@@ -721,3 +727,106 @@ def test_mesh_point_recaptures_on_a_new_generator_on_card(nccl_world_of_one):
         assert sim._graphed.generator is gen
         graphs.append(sim._graphed)
     assert graphs[0] is not graphs[1]
+
+
+# The channel sampler's kernel (S1, `csrc/awgn_llr.cu`) against its plain
+# version (`AWGNChannel.llr_plain`) on the same noise, bit for bit as int32
+# views (signs of zero included): (decoding type, q_bit) for QMS on every
+# grid, MS, MS_RAW and SP; wman at the main path's batch and the 5G code
+# with punctured and shortened rows at a batch that is not a multiple of 4
+SAMPLER_TYPES = [(2, 6), (2, 5), (2, -5), (2, 4), (2, 3), (1, 5), (3, 5), (0, 5)]
+
+
+def _tie_noise(noise, sig, step):
+    """Columns 0 and 1 at sigma 1, their noise landing every LLR on a tie
+    of the grid (x / step = k + 1/2); column 1's negative ties round to -0
+    under QMS before the punctured rows' blend."""
+    R = noise.shape[0]
+    k = torch.arange(R, device=noise.device, dtype=torch.float32) % 7 - 3
+    noise[:, 0] = 1.0 + step * (k + 0.5) / 2
+    noise[:, 1] = 1.0 - step * (k + 0.5) / 2
+    sig[:2] = 1.0
+
+
+def _int_mismatches(a, b):
+    return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code_name,B", [(WMAN, 65536), (G5, 1001)], ids=["wman", "5g"])
+@pytest.mark.parametrize("dec,q_bit", SAMPLER_TYPES, ids=lambda v: str(v))
+def test_sampler_matches_plain_bitwise_on_card(code_name, B, dec, q_bit):
+    from ldpc_error_floor_tpu_torch.channel import mix_sigma_lanes
+    from ldpc_error_floor_tpu_torch.codes import Encoder
+    dev = _cuda()
+    code = get_code(code_name)
+    ch = AWGNChannel(code, decoding_type=dec, q_bit=q_bit, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bits = Encoder(TannerGraph(code), device=dev).random_codewords(gen, B)
+    one = torch.full((B,), float(code.snr_sigmas([3.0])[0]), device=dev)
+    mixed = torch.as_tensor(mix_sigma_lanes(code.snr_sigmas([1.0, 3.0, 5.5]), B), device=dev)
+    for sig in (one, mixed):
+        sig = sig.clone()
+        noise = torch.randn((code.n_full, B), generator=gen, device=dev)
+        _tie_noise(noise, sig, ch.llr_params.step)
+        for b, fold in ((None, False), (bits, False), (bits, True)):
+            ch.launches.clear()
+            out = ch.llr(noise, sig, b, fold)
+            assert ch.launches == {"awgn_llr": 1}
+            assert _int_mismatches(out, ch.llr_plain(noise, sig, b, fold)) == 0
+
+
+@pytest.mark.cuda
+def test_sampler_entry_points_one_launch_on_card():
+    """`sample` and `sample_codewords` draw `randn` and launch the kernel
+    once, with no elementwise PyTorch launch of their own."""
+    dev = _cuda()
+    code = get_code(G5)
+    ch = AWGNChannel(code, decoding_type=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    sig = torch.full((1001,), float(code.snr_sigmas([2.0])[0]), device=dev)
+    bits = (torch.rand((code.n_full, 1001), generator=gen, device=dev) < 0.5).float()
+    for fold in (None, False, True):
+        s0 = gen.get_state()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            out = (ch.sample(gen, sig) if fold is None
+                   else ch.sample_codewords(gen, sig, bits, fold=fold))
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        gen.set_state(s0)
+        noise = torch.randn((code.n_full, 1001), generator=gen, device=dev)
+        want = ch.llr_plain(noise, sig, None if fold is None else bits, bool(fold))
+        assert _int_mismatches(out, want) == 0
+        kernels = [n for n in names if "awgn_llr" in n]
+        others = [n for n in names if "awgn_llr" not in n and "normal" not in n]
+        assert len(kernels) == 1 and not others, names
+    assert ch.launches == {"awgn_llr": 3}
+
+
+@pytest.mark.cuda
+def test_sampler_rejects_bad_inputs_on_card():
+    dev = _cuda()
+    ch = AWGNChannel(get_code(WMAN), device=dev)
+    R = ch.code.n_full
+    noise = torch.randn((R, 64), device=dev)
+    sig = torch.ones(64, device=dev)
+    for args in ((noise.double(), sig), (noise, sig[:63]), (noise, sig.double()),
+                 (noise.t(), torch.ones(R, device=dev)), (noise, sig, None, True),
+                 (noise, sig, torch.zeros((R, 63), device=dev))):
+        with pytest.raises(ValueError):
+            ch.llr(*args)
+    assert not ch.launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", GRAPH_PATHS, ids=lambda p: p[0])
+def test_graph_counts_sampler_launches_on_card(path):
+    """A replay of K captured steps counts K sampler launches, none at the
+    capture."""
+    dev = _cuda()
+    sim, params, sigma = _graph_sim(dev, path, 4)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sim._chunk(params, gen, sigma)
+    assert sim.channel.launches == {"awgn_llr": 4} and not sim.channel.captured
+    sim._chunk(params, gen, sigma)
+    assert sim.channel.launches == {"awgn_llr": 8}

@@ -4,7 +4,7 @@ other on one card, in turns, on the same inputs.
 
     python tools/torch_kernel_ab.py --tree new=. --tree old=build/parent \
         --order old,new,new,old [--kernels all|train|train_sp|decode|sp_wide|sp_shapes|
-        sp_train_shapes] [--sass] \
+        sp_train_shapes|sampler] [--sass] \
         [--out build/kernel_ab.json]
 
 A tree is a directory that holds a copy of `ldpc_error_floor_tpu_torch/`
@@ -55,7 +55,14 @@ process; it builds that tree's kernels, makes the inputs from fixed seeds
   take (as sp_shapes; B5-SP at each G on streams of that tile width), with
   B4-SP's outputs against those at its own shape and B5-SP's gradient
   sums, for one tree (~2 min);
-- decode: the decode part of `all` alone.
+- decode: the decode part of `all` alone;
+- sampler: the channel sampler and what it feeds: `AWGNChannel.sample` at
+  65536 words (QMS q_bit 5, 4.0 dB) and the random-codeword step's folded
+  LLRs (`FERSimulator._sample`), timed with the digest of one draw from a
+  fixed seed; run_point frames/s, cold and warm, of base20 with the early
+  stop and with the syndrome stop (4.0 dB, 2^20 frames) and of the deep
+  anchor (5.5 dB, 2^25 frames), at K = 8 batches per host read, as
+  `chip_smoke.py` runs them; and one whole base train step (as `train`).
 
 Each run prints one JSON line (a run that fails is reported, the others
 go on, and the tool exits 1): the times, the ptxas report of each library
@@ -71,6 +78,7 @@ from __future__ import annotations
 import argparse
 import collections
 import hashlib
+import importlib.util
 import json
 import os
 import shutil
@@ -113,6 +121,9 @@ def worker(tree: Path, kernels: str, sass_dir: str) -> dict:
     libs = [] if kernels == "decode" else [("fused_nms_train.cu", fused_train.load_library)]
     if kernels not in ("train", "train_sp", "sp_train_shapes"):
         libs.append(("fused_nms_stats.cu", fused_decoder.load_library))
+    if importlib.util.find_spec("ldpc_error_floor_tpu_torch.ops.awgn_llr") is not None:
+        from ldpc_error_floor_tpu_torch.ops import awgn_llr  # the sampler's kernel
+        libs.append(("awgn_llr.cu", awgn_llr.load_library))
     out["ptxas"] = {}
     for src, load in libs:
         lib, log = load()
@@ -138,6 +149,8 @@ def worker(tree: Path, kernels: str, sass_dir: str) -> dict:
         sp_shape_runs(out, gen)
     if kernels == "sp_train_shapes":
         sp_train_shape_runs(out, gen)
+    if kernels == "sampler":
+        sampler_runs(out, gen)
     return out
 
 
@@ -196,16 +209,107 @@ def train_pair(out: dict, name: str, kern, w3, llr, alone: bool = False) -> None
         g is None or torch.equal(g, h) for g, h in zip(grads, again))
 
 
+def train_epoch(spec, dt: int):
+    """(epoch, params, optimizer): STEPS whole train steps on wman at
+    TRAIN_B (`make_epoch_step`: sampling, B4, loss, B5, Adam, clip) from
+    all-ones weights, soft FER, eta 0, the APP window t0 = T - 1."""
+    import torch
+    from ldpc_error_floor_tpu_torch.channel import AWGNChannel
+    from ldpc_error_floor_tpu_torch.channel.awgn import mix_sigma_lanes
+    from ldpc_error_floor_tpu_torch.codes import TannerGraph, get_code
+    from ldpc_error_floor_tpu_torch.models import DecoderConfig, NMSDecoder, init_weights
+    from ldpc_error_floor_tpu_torch.pipelines import base_config_wman
+    from ldpc_error_floor_tpu_torch.training import make_epoch_step, make_optimizer
+    dev = torch.device("cuda")
+    wman = get_code(WMAN)
+    graph = TannerGraph(wman)
+    sig_train = torch.as_tensor(
+        mix_sigma_lanes(wman.snr_sigmas(base_config_wman().snrs), TRAIN_B), device=dev)
+    T = spec.n_iters
+    dec = NMSDecoder(wman, DecoderConfig(decoding_type=dt, app_t0=T - 1), spec,
+                     graph=graph, device=dev)
+    params = init_weights(spec, graph, device=dev)
+    opt = make_optimizer(params, 1e-2)
+    epoch = make_epoch_step(dec, spec, 2, 0, T, 0, n_steps=STEPS,
+                            labels=torch.zeros((wman.n_full, TRAIN_B), device=dev),
+                            channel=AWGNChannel(wman, decoding_type=dt, device=dev),
+                            sigmas=sig_train, static_etha=0.0)
+    return epoch, params, opt
+
+
+def run_point(spec, params, early_stop: bool, snr: float, frames: int,
+              stop: str = "genie", dec: int = 2, inner_steps: int = 1):
+    """A run_point on wman at DECODE_B twice on one generator from seed 0:
+    (the cold run's frames/s, the warm run's point)."""
+    import torch
+    from ldpc_error_floor_tpu_torch.channel import AWGNChannel
+    from ldpc_error_floor_tpu_torch.codes import TannerGraph, get_code
+    from ldpc_error_floor_tpu_torch.models import DecoderConfig, NMSDecoder
+    from ldpc_error_floor_tpu_torch.sim import FERSimulator
+    dev = torch.device("cuda")
+    wman = get_code(WMAN)
+    decoder = NMSDecoder(wman, DecoderConfig(decoding_type=dec, early_stop=early_stop),
+                         spec, graph=TannerGraph(wman), device=dev)
+    sim = FERSimulator(decoder, AWGNChannel(wman, decoding_type=dec, device=dev),
+                       batch=DECODE_B, stop=stop, inner_steps=inner_steps)
+    g = torch.Generator(device=dev)
+    cold = sim.run_point(params, snr, g.manual_seed(0), max_frames=frames,
+                         target_frame_errors=None)
+    return cold.frames_per_sec, sim.run_point(params, snr, g.manual_seed(0),
+                                              max_frames=frames, target_frame_errors=None)
+
+
+def point_row(cold_fps: float, pt) -> dict:
+    row = {"frames": pt.frames, "frames_per_sec": pt.frames_per_sec,
+           "frames_per_sec_cold": cold_fps, "frame_errors": round(pt.fer_last * pt.frames)}
+    if pt.avg_iters is not None:
+        row["mean_iters"] = pt.avg_iters
+    else:
+        row["genie_errors"] = round(pt.fer_genie * pt.frames)
+    return row
+
+
+def sampler_runs(out: dict, gen) -> None:
+    import torch
+    from ldpc_error_floor_tpu_torch.channel import AWGNChannel
+    from ldpc_error_floor_tpu_torch.codes import TannerGraph, get_code
+    from ldpc_error_floor_tpu_torch.models import (DecoderConfig, NMSDecoder, WeightSpec,
+                                                   load_params)
+    from ldpc_error_floor_tpu_torch.sim import FERSimulator
+    dev = torch.device("cuda")
+    wman = get_code(WMAN)
+    graph = TannerGraph(wman)
+    sigma = float(wman.snr_sigmas([4.0])[0])
+    sig = torch.full((DECODE_B,), sigma, device=dev)
+    ch = AWGNChannel(wman, device=dev)
+    spec20 = WeightSpec(sharing=(3, 3, 3), n_iters=20)
+    sim = FERSimulator(NMSDecoder(wman, DecoderConfig(), spec20, graph=graph, device=dev),
+                       ch, batch=DECODE_B, codewords="random")
+    for name, fn in (("sample", lambda g: ch.sample(g, sig)),
+                     ("sample_random_words_fold", lambda g: sim._sample(g, sigma))):
+        out["times_ms"][name] = time_ms(lambda: fn(gen), 50)
+        out["digests"][name] = digest(fn(torch.Generator(device=dev).manual_seed(7)))
+    base20 = load_params(spec20, graph, f"{WMAN}_base20", device=dev)
+    out["run_point"] = {}
+    for name, es, stop, snr, frames in (
+            ("base20_early_stop", True, "genie", 4.0, 2 ** 20),
+            ("base20_syndrome", False, "syndrome", 4.0, 2 ** 20),
+            ("deep_base20_early_stop_5.5dB", True, "genie", 5.5, 2 ** 25)):
+        out["run_point"][name] = point_row(*run_point(spec20, base20, es, snr, frames, stop,
+                                                      inner_steps=8))
+    epoch, params, opt = train_epoch(WeightSpec(sharing=(3, 0, 3), n_iters=20), 2)
+    out["times_ms"]["base_step"] = time_ms(lambda: epoch(params, opt, gen, 0.0),
+                                           2, warmup=1) / STEPS
+
+
 def train_runs(out: dict, gen, sp_only: bool = False) -> None:
     import torch
     from ldpc_error_floor_tpu_torch.channel import AWGNChannel
     from ldpc_error_floor_tpu_torch.channel.awgn import mix_sigma_lanes
     from ldpc_error_floor_tpu_torch.codes import TannerGraph, get_code
-    from ldpc_error_floor_tpu_torch.models import (DecoderConfig, NMSDecoder,
-                                                   WeightSpec, init_weights)
+    from ldpc_error_floor_tpu_torch.models import DecoderConfig, WeightSpec
     from ldpc_error_floor_tpu_torch.ops import fused_train
     from ldpc_error_floor_tpu_torch.pipelines import base_config_wman
-    from ldpc_error_floor_tpu_torch.training import make_epoch_step, make_optimizer
     dev = torch.device("cuda")
     wman = get_code(WMAN)
     graph = TannerGraph(wman)
@@ -240,15 +344,7 @@ def train_runs(out: dict, gen, sp_only: bool = False) -> None:
     # as chip_smoke.py times it
     for bname in ("base_sp",) if sp_only else ("base_sp", "base"):
         spec, dt = blocks[bname]
-        T = spec.n_iters
-        dec = NMSDecoder(wman, DecoderConfig(decoding_type=dt, app_t0=T - 1), spec,
-                         graph=graph, device=dev)
-        params = init_weights(spec, graph, device=dev)
-        opt = make_optimizer(params, 1e-2)
-        epoch = make_epoch_step(dec, spec, 2, 0, T, 0, n_steps=STEPS,
-                                labels=torch.zeros((wman.n_full, TRAIN_B), device=dev),
-                                channel=AWGNChannel(wman, decoding_type=dt, device=dev),
-                                sigmas=sig_train, static_etha=0.0)
+        epoch, params, opt = train_epoch(spec, dt)
         out["times_ms"][f"{bname}_step"] = time_ms(lambda: epoch(params, opt, gen, 0.0),
                                                    2, warmup=1) / STEPS
     if sp_only:
@@ -295,13 +391,11 @@ def decode_runs(out: dict, gen) -> None:
     import torch
     from ldpc_error_floor_tpu_torch.channel import AWGNChannel
     from ldpc_error_floor_tpu_torch.codes import TannerGraph, get_code
-    from ldpc_error_floor_tpu_torch.models import (DecoderConfig, NMSDecoder,
-                                                   WeightSpec,
+    from ldpc_error_floor_tpu_torch.models import (DecoderConfig, WeightSpec,
                                                    compose_boosted_params,
                                                    init_weights, load_params,
                                                    stack_weights)
     from ldpc_error_floor_tpu_torch.ops import fused_decoder
-    from ldpc_error_floor_tpu_torch.sim import FERSimulator
     dev = torch.device("cuda")
     wman = get_code(WMAN)
     graph = TannerGraph(wman)
@@ -347,17 +441,6 @@ def decode_runs(out: dict, gen) -> None:
         out["times_ms"][name] = time_ms(fn, 10)
         out["digests"][name] = [digest(o) for o in fn()]
 
-    def run_point(spec, params, early_stop, snr, frames, stop="genie", dec=2):
-        decoder = NMSDecoder(wman, DecoderConfig(decoding_type=dec, early_stop=early_stop),
-                             spec, graph=graph, device=dev)
-        sim = FERSimulator(decoder, AWGNChannel(wman, decoding_type=dec, device=dev),
-                           batch=DECODE_B, stop=stop)
-        g = torch.Generator(device=dev)
-        cold = sim.run_point(params, snr, g.manual_seed(0), max_frames=frames,
-                             target_frame_errors=None)
-        return cold.frames_per_sec, sim.run_point(params, snr, g.manual_seed(0),
-                                                  max_frames=frames, target_frame_errors=None)
-
     out["run_point"] = {}
     bp = init_weights(spec_bp, graph, device=dev)
     for name, spec, params, es, stop, dec in (
@@ -366,19 +449,10 @@ def decode_runs(out: dict, gen) -> None:
             ("boosted30_early_stop", spec30, boosted30, True, "genie", 2),
             ("base20_syndrome", spec20, base20, False, "syndrome", 2),
             ("bp_sp_fixed20", spec_bp, bp, False, "genie", 0)):
-        cold_fps, pt = run_point(spec, params, es, 4.0, 2 ** 20, stop, dec)
-        out["run_point"][name] = {"frames_per_sec": pt.frames_per_sec,
-                                  "frames_per_sec_cold": cold_fps,
-                                  "frame_errors": round(pt.fer_last * pt.frames)}
-        if stop == "syndrome":
-            out["run_point"][name]["mean_iters"] = pt.avg_iters
-        else:
-            out["run_point"][name]["genie_errors"] = round(pt.fer_genie * pt.frames)
-    cold_fps, pt = run_point(spec20, base20, True, 5.5, 2 ** 25)
-    out["run_point"]["deep_base20_early_stop_5.5dB"] = {
-        "frames": pt.frames, "frames_per_sec": pt.frames_per_sec,
-        "frames_per_sec_cold": cold_fps,
-        "genie_errors": round(pt.fer_genie * pt.frames)}
+        out["run_point"][name] = point_row(*run_point(spec, params, es, 4.0, 2 ** 20,
+                                                      stop, dec))
+    out["run_point"]["deep_base20_early_stop_5.5dB"] = point_row(
+        *run_point(spec20, base20, True, 5.5, 2 ** 25))
 
 
 def sp_wide_runs(out: dict, gen) -> None:
@@ -559,7 +633,8 @@ def main() -> int:
     ap.add_argument("--order", default=None,
                     help="comma-separated tree names, run in this order")
     ap.add_argument("--kernels", choices=("all", "train", "train_sp", "decode", "sp_wide",
-                                          "sp_shapes", "sp_train_shapes"), default="all")
+                                          "sp_shapes", "sp_train_shapes", "sampler"),
+                    default="all")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--out", default="build/kernel_ab.json")
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
