@@ -187,6 +187,30 @@ exits non-zero:
      ``uncor.txt.part{r}`` files hold exactly the rank generators' rows;
      one train step whose loss and weights agree with a world of one's
      within rtol 1e-5;
+   - (iv) the launcher (`parallel/launch.py`), at each W of 1, 2 and 4 the
+     host has cards for (the first W made visible): the CLI's `simulate
+     --mesh` as a user runs it, W NCCL ranks, one per card: base20 with the
+     early stop at 4.0 dB twice (2^20 frames at 65536, K = 8; a curve
+     gives each point a generator and a capture of its own), with the
+     syndrome stop, and the deep anchor twice; each first point's counters
+     equal exactly the sums of the W rank generators run here at 65536 / W
+     from the generator the CLI's curve draws for it (at W = 1 also the
+     same command in this process and in a process of its own without the
+     mesh, whose time splits the launcher's cost from a process's); at W >
+     1 also the deep anchor at 65536 words a rank (2^25 frames a rank);
+     every deep count is held to JAX's under the binomial test; `train --mesh
+     --mesh-devices W` on the base block, 2 epochs of 100 steps at 32768:
+     its files at W = 1 byte-equal to `run_training` here (the running
+     times aside), its step ms from the perf log, beside the sampler at
+     32768 / W; W ranks of this script (``--nccl-rank r W port dir``) on
+     the W cards: base20's two paths at seed 0 equal to the rank
+     generators' sums (at W = 1: 211 genie errors and 3.18807 mean
+     iterations), 16 launches of B2 or B3 and of S1 each, warm frames/s
+     (the point again on the same generator) in total and per card, and
+     the all-reduce's ms per host read in a traced warm point; each
+     command's seconds from spawn to exit.  ``chip_smoke.py --launcher``
+     runs the device and build phases and this sub-phase alone (the call
+     on several cards);
 9. the `kernels` line (nine entries), then the card's nvidia-smi line,
    then the result.
 
@@ -232,6 +256,9 @@ SMEM_BYTES_PER_S = 132 * 128 * 1.98e9  # 132 SMs x 128 B/clk x boost clock
 MESH_RANKS = 2            # the mesh phase's gloo ranks sharing the card
 MESH_TIMEOUT_S = 300      # each rank process, and each collective of theirs
 MESH_WORDS = 64           # the two ranks' harvest, words in all
+LAUNCH_WORLDS = (1, 2, 4)  # the launcher's worlds, as far as the host has cards
+LAUNCH_TIMEOUT_S = 300    # each command through the launcher, and each NCCL rank
+TRAIN_STEPS = 100         # steps of an epoch of the launcher's train command
 TRACE_ATTEMPTS = 3        # a trace with no activity of the card is taken again
 G5 = "5G_LDPC_R0.50_n_dec640_n512_k256_z32_s257_320"  # punctured and shortened rows
 SAMPLER_ODD_B = 1001      # the sampler's ragged batch (B % 4 != 0)
@@ -524,6 +551,46 @@ def trace_summary(trace_path: str, span: str) -> dict:
             "runtime_calls": runtime_n, "runtime_ms": runtime_ms}
 
 
+def build_kernels():
+    """nvcc of the three kernel sources, one process each, all started
+    together: the seconds it took, ptxas' report and the compiler's log per
+    source."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ldpc_error_floor_tpu_torch.ops import awgn_llr, fused_decoder, fused_train
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, together
+        builds = [pool.submit(fn) for fn in (fused_decoder.load_library,
+                                             fused_train.load_library,
+                                             awgn_llr.load_library)]
+        logs = {src: b.result()[1] for src, b in
+                zip(("fused_nms_stats.cu", "fused_nms_train.cu", "awgn_llr.cu"), builds)}
+    ptxas = {src: [ln.strip() for ln in log.splitlines()
+                   if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
+             for src, log in logs.items()}
+    return time.perf_counter() - t0, ptxas, logs
+
+
+def collective_trace(tdir: str, n_reads: int) -> dict:
+    """The collectives in a trace of `traced` (events whose name says NCCL
+    or all-reduce), by category and name: count, ms and ms per host read;
+    fails without one per read."""
+    with open(os.path.join(tdir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    coll = {}
+    for e in events:
+        name = str(e.get("name", ""))
+        if "nccl" in name.lower() or "all_reduce" in name.lower() or "allreduce" in name.lower():
+            key = f"{e.get('cat')}:{name}"
+            n, ms = coll.get(key, (0, 0.0))
+            coll[key] = (n + 1, ms + e.get("dur", 0) / 1e3)
+    out = {k: {"count": n, "ms": ms, "ms_per_read": ms / n_reads}
+           for k, (n, ms) in coll.items()}
+    check(any(v["count"] >= n_reads for v in out.values()),
+          f"no all-reduce per host read in the trace: {list(coll)}")
+    return out
+
+
 def sampler_ms_per_batch(summary: dict, batches: int) -> dict:
     """The channel sampler's card ms per batch in a `trace_summary`, by
     kernel name: the `awgn_llr` kernel, `randn` (PyTorch's normal
@@ -702,6 +769,330 @@ def mesh_worker(rank: int, port: str, out_dir: str) -> int:
     return 0
 
 
+def visible_env(world: int) -> dict:
+    """This process's environment with only the first `world` of its cards
+    visible."""
+    import torch
+    vis = os.environ.get("CUDA_VISIBLE_DEVICES")
+    ids = vis.split(",") if vis else [str(i) for i in range(torch.cuda.device_count())]
+    return dict(os.environ, CUDA_VISIBLE_DEVICES=",".join(ids[:world]))
+
+
+def run_cli(argv, world: int):
+    """``python -m ldpc_error_floor_tpu_torch.cli *argv`` as a user runs it,
+    on the first `world` cards, in a session of its own (killed whole, the
+    launcher's ranks with it, past LAUNCH_TIMEOUT_S); (its standard output,
+    seconds from spawn to exit).  Fails unless it exits 0."""
+    import contextlib
+    import signal
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "ldpc_error_floor_tpu_torch.cli", *argv],
+                            cwd=REPO, env=visible_env(world), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=LAUNCH_TIMEOUT_S)
+    except BaseException:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"`{argv[0]} --mesh` at W = {world} exited "
+                                f"{proc.returncode}:\n{err[-3000:]}")
+    return out, seconds
+
+
+def nccl_worker(rank: int, world: int, port: str, out_dir: str) -> int:
+    """Rank `rank` of the launcher sub-phase's `world` NCCL ranks, one per
+    card: base20 with the early stop and with the syndrome stop at 4.0 dB,
+    seed 0, over 2^20 frames at the global batch (launch counts set to 0
+    just before each, read just after), then the early stop warm, and warm
+    in a trace (the all-reduce per host read); results into `out_dir`."""
+    import torch
+    import torch.distributed as dist
+
+    from ldpc_error_floor_tpu_torch.parallel import data_mesh, initialize_distributed
+    initialize_distributed(f"127.0.0.1:{port}", world, rank, device="cuda",
+                           timeout_s=LAUNCH_TIMEOUT_S)
+    mesh = data_mesh(world, device="cuda")
+    sims, base20 = mesh_paths(mesh.device, mesh)
+    gen = torch.Generator(device=mesh.device)
+    out = {"rank": mesh.rank, "world": mesh.world, "backend": dist.get_backend(),
+           "device": str(mesh.device)}
+    for label, sim in sims:
+        sim.decoder.kernel.launches.clear()
+        sim.channel.launches.clear()
+        pt = sim.run_point(base20, 4.0, gen.manual_seed(0), max_frames=MAX_FRAMES,
+                           target_frame_errors=None)
+        out[label] = point_counts(pt, sim.decoder.target * sim.decoder.z)
+        out[label + "_launches"] = {**sim.decoder.kernel.launches, **sim.channel.launches}
+
+    def point():
+        return sims[0][1].run_point(base20, 4.0, gen.manual_seed(0), max_frames=MAX_FRAMES,
+                                    target_frame_errors=None)
+
+    out["warm_frames_per_sec"] = point().frames_per_sec
+    tdir = os.path.join(out_dir, f"trace_{rank}")
+    out["run_point_trace"] = traced(point, tdir, "run_point")
+    out["all_reduce_trace"] = collective_trace(tdir, MAX_FRAMES // (MAIN_B * K_MAIN))
+    with open(os.path.join(out_dir, f"rank_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_nccl_ranks(world: int, out_dir: str) -> list:
+    """`world` ranks of this script (``--nccl-rank``), one on each of the
+    first `world` cards, each under LAUNCH_TIMEOUT_S; their results."""
+    import socket
+    os.makedirs(out_dir, exist_ok=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    logs = [open(os.path.join(out_dir, f"rank_{r}.log"), "w+") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--nccl-rank", str(r),
+                               str(world), port, out_dir], cwd=REPO, env=visible_env(world),
+                              stdout=log, stderr=subprocess.STDOUT)
+             for r, log in enumerate(logs)]
+    try:
+        for proc in procs:
+            proc.wait(timeout=LAUNCH_TIMEOUT_S)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    ranks = []
+    for r, (proc, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        check(proc.returncode == 0, f"NCCL rank {r} of {world} exited {proc.returncode}:\n"
+                                    f"{text[-3000:]}")
+        with open(os.path.join(out_dir, f"rank_{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def run_files(out_dir: str) -> dict:
+    """A training run's files, as lines, the perf log's running times aside."""
+    files = {}
+    for name in sorted(os.listdir(out_dir)):
+        with open(os.path.join(out_dir, name)) as f:
+            files[name] = [ln for ln in f.read().splitlines()
+                           if not ln.startswith("Running time")]
+    return files
+
+
+def last_epoch_train_s(out_dir: str) -> float:
+    """The training seconds of the last epoch in a run's perf log."""
+    (log,) = [n for n in os.listdir(out_dir) if n.endswith("_Performance.txt")]
+    with open(os.path.join(out_dir, log)) as f:
+        times = re.findall(r"Running time \(Train/Valid/Test\): ([0-9.]+)/", f.read())
+    return float(times[-1])
+
+
+def launcher_phase(dev) -> dict:
+    """Sub-phase (iv) of the mesh: the CLI's `--mesh` through the launcher at
+    each W of LAUNCH_WORLDS the host has cards for (the module's docstring
+    says what it checks); its row."""
+    import contextlib
+    import dataclasses
+    import io
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from ldpc_error_floor_tpu_torch import cli
+    from ldpc_error_floor_tpu_torch.channel import AWGNChannel
+    from ldpc_error_floor_tpu_torch.channel.awgn import mix_sigma_lanes
+    from ldpc_error_floor_tpu_torch.codes import get_code
+    from ldpc_error_floor_tpu_torch.io.weight_files import read_weight_file
+    from ldpc_error_floor_tpu_torch.ops import awgn_llr
+    from ldpc_error_floor_tpu_torch.parallel import DataMesh, rank_generator
+    from ldpc_error_floor_tpu_torch.pipelines import base_config_wman, run_training
+    cards = torch.cuda.device_count()
+    worlds = [w for w in LAUNCH_WORLDS if w <= cards]
+    wman = get_code(WMAN)
+    sim_argv = ["simulate", "--code", WMAN, "--weights", f"{WMAN}_base20", "--iters",
+                str(T_MAIN), "--inner-steps", str(K_MAIN), "--target-errors", str(2 ** 62)]
+
+    def command(label, W):
+        """(flags, SNR, frames a point, points, global batch) of a command at
+        W ranks; 'deep_per_card' gives each rank the batch one card decodes
+        alone (and frames in proportion)."""
+        return {"early_stop": (["--early-stop"], 4.0, MAX_FRAMES, 2, MAIN_B),
+                "syndrome": (["--stop", "syndrome"], 4.0, MAX_FRAMES, 1, MAIN_B),
+                "deep": (["--early-stop"], DEEP_SNR, DEEP_FRAMES, 2, MAIN_B),
+                "deep_per_card": (["--early-stop"], DEEP_SNR, DEEP_FRAMES * W, 2,
+                                  MAIN_B * W)}[label]
+
+    def argv_of(label, W, mesh=True):
+        flags, snr, frames, n, batch = command(label, W)
+        return (sim_argv + flags + ["--snrs", *[str(snr)] * n, "--max-frames", str(frames),
+                                    "--batch", str(batch)] + ["--mesh"] * mesh)
+
+    paths, base20 = mesh_paths(dev)
+    sims_at = {MAIN_B: dict(paths)}  # this process's two paths by batch
+
+    def rank_sum(label, W, seed):
+        """The counters of the W rank generators of `seed`, each at its
+        share of the batch and the frames, summed (in this process)."""
+        _, snr, frames, _, batch = command(label, W)
+        if batch // W not in sims_at:
+            sims_at[batch // W] = dict(mesh_paths(dev, batch=batch // W)[0])
+        sim = sims_at[batch // W]["syndrome" if label == "syndrome" else "early_stop"]
+        g0, want = torch.Generator(device=dev), {}
+        for r in range(W):
+            g = rank_generator(g0.manual_seed(seed), DataMesh(r, W, dev))
+            p = sim.run_point(base20, snr, g, max_frames=frames // W, target_frame_errors=None)
+            for k, v in point_counts(p, wman.n_full).items():
+                want[k] = want.get(k, 0) + v
+        return want
+
+    # the CLI's curve seeds its first point from one draw of --seed's
+    # generator (`run_curve`, as JAX splits the key), not with --seed itself
+    curve_seed = int(torch.randint(0, 2 ** 62, (1,), device=dev,
+                                   generator=torch.Generator(device=dev).manual_seed(0)))
+    # the early-stop command in this process without the mesh: what a
+    # process of its own adds
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        check(cli.main(argv_of("early_stop", 1, mesh=False)) == 0, "in-process simulate")
+    in_process = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+    row = {"cards": cards, "world": worlds, "in_process_s": time.perf_counter() - t0,
+           "in_process_frames_per_sec": [p["frames_per_sec"] for p in in_process],
+           "in_process_counters": point_counts(SimpleNamespace(**in_process[0]), wman.n_full)}
+    # the global draw: a rank samples the whole batch to decode 1 / W of it
+    sig = torch.as_tensor(mix_sigma_lanes(wman.snr_sigmas(base_config_wman().snrs), TRAIN_B),
+                          device=dev)
+    ch, g_s = AWGNChannel(wman, device=dev), torch.Generator(device=dev).manual_seed(0)
+    sample_ms = {w: time_ms(lambda: ch.sample(g_s, sig[:TRAIN_B // w]), reps=20)
+                 for w in LAUNCH_WORLDS}
+    row["train_sample_ms"] = {f"B{TRAIN_B // w}": ms for w, ms in sample_ms.items()}
+    train_cfg = dataclasses.replace(base_config_wman(), batch_size=TRAIN_B,
+                                    training_num=TRAIN_STEPS * TRAIN_B, epochs=2,
+                                    valid_num=TRAIN_B, learn_rate_start=1e-2, seed=0)
+    by_world = row["by_world"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        here = dataclasses.replace(train_cfg, out_dir=os.path.join(tmp, "train_here"))
+        ref = run_training(here, verbose=False, device=dev)
+        row["train_here_step_ms"] = last_epoch_train_s(here.out_dir) / TRAIN_STEPS * 1e3
+        ref_files = run_files(here.out_dir)
+        ref_weights = read_weight_file(os.path.join(
+            here.out_dir, f"{here.out_prefix}_Weight_End{here.iters_max}.txt"))[1]
+        for W in worlds:
+            res = by_world[W] = {"spawn_to_exit_s": {}}
+            labels = ["early_stop", "syndrome", "deep"] + ["deep_per_card"] * (W > 1)
+            for label in labels:
+                out, res["spawn_to_exit_s"][label] = run_cli(argv_of(label, W), W)
+                pts = [json.loads(ln) for ln in out.splitlines()]
+                _, _, frames, n, batch = command(label, W)
+                check(len(pts) == n and all(p["frames"] == frames for p in pts),
+                      f"{label} at W = {W}: {out[-2000:]}")
+                got = point_counts(SimpleNamespace(**pts[0]), wman.n_full)
+                want = rank_sum(label, W, curve_seed)
+                res[label] = {"batch": batch, "counters": got, "rank_sum": want,
+                              "frames_per_sec": [p["frames_per_sec"] for p in pts]}
+                check(got == want, f"{label} at W = {W}: {got} against the per-rank sum {want}")
+                if label.startswith("deep"):
+                    k = got["genie_errors"]
+                    res[label]["p_vs_jax"] = binomial_two_sample_p(k, frames, *JAX_DEEP)
+                    check(res[label]["p_vs_jax"] >= 0.01,
+                          f"{label} at W = {W}: {k} genie errors over {frames} frames "
+                          f"against JAX's {JAX_DEEP}")
+            if W == 1:  # the same command in a process of its own, no launcher
+                out, res["process_s"] = run_cli(argv_of("early_stop", 1, mesh=False), W)
+                alone = point_counts(SimpleNamespace(**json.loads(out.splitlines()[0])),
+                                     wman.n_full)
+                check(res["early_stop"]["counters"] == alone == row["in_process_counters"],
+                      f"launcher W = 1: {res['early_stop']['counters']} against {alone} in "
+                      f"a process and {row['in_process_counters']} in this one")
+                res["launcher_overhead_s"] = res["spawn_to_exit_s"]["early_stop"] - \
+                    res["process_s"]
+            # the base block through `train --mesh --mesh-devices W`
+            cfg = dataclasses.replace(train_cfg, out_dir=os.path.join(tmp, f"train_W{W}"))
+            cfg_path = cfg.out_dir + ".json"
+            cfg.to_json(cfg_path)
+            out, res["spawn_to_exit_s"]["train"] = run_cli(
+                ["train", "--config", cfg_path, "--mesh", "--mesh-devices", str(W)], W)
+            check(out.splitlines()[-1].startswith("done; best metric"), f"train: {out[-2000:]}")
+            step_ms = last_epoch_train_s(cfg.out_dir) / TRAIN_STEPS * 1e3
+            weights = read_weight_file(os.path.join(
+                cfg.out_dir, f"{cfg.out_prefix}_Weight_End{cfg.iters_max}.txt"))[1]
+            diff = max(float(np.max(np.abs(np.asarray(weights[k]) - np.asarray(v))
+                                    / np.maximum(np.abs(np.asarray(v)), 1e-30)))
+                       for k, v in ref_weights.items() if v is not None)
+            extra = sample_ms[1] - sample_ms[W]
+            res["train"] = {"step_ms": step_ms, "weights_max_rel_diff_vs_here": diff,
+                            "global_draw_extra_ms": extra,
+                            "global_draw_share": extra / step_ms}
+            check(all(np.all(np.isfinite(np.asarray(v))) for v in weights.values()
+                      if v is not None), f"train at W = {W}: weights not finite")
+            if W == 1:
+                check(run_files(cfg.out_dir) == ref_files,
+                      "train through the launcher at W = 1: files differ from run_training's")
+            # W ranks of this script on the W cards: launches, the all-reduce
+            ranks = run_nccl_ranks(W, os.path.join(tmp, f"nccl_W{W}"))
+            n_batches = MAX_FRAMES // MAIN_B
+            # warm: the same point again on one simulator and generator (a
+            # curve of the CLI gives each point a generator and a capture)
+            res["warm_frames_per_sec"] = ranks[0]["warm_frames_per_sec"]
+            res["warm_frames_per_sec_per_card"] = ranks[0]["warm_frames_per_sec"] / W
+            res["nccl_ranks"] = {
+                "devices": [rk["device"] for rk in ranks],
+                "launches": [{k: rk[k] for k in ("early_stop_launches", "syndrome_launches")}
+                             for rk in ranks],
+                "warm_frames_per_sec": [rk["warm_frames_per_sec"] for rk in ranks],
+                "idle_gaps_ms": [rk["run_point_trace"]["idle_gaps_ms"] for rk in ranks]}
+            res["all_reduce_ms_per_read"] = {
+                key: [rk["all_reduce_trace"].get(key, {}).get("ms_per_read") for rk in ranks]
+                for key in sorted({k for rk in ranks for k in rk["all_reduce_trace"]})}
+            check(all(rk["world"] == W and rk["backend"] == "nccl" for rk in ranks)
+                  and [rk["device"] for rk in ranks] == [f"cuda:{r}" for r in range(W)],
+                  f"NCCL ranks at W = {W}: {[(rk['world'], rk['device']) for rk in ranks]}")
+            for label, kname in (("early_stop", "fused_nms_early_stop"),
+                                 ("syndrome", "fused_nms_deploy")):
+                want = rank_sum(label, W, 0)
+                res["nccl_ranks"][label] = want
+                check(all(rk[label] == want for rk in ranks),
+                      f"NCCL ranks at W = {W}, {label}: {[rk[label] for rk in ranks]} "
+                      f"against the per-rank sum {want}")
+                check(all(rk[label + "_launches"] == {kname: n_batches, awgn_llr.KERNEL: n_batches}
+                          for rk in ranks),
+                      f"NCCL ranks at W = {W}, {label}: launches "
+                      f"{[rk[label + '_launches'] for rk in ranks]}")
+            if W == 1:  # the anchors of seed 0
+                check(ranks[0]["early_stop"]["genie_errors"] == round(PR1_FER_GENIE * MAX_FRAMES),
+                      f"NCCL rank, W = 1: {ranks[0]['early_stop']}")
+                iters = ranks[0]["syndrome"]["iters_sum"] / MAX_FRAMES
+                check(round(iters, 5) == SYNDROME_MEAN_ITERS,
+                      f"NCCL rank, W = 1: {iters} mean iterations")
+    row["train_here_launches"] = ref.launches
+    return row
+
+
+def launcher_main() -> int:
+    """``chip_smoke.py --launcher``: the device and build phases and the
+    mesh's sub-phase (iv) alone, then the cards' line and the result."""
+    import torch
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    emit({"phase": "device", "nvidia_smi": smi, "cards": torch.cuda.device_count(),
+          "torch_name": torch.cuda.get_device_name(0), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+    build_s, ptxas, _ = build_kernels()
+    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
+    emit({"phase": "mesh_launcher", "card": smi, **launcher_phase(torch.device("cuda"))})
+    print(smi[0], flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -715,8 +1106,10 @@ def main() -> int:
     sys.path.insert(0, REPO)
     if sys.argv[1:2] == ["--mesh-rank"]:  # a rank process of the mesh phase
         return mesh_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
-    from concurrent.futures import ThreadPoolExecutor
-
+    if sys.argv[1:2] == ["--nccl-rank"]:  # a rank process of the launcher sub-phase
+        return nccl_worker(*map(int, sys.argv[2:4]), *sys.argv[4:6])
+    if sys.argv[1:2] == ["--launcher"]:  # the launcher sub-phase alone
+        return launcher_main()
     from ldpc_error_floor_tpu_torch.channel import AWGNChannel
     from ldpc_error_floor_tpu_torch.codes import TannerGraph, get_code
     from ldpc_error_floor_tpu_torch.io import read_uncor_file
@@ -727,8 +1120,7 @@ def main() -> int:
                                                    stack_weights)
     from ldpc_error_floor_tpu_torch.ops import awgn_llr, fused_train
     from ldpc_error_floor_tpu_torch.ops.fused_decoder import (DEPLOY, EARLY_STOP, FIXED,
-                                                              FusedNMSKernel,
-                                                              load_library)
+                                                              FusedNMSKernel)
     from ldpc_error_floor_tpu_torch.ops.fused_decoder import kernel_name as kern_name
     from ldpc_error_floor_tpu_torch.pipelines import (ExperimentConfig,
                                                       run_collection)
@@ -756,16 +1148,8 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     # ---- 2. build -----------------------------------------------------------------
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, together
-        builds = [pool.submit(fn) for fn in (load_library, fused_train.load_library,
-                                             awgn_llr.load_library)]
-        logs = {src: b.result()[1] for src, b in
-                zip(("fused_nms_stats.cu", "fused_nms_train.cu", "awgn_llr.cu"), builds)}
-    ptxas = {src: [ln.strip() for ln in log.splitlines()
-                   if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
-             for src, log in logs.items()}
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    build_s, ptxas, logs = build_kernels()
+    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
 
     # ---- 3. kernels vs plain on the card -------------------------------------------
     wman = get_code(WMAN)
@@ -1984,19 +2368,7 @@ def main() -> int:
         lambda: mesh_sims[0][1].run_point(base20, 4.0, g_m.manual_seed(0),
                                           max_frames=MAX_FRAMES, target_frame_errors=None),
         tdir, "run_point")
-    with open(os.path.join(tdir, "trace.json")) as f:
-        events = json.load(f)["traceEvents"]
-    coll = {}
-    for e in events:
-        name = str(e.get("name", ""))
-        if "nccl" in name.lower() or "all_reduce" in name.lower() or "allreduce" in name.lower():
-            key = f"{e.get('cat')}:{name}"
-            n, ms = coll.get(key, (0, 0.0))
-            coll[key] = (n + 1, ms + e.get("dur", 0) / 1e3)
-    mesh_row["all_reduce_trace"] = {k: {"count": n, "ms": ms, "ms_per_read": ms / n_reads}
-                                    for k, (n, ms) in coll.items()}
-    check(any(v["count"] >= n_reads for v in mesh_row["all_reduce_trace"].values()),
-          f"no all-reduce per host read in the trace: {list(coll)}")
+    mesh_row["all_reduce_trace"] = collective_trace(tdir, n_reads)
 
     # (ii) the base block through run_training, an NCCL world of one against
     # no mesh: 3 steps at TRAIN_B, bit-equal weights
@@ -2141,6 +2513,10 @@ def main() -> int:
     check(all(rk["train_launches"] == {FWD: 1, BWD: 1} for rk in ranks),
           f"two ranks' train launches {[rk['train_launches'] for rk in ranks]}")
     dist.destroy_process_group()
+
+    # (iv) the launcher: the CLI's --mesh over the host's cards, one NCCL
+    # rank per card, against the rank generators run here
+    emit({"phase": "mesh_launcher", "card": smi, **launcher_phase(dev)})
 
     # ---- 9. summary -----------------------------------------------------------------
     src = "ldpc_error_floor_tpu_torch/csrc/fused_nms_stats.cu"

@@ -25,25 +25,33 @@
 weight files and the perf log under the config's `out_dir`.  They run on
 the card unless ``--device cpu`` is given.
 
-Data parallelism: `simulate --mesh` and `train --mesh` run on every rank of
-the world, one process per device (a card: NCCL, ``cuda:{rank %
-device_count}``; ``--device cpu``: gloo).  Each process of a world of N is
-started with ``--coordinator host:port --num-processes N --process-id i``
+Data parallelism: `simulate --mesh` runs on every card of the host and
+`train --mesh [--mesh-devices N]` on every card or the first N, as JAX's
+`--mesh` takes every device (or the first N); more than the host has
+raises ``need N devices, have M``.  The command starts one process per
+card (a *rank*, NCCL between them, rank r on ``cuda:r``) and waits for
+them (`parallel/launch.py`); rank 0's lines are its output, and a rank that
+fails ends the others and the command.  The CPU counts as one device
+(``--device cpu --mesh`` is a world of one in this process).
+
+Across hosts, or to start the ranks by hand, each process of a world of N
+is given ``--coordinator host:port --num-processes N --process-id i``
 (before the subcommand), or the variables LDPC_TPU_COORDINATOR,
 LDPC_TPU_NUM_PROCESSES and LDPC_TPU_PROCESS_ID; rank 0 listens at the
-address and alone prints.  Without a coordinator `--mesh` is a world of
-one:
+address and alone prints, and a card's ranks run on ``cuda:{rank %
+device_count}``.  `--mesh` inside such a world (or inside a process group
+this process already joined) uses it as it is:
 
-    python -m ldpc_error_floor_tpu_torch.cli --coordinator localhost:29500 \
-        --num-processes 2 --process-id 0 simulate --mesh --code ... &
-    python -m ldpc_error_floor_tpu_torch.cli --coordinator localhost:29500 \
-        --num-processes 2 --process-id 1 simulate --mesh --code ...
+    python -m ldpc_error_floor_tpu_torch.cli simulate --mesh --code ...
+    python -m ldpc_error_floor_tpu_torch.cli --coordinator host0:29500 \
+        --num-processes 16 --process-id 8 simulate --mesh --code ...
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 
@@ -273,14 +281,16 @@ def _cmd_simulate(args) -> int:
     return 0
 
 
+def _coordinator(args):
+    return args.coordinator or os.environ.get("LDPC_TPU_COORDINATOR")
+
+
 def _init_distributed(args) -> None:
     """Join the world given by the flags or the LDPC_TPU_COORDINATOR /
     LDPC_TPU_NUM_PROCESSES / LDPC_TPU_PROCESS_ID variables; nothing without
     a coordinator."""
-    import os
-
     from ldpc_error_floor_tpu_torch.parallel import initialize_distributed
-    coord = args.coordinator or os.environ.get("LDPC_TPU_COORDINATOR")
+    coord = _coordinator(args)
     if not coord:
         return
     nprocs = args.num_processes
@@ -339,12 +349,14 @@ def main(argv=None) -> int:
     pt.add_argument("--config", required=True)
     pt.add_argument("--eval-batch", type=int, default=None, dest="eval_batch")
     pt.add_argument("--mesh", action="store_true",
-                    help="data-parallel training: each rank trains on its "
-                         "lanes of every batch (parameters replicated, "
-                         "gradients averaged over the ranks)")
+                    help="data-parallel training over every card, one rank "
+                         "each: each rank trains on its lanes of every batch "
+                         "(parameters replicated, gradients averaged over "
+                         "the ranks)")
     pt.add_argument("--mesh-devices", type=int, default=None,
                     dest="mesh_devices",
-                    help="the world's size, checked (one device per rank)")
+                    help="use only the first N cards (inside a world started "
+                         "by hand: its size, checked)")
     device_arg(pt)
 
     pe = sub.add_parser("evaluate",
@@ -431,12 +443,21 @@ def main(argv=None) -> int:
     pm.add_argument("--systematic", action="store_true",
                     help="count errors over the systematic columns only")
     pm.add_argument("--mesh", action="store_true",
-                    help="data-parallel Monte-Carlo: each rank decodes its "
-                         "lanes of every batch, the counters are summed")
+                    help="data-parallel Monte-Carlo over every card, one rank "
+                         "each: each rank decodes its lanes of every batch, "
+                         "the counters are summed")
 
     args = p.parse_args(argv)
+    import torch
     import torch.distributed as dist
     joined = dist.is_initialized()
+    if getattr(args, "mesh", False) and not joined and not _coordinator(args):
+        # one world over the host's devices: on a card, a rank per card
+        from ldpc_error_floor_tpu_torch.parallel import mesh_world, spawn_ranks
+        world = mesh_world(getattr(args, "mesh_devices", None), args.device)
+        if torch.device(args.device).type == "cuda":
+            return spawn_ranks(sys.argv[1:] if argv is None else list(argv), world,
+                               args.device)
     _init_distributed(args)
     try:
         return {"codes": _cmd_codes, "weights": _cmd_weights,

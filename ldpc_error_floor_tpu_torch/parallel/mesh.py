@@ -10,15 +10,17 @@ gloo between CPU processes.  Where JAX folds a device's index into the key
 (`rank_generator`).
 
 A world of W ranks is W processes that each call `initialize_distributed`
-with the same coordinator address and W, and their own rank; without a
-coordinator, `data_mesh` builds a world of one in this process, so the
-collective path also runs on one device.
+with the same coordinator address and W, and their own rank
+(`parallel/launch.py` starts them, one per card of the host, for the CLI's
+`--mesh`); without a coordinator, `data_mesh` builds a world of one in this
+process, so the collective path also runs on one device.
 """
 
 from __future__ import annotations
 
 import datetime
 import hashlib
+import socket
 from dataclasses import dataclass
 from typing import Callable, List, Optional
 
@@ -74,14 +76,32 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                          "this process's id")
     dev = _rank_device(resolve_device(device), process_id)
     backend = backend or _backend(dev)
+    timeout = datetime.timedelta(seconds=timeout_s)
+    store = next(dist.rendezvous(f"tcp://{coordinator_address}", process_id,
+                                 num_processes, timeout=timeout))[0]
     kw = {}
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
         if backend == "nccl":
             kw["device_id"] = dev
-    dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
+            _one_rank_per_card(store, dev, process_id, num_processes)
+    dist.init_process_group(backend, store=dist.PrefixStore("default_pg", store),
                             world_size=num_processes, rank=process_id,
-                            timeout=datetime.timedelta(seconds=timeout_s), **kw)
+                            timeout=timeout, **kw)
+
+
+def _one_rank_per_card(store, dev: torch.device, rank: int, world: int) -> None:
+    """Raise on every rank when two NCCL ranks of the world would share a
+    card (NCCL refuses them, with an error that does not say so): each rank
+    posts its host and card to the coordinator's store and reads all."""
+    store.set(f"card/{rank}", f"{socket.gethostname()} cuda:{dev.index}")
+    cards = [store.get(f"card/{r}").decode() for r in range(world)]
+    for r, card in enumerate(cards):
+        if cards.index(card) != r:
+            raise ValueError(
+                f"ranks {cards.index(card)} and {r} of {world} are both on {card}: "
+                "NCCL takes one rank per card, so start at most as many ranks on "
+                "a host as it has cards (gloo ranks may share one)")
 
 
 def data_mesh(n_devices: Optional[int] = None, device="cuda") -> DataMesh:
