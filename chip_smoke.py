@@ -61,15 +61,33 @@ exits non-zero:
      1e-5 x max|g| of the plain gradients, summed over chunks of 4096
      words, each scaled by 4096 / 32768, and bit-identical over two
      launches;
-3b. the decoder's API (`decoder_api`) at the main path's width: base20 at
-   4.0 dB on 65536 LLRs drawn from seed 0; `NMSDecoder.decode` with
-   all-zero labels through B1 (stats), B2 (early stop) and B3 (deploy),
-   every output bit-equal (signs of zero included) to the decode without
-   labels, one launch each; labels with one bit set raise `ValueError`
-   with the launch counts unchanged; a decoder on the card with
-   `track_syndrome` raises; `apply(params, llr)` returns the APP stack
-   (JAX's default 'apps') through one launch of B4 alone, its last
-   iteration bit-equal to B1's APP;
+3b. the decoder's API (`decoder_api`) at the main path's width, base20 at
+   4.0 dB: on 65536 zero-word LLRs drawn from seed 0, `NMSDecoder.decode`
+   with all-zero labels through B1 (stats), B2 (early stop) and B3
+   (deploy), every output bit-equal (signs of zero included) to the decode
+   without labels, one launch each, and `apply(params, llr)` returning the
+   APP stack (JAX's default 'apps') through one launch of B4 alone, its
+   last iteration bit-equal to B1's APP; on 65536 random codewords (the
+   port's `Encoder` on the card, BPSK of the encoded word, no fold) as
+   labels, the labelled instances of B1, B2, B3 and B1-SP (BP, T=20), one
+   launch each: their counters integer-equal to the plain version's on the
+   first 4096 words (B1-SP on 99.9% of them), QMS APPs bit-equal; each one's
+   genie errors consistent with the same instance's on the same noise
+   folded to the zero word (two-sample binomial test, p >= 0.01; not exact:
+   the zero-message nudge is not sign-symmetric); `track_syndrome` through
+   B1: its flags equal to the plain version's, its other outputs bit-equal
+   to the labelled B1's, and a word's flags holding at some iteration
+   exactly when B3 on the same LLRs reports no detected_fail, first at its
+   iters - 1; each labelled instance's ms beside the zero word's instance
+   on the folded LLRs, with its bound (the labels read once, 1 more
+   operation per bit; the flags written once, the parity test per slot
+   and check); under a systematic target (wman's 18 columns, (3,0,3), T=20,
+   4096 codewords) `apply`'s `app_last` [N*z, B] bit-equal to the plain
+   version's, its target rows `apps[-1]`, and the gradient of
+   ``sum(app_last * r)`` through B4's rows past the target and B5 within
+   rtol 1e-4 and atol 1e-5 x max|g| of autograd through the plain version;
+   B4 with and without those rows and B5 with and without their
+   cotangent timed at the training batch, 32768;
 3c. the executed-reference traces (`ref_traces`): for each of the six
    `tests/data/ref_traces/*.npz`, `collect='app_last'` on the card through
    B1 (B1-SP for mackay_sp), one launch, the APP on the target columns held
@@ -292,9 +310,12 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def bound(graph, spec, B: int, word_iters=None, out_bytes_per_word=None,
-          syndrome: bool = False, sp: bool = False) -> dict:
+          syndrome: bool = False, sp: bool = False, labels: bool = False,
+          track: bool = False) -> dict:
     """Least time for one decode of B words: device bytes (LLR in, APP
-    out, the statistics, weights, each once) over 3.35 TB/s, and the
+    out, the statistics, weights, each once; with `labels` the codeword
+    bits, one byte each, read once; with `track` the syndrome flags, one
+    byte per iteration and word, written once) over 3.35 TB/s, and the
     algorithm's operations over their peak rate.  `word_iters`: the
     (word, iteration) pairs these inputs need (B*T for a fixed T).  Simple
     f32 operations per iteration and word: 16 per edge slot (VN sum,
@@ -304,7 +325,9 @@ def bound(graph, spec, B: int, word_iters=None, out_bytes_per_word=None,
     plus 1 for the UCN parity, 16 per lifted check (eps fix, weight, ReLU,
     quantize of min1 and min2), 10 per bit (weight and quantize the channel
     value, total, APP add and clip, decision, count); the syndrome stop
-    adds its parity test, 1 per edge slot and 1 per check.  SP also needs
+    adds its parity test, 1 per edge slot and 1 per check, and so does
+    `track`; `labels` adds the compare with the codeword bit, 1 per bit
+    (the target's rows: all of them on the main path).  SP also needs
     a tanh and an atanh per edge slot on the special-function units (at
     least one result each), at 16 per SM and clock."""
     code = graph.code
@@ -314,10 +337,12 @@ def bound(graph, spec, B: int, word_iters=None, out_bytes_per_word=None,
     if out_bytes_per_word is None:
         out_bytes_per_word = T * (1 + 4)
     w_bytes = sum(4 * T * spec.dim(k, graph) for k in ("cn", "ucn", "vn"))
-    nbytes = 4 * Nz * B * 2 + B * out_bytes_per_word + w_bytes
-    per_edge = 16 + (1 if spec.ucn_enabled else 0) + (1 if syndrome else 0)
-    per_check = 16 + (1 if syndrome else 0)
-    ops = word_iters * (per_edge * Ez + per_check * Mz + 10 * Nz)
+    nbytes = (4 * Nz * B * 2 + B * out_bytes_per_word + w_bytes
+              + (Nz * B if labels else 0) + (T * B if track else 0))
+    parity = 1 if syndrome or track else 0
+    per_edge = 16 + (1 if spec.ucn_enabled else 0) + parity
+    per_check = 16 + parity
+    ops = word_iters * (per_edge * Ez + per_check * Mz + (11 if labels else 10) * Nz)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / F32_SIMPLE_OPS_PER_S * 1e3
     out = {"bytes": nbytes, "ops": ops, "word_iters": word_iters,
@@ -629,24 +654,28 @@ def traced(run, tdir: str, span: str) -> dict:
 def ptxas_by_instance(log: str, kern_name) -> dict:
     """ptxas' registers, stack frame and spill bytes of each kernel instance
     in a library's build log (`-Xptxas -v`), by kernel name: the decode
-    library's `fused_nms_kernel<mode, sp, code, chunks>` (the min-sum ones
-    marked [code] or [float]), the training library's
-    `fused_nms_kernel<kTrain, sp, false, chunks>` (B4, B4-SP) and
+    library's `fused_nms_kernel<mode, sp, code, chunks, extra>` (the min-sum
+    ones marked [code] or [float]), the training library's
+    `fused_nms_kernel<kTrain, sp, false, chunks, extra>` (B4, B4-SP) and
     `train_bwd_kernel<sp, chunks>` (B5, B5-SP); the SP training instances
-    for checks of more than one chunk of 16 slots marked [wide]."""
+    for checks of more than one chunk of 16 slots marked [wide], the
+    instances with kExtra marked [labels] (codeword labels; B4's [last]: the
+    last APP past the target) or [syndrome] (labels and syndrome flags)."""
     out, entry, mangled, props = {}, None, None, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             entry, mangled, props = None, m.group(1), None
-            k = re.search(r"fused_nms_kernelILi(\d)ELb([01])ELb([01])ELi(\d+)E", mangled)
+            k = re.search(r"fused_nms_kernelILi(\d)ELb([01])ELb([01])ELi(\d+)ELi(\d)E",
+                          mangled)
             b = re.search(r"train_bwd_kernelILb([01])ELi(\d+)E", mangled)
             if k:  # B4-SP: for checks of one chunk, and [wide] for up to 64 slots
-                mode, sp, code, chunks = (int(x) for x in k.groups())
+                mode, sp, code, chunks, extra = (int(x) for x in k.groups())
                 sfx = "_sp" if sp else ""
                 entry = ("fused_nms_train_fwd" + sfx + ("[wide]" if sp and chunks > 1 else "")
                          if mode == 3 else kern_name(mode, bool(sp))) + (
-                    "" if sp or mode == 3 else "[code]" if code else "[float]")
+                    "" if sp or mode == 3 else "[code]" if code else "[float]") + (
+                    "", "[last]" if mode == 3 else "[labels]", "[syndrome]")[extra]
             elif b:  # B5-SP: for checks of one chunk, and [wide] for up to 64 slots
                 entry = "fused_nms_train_bwd" + ("_sp" if b.group(1) == "1" else "") + (
                     "[wide]" if int(b.group(2)) > 1 else "")
@@ -1527,18 +1556,26 @@ def main() -> int:
     dec_sp, ch_sp, llrs_sp = adam_check(0, gen_sp)
 
     # ---- 3b. the decoder's API at the main path's width ---------------------------
-    # base20 at 4.0 dB on the LLRs of the end-to-end seed: all-zero labels
-    # through B1, B2 and B3 bit-equal to none, one launch each; labels with
-    # a bit set raise before any launch; so does track_syndrome on the card;
-    # apply's default is 'apps', through B4
+    # base20 at 4.0 dB.  On the zero word (LLRs of the end-to-end seed):
+    # all-zero labels through B1, B2 and B3 bit-equal to none, one launch
+    # each; apply's default 'apps' through B4 alone.  On 65536 random
+    # codewords (the port's Encoder on the card, BPSK of the encoded word,
+    # no fold): the labelled instances of B1, B2, B3 and B1-SP (BP), one
+    # launch each, counters equal to the plain version's on the first
+    # API_SLICE words; the labelled genie errors against a decode of the
+    # same noise folded to the zero word; track_syndrome through B1 against
+    # the plain version and against B3; each labelled instance's ms beside
+    # the zero word's instance on the folded LLRs.  Under a systematic target
+    # apply's app_last, B4's rows past the target, and its gradient through
+    # B5 against the plain version
     import numpy as np
+    API_SLICE = 4096
     sig_api = torch.full((MAIN_B,), float(wman.snr_sigmas([4.0])[0]), device=dev)
     llr_api = AWGNChannel(wman, device=dev).sample(
         torch.Generator(device=dev).manual_seed(0), sig_api)
     zeros_api = torch.zeros((wman.n_full, MAIN_B), device=dev)
-    one_bit = zeros_api.clone()
-    one_bit[0, 0] = 1.0
-    api_row = {"B": MAIN_B, "snr_db": 4.0, "weights": "base20"}
+    api_row = {"card": smi, "B": MAIN_B, "snr_db": 4.0, "weights": "base20",
+               "plain_slice": API_SLICE}
     for label, cfg_api, collect, kname in (
             ("B1", DecoderConfig(), "stats", "fused_nms_stats"),
             ("B2", DecoderConfig(early_stop=True), "stats", "fused_nms_early_stop"),
@@ -1551,30 +1588,11 @@ def main() -> int:
         launches = dict(dec_api.kernel.launches)
         equal = (all(torch.equal(x, y) for x, y in zip(out, ref) if x is not None)
                  and torch.equal(torch.signbit(out[0]), torch.signbit(ref[0])))
-        try:
-            dec_api.decode(base20, llr_api, labels=one_bit, collect=collect)
-            raised = False
-        except ValueError:
-            raised = True
         if label == "B1":
             app_b1 = out[0]
-        api_row[label] = {
-            "collect": collect, "early_stop": cfg_api.early_stop,
-            "kernel_launches": launches, "bit_equal": equal, "one_bit_raised": raised,
-            "launches_after_raise": dict(dec_api.kernel.launches),
-            "wrong": int(ref.wrong.sum()) if collect == "deploy" else int(ref.uncor_mask.sum())}
+        api_row[f"{label}_zero_labels"] = {"kernel_launches": launches, "bit_equal": equal}
         check(launches == {kname: 1}, f"decoder_api {label}: launches {launches}")
         check(equal, f"decoder_api {label}: zero labels not bit-equal to none")
-        check(raised and dec_api.kernel.launches == launches,
-              f"decoder_api {label}: a set label bit raised {raised}, launches "
-              f"{dict(dec_api.kernel.launches)}")
-    try:
-        NMSDecoder(wman, DecoderConfig(track_syndrome=True), spec20, graph=wman_graph,
-                   device=dev)
-        api_row["track_syndrome_raised"] = False
-    except ValueError:
-        api_row["track_syndrome_raised"] = True
-    check(api_row["track_syndrome_raised"], "decoder_api: track_syndrome on the card")
     dec_api = NMSDecoder(wman, DecoderConfig(), spec20, graph=wman_graph, device=dev)
     with torch.no_grad():
         apps_api = dec_api.apply(base20, llr_api).apps
@@ -1584,7 +1602,6 @@ def main() -> int:
         "apps_shape": list(apps_api.shape), "train_launches": dict(tk.launches),
         "decode_launches": dict(dec_api.kernel.launches),
         "last_app_equal_b1": bool(torch.equal(apps_api[-1], app_b1))}
-    emit({"phase": "decoder_api", **api_row})
     check(tuple(apps_api.shape) == (T_MAIN, wman.n_full, MAIN_B),
           f"decoder_api: apply's APPs {tuple(apps_api.shape)}")
     check(tk.launches == {tk.fwd_name: 1} and not dec_api.kernel.launches,
@@ -1592,6 +1609,176 @@ def main() -> int:
     check(api_row["apply_default"]["last_app_equal_b1"],
           "decoder_api: apply's last APP differs from B1's")
     del apps_api, app_b1, out, ref
+
+    # codewords: the same noise for QMS and SP, and its fold to the zero word
+    words = Encoder(wman_graph, device=dev).random_codewords(
+        torch.Generator(device=dev).manual_seed(1), MAIN_B)
+    g_cw = torch.Generator(device=dev).manual_seed(2)
+    s_cw = g_cw.get_state()
+    llr_cw = AWGNChannel(wman, device=dev).sample_codewords(g_cw, sig_api, words)
+    g_cw.set_state(s_cw)
+    llr_cw_sp = AWGNChannel(wman, decoding_type=0, device=dev).sample_codewords(
+        g_cw, sig_api, words)
+    flip = 1.0 - 2.0 * words
+    folded, folded_sp = llr_cw * flip, llr_cw_sp * flip
+    spec_sp = WeightSpec(sharing=(0, 0, 0), n_iters=T_MAIN)
+    bp_params = init_weights(spec_sp, wman_graph, device=dev)
+    head = slice(0, API_SLICE)
+    labelled = {}
+    for label, cfg_api, collect, kname, spec_x, params_x, x, x_fold in (
+            ("B1", DecoderConfig(), "stats", "fused_nms_stats", spec20, base20, llr_cw, folded),
+            ("B2", DecoderConfig(early_stop=True), "stats", "fused_nms_early_stop", spec20,
+             base20, llr_cw, folded),
+            ("B3", DecoderConfig(), "deploy", "fused_nms_deploy", spec20, base20, llr_cw,
+             folded),
+            ("B1-SP", DecoderConfig(decoding_type=0), "stats", "fused_nms_stats_sp", spec_sp,
+             bp_params, llr_cw_sp, folded_sp)):
+        dec_api = NMSDecoder(wman, cfg_api, spec_x, graph=wman_graph, device=dev)
+        kern = dec_api.kernel
+        stacked = stack_weights(spec_x, params_x)
+        deploy = collect == "deploy"
+        kern.launches.clear()
+        out = dec_api.decode(params_x, x, labels=words, collect=collect)
+        torch.cuda.synchronize()
+        launches = dict(kern.launches)
+        zero = dec_api.decode(params_x, x_fold, collect=collect)  # the same noise, folded
+        x_s, lab_s = x[:, head].contiguous(), words[:, head].contiguous()
+        ref = (kern.decode_deploy_plain(stacked, x_s, labels=lab_s) if deploy
+               else kern.decode_stats_plain(stacked, x_s, labels=lab_s))
+        torch.cuda.synchronize()
+        off = torch.zeros(API_SLICE, dtype=torch.bool, device=dev)
+        for o, r_ in zip(out[1:], ref[1:]):
+            off |= (o[..., head] != r_).reshape(-1, API_SLICE).any(dim=0)
+        sp = cfg_api.decoding_type == 0
+        app_diff = app_check(f"decoder_api {label}", cfg_api.decoding_type,
+                             out[0][:, head][:, ~off], ref[0][:, ~off], kname)
+        genie = int(out[1].sum()) if deploy else int(out[1].all(dim=0).sum())
+        genie_fold = int(zero[1].sum()) if deploy else int(zero[1].all(dim=0).sum())
+        call = ((lambda xx, lab: kern.decode_deploy(stacked, xx, lab)) if deploy
+                else (lambda xx, lab: kern.decode_stats(stacked, xx, lab)))
+        ms = time_ms(lambda: call(x, words), reps=10)
+        ms_zero = time_ms(lambda: call(x_fold, None), reps=10)
+        if deploy:
+            word_iters = int(out[3].sum())
+            bnd = bound(wman_graph, spec_x, MAIN_B, word_iters=word_iters,
+                        out_bytes_per_word=1 + 4 + 4 + 1, syndrome=True, labels=True)
+        elif cfg_api.early_stop:
+            word_iters = early_stop_word_iters(out[1], kern.group)
+            bnd = bound(wman_graph, spec_x, MAIN_B, word_iters=word_iters, labels=True)
+        else:
+            word_iters = MAIN_B * spec_x.n_iters
+            bnd = bound(wman_graph, spec_x, MAIN_B, labels=True, sp=sp)
+        labelled[label] = out
+        api_row[label] = {
+            "collect": collect, "early_stop": cfg_api.early_stop, "kernel_launches": launches,
+            "words_with_counter_mismatch": int(off.sum()), "max_abs_app_diff": app_diff,
+            "wrong": int(out[1].sum()) if deploy else int(out[1][-1].sum()),
+            "genie_errors_labelled": genie, "genie_errors_folded": genie_fold,
+            "p_labelled_vs_folded": binomial_two_sample_p(genie, MAIN_B, genie_fold, MAIN_B),
+            "ms_labelled": ms, "ms_zero_word_folded": ms_zero, "word_iters": word_iters,
+            "bound_ms_labelled": bnd["bound_ms"], "bound_by": bnd["bound_by"]}
+        check(launches == {kname: 1}, f"decoder_api labelled {label}: launches {launches}")
+        check(int(off.sum()) <= (0.001 * API_SLICE if sp else 0),
+              f"decoder_api labelled {label}: {int(off.sum())} words' counters differ "
+              "from the plain version")
+        check(0 < genie and api_row[label]["p_labelled_vs_folded"] >= 0.01,
+              f"decoder_api labelled {label}: {genie} genie errors against {genie_fold} "
+              "folded")
+    # track_syndrome through B1: the flags against the plain version, the
+    # other outputs bit-equal to the labelled B1's, and against B3 on the same
+    # LLRs: a word's flags hold at some iteration exactly when it has no
+    # detected_fail, first at its iters - 1
+    dec_tr = NMSDecoder(wman, DecoderConfig(track_syndrome=True), spec20, graph=wman_graph,
+                        device=dev)
+    res_tr = dec_tr.decode(base20, llr_cw, labels=words)
+    torch.cuda.synchronize()
+    launches = dict(dec_tr.kernel.launches)
+    st20_api = stack_weights(spec20, base20)
+    synd_p = dec_tr.kernel.decode_stats_plain(st20_api, llr_cw[:, head].contiguous(),
+                                              labels=words[:, head].contiguous())[3]
+    synd = res_tr.syndrome_ok
+    iters_b3, fail_b3 = labelled["B3"][3], labelled["B3"][4]
+    held = synd.any(dim=0)
+    first = synd.int().argmax(dim=0) + 1
+    ms_tr = time_ms(lambda: dec_tr.kernel.decode_stats(st20_api, llr_cw, words), reps=10)
+    bnd_tr = bound(wman_graph, spec20, MAIN_B, labels=True, track=True)
+    api_row["B1_track_syndrome"] = {
+        "kernel_launches": launches, "shape": list(synd.shape),
+        "flag_mismatches_vs_plain": int((synd[:, head] != synd_p).sum()),
+        "other_outputs_equal_labelled_b1": all(
+            torch.equal(a_, b_) for a_, b_ in zip(res_tr[:3], labelled["B1"])),
+        "held_vs_not_detected_fail_mismatches": int((held != ~fail_b3).sum()),
+        "first_vs_b3_iters_mismatches": int((first[held] != iters_b3[held]).sum()),
+        "last_vs_not_detected_fail_mismatches": int((synd[-1] != ~fail_b3).sum()),
+        "syndrome_ok_last": int(synd[-1].sum()), "ms": ms_tr,
+        "bound_ms": bnd_tr["bound_ms"], "bound_by": bnd_tr["bound_by"]}
+    row_tr = api_row["B1_track_syndrome"]
+    check(launches == {"fused_nms_stats": 1}, f"decoder_api track_syndrome: launches {launches}")
+    check(row_tr["flag_mismatches_vs_plain"] == 0 and row_tr["other_outputs_equal_labelled_b1"],
+          f"decoder_api track_syndrome: {row_tr}")
+    check(row_tr["held_vs_not_detected_fail_mismatches"] == 0
+          and row_tr["first_vs_b3_iters_mismatches"] == 0
+          and not bool((synd[-1] & fail_b3).any()),
+          f"decoder_api track_syndrome against B3: {row_tr}")
+    # app_last under a systematic target (wman's 18 systematic columns):
+    # B4's rows past the target and B5's take of their cotangent, against
+    # the plain version on API_SLICE codewords
+    spec_sys = WeightSpec(sharing=(3, 0, 3), n_iters=T_MAIN)
+    dec_sys = NMSDecoder(wman, DecoderConfig(target_node=18), spec_sys, graph=wman_graph,
+                         device=dev)
+    w_sys = case_weights(spec_sys, wman_graph, "rand",
+                         torch.Generator(device=dev).manual_seed(5))
+    x_sys = llr_cw[:, head].contiguous()
+    r_sys = torch.randn(x_sys.shape, generator=torch.Generator(device=dev).manual_seed(3),
+                        device=dev)
+    runs = {}
+    for route in ("kernel", "plain"):
+        ws = {k: None if v is None else v.clone().requires_grad_(True) for k, v in w_sys.items()}
+        if route == "kernel":
+            res_sys = dec_sys.apply(ws, x_sys)
+            apps_s, last_s = res_sys.apps, res_sys.app_last
+        else:
+            apps_s, last_s = dec_sys.train_kernel.apps_and_last_plain(
+                stack_weights(spec_sys, ws), x_sys)
+        (last_s * r_sys).sum().backward()
+        runs[route] = (apps_s.detach(), last_s.detach(),
+                       {k: v.grad for k, v in ws.items() if v is not None})
+    torch.cuda.synchronize()
+    tk = dec_sys.train_kernel
+    (apps_k, last_k, g_k), (apps_p, last_p, g_p) = runs["kernel"], runs["plain"]
+    ratio = max(float(((g_k[k] - g_p[k]).abs()
+                       / (1e-5 * max(float(g_p[k].abs().max()), 1e-8)
+                          + 1e-4 * g_p[k].abs())).max()) for k in g_p)
+    api_row["app_last_systematic"] = {
+        "target_node": 18, "B": API_SLICE, "shape": list(last_k.shape),
+        "train_launches": dict(tk.launches),
+        "app_last_mismatches": int((last_k != last_p).sum()),
+        "target_rows_equal_apps_last": bool(torch.equal(last_k[: 18 * wman.z], apps_k[-1])),
+        "grad_err_over_tolerance": ratio}
+    row_sys = api_row["app_last_systematic"]
+    check(tuple(last_k.shape) == (wman.n_full, API_SLICE) and row_sys["app_last_mismatches"] == 0
+          and row_sys["target_rows_equal_apps_last"], f"decoder_api app_last: {row_sys}")
+    check(tk.launches == {tk.fwd_name: 1, tk.bwd_name: 1} and ratio <= 1.0,
+          f"decoder_api app_last gradient: {row_sys}")
+    # B4 with and without the rows past the target, B5 with and without
+    # their cotangent, at the training batch (launches outside the checks)
+    x_t = llr_cw[:, :TRAIN_B].contiguous()
+    w3 = tuple(stack_weights(spec_sys, w_sys)[k] for k in ("cn", "ucn", "vn"))
+    rest = torch.empty(((wman.N - 18) * wman.z, TRAIN_B), device=dev)
+    row_sys["B_timed"] = TRAIN_B
+    row_sys["fwd_ms"] = time_ms(lambda: tk._forward(w3, x_t, True), reps=5)
+    row_sys["fwd_last_rows_ms"] = time_ms(lambda: tk._forward(w3, x_t, True, rest), reps=5)
+    apps_pre, hist_s, cres_s = tk._forward(w3, x_t, True, rest)
+    g_gen = torch.Generator(device=dev).manual_seed(6)
+    g_apps = torch.randn(apps_pre.shape, generator=g_gen, device=dev)
+    g_rest = torch.randn(rest.shape, generator=g_gen, device=dev)
+    row_sys["bwd_ms"] = time_ms(
+        lambda: tk._backward(w3, x_t, hist_s, cres_s, apps_pre, g_apps), reps=5)
+    row_sys["bwd_last_rows_ms"] = time_ms(
+        lambda: tk._backward(w3, x_t, hist_s, cres_s, apps_pre, g_apps, rest, g_rest), reps=5)
+    del apps_pre, hist_s, cres_s, g_apps, g_rest, rest, x_t
+    emit({"phase": "decoder_api", **api_row})
+    del labelled, res_tr, runs, words, llr_cw, llr_cw_sp, folded, folded_sp, flip
     torch.cuda.empty_cache()
 
     # ---- 3c. the decode kernels against the executed-reference traces -----------

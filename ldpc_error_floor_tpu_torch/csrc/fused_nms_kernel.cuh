@@ -121,6 +121,18 @@
 // block's residuals of one iteration are one contiguous run.  Nothing is
 // staged asynchronously here, so no copy can read a buffer that is being
 // rewritten.
+// The instances with kExtra > 0 take what the scan decoder gives beyond the
+// zero word, each behind a pointer that may be null, so the instances
+// without it stay as they were.  kExtra = 1: the decode modes count a bit
+// wrong where its hard decision differs from the codeword bit `lab` (uint8
+// [target*z][B], read with the bit's LLR at each count); kTrain writes,
+// with `last_out`, the last iteration's pre-clip APP of the rows past the
+// target ([(N-target)*z][B]), so that the caller has that iteration's whole
+// APP.  kExtra = 2 (the fixed T): also each iteration's syndrome flag per
+// word, `synd_out` [T][B] (H*x == 0: phase B's parity of the previous
+// decisions, which UCN and the syndrome stop already compute, gathered per
+// word in shared memory).  The two are apart because the flags' code
+// slowed the labelled fixed T by 4% on wman (PERF.md).
 // Rounding follows the scan decoder: rintf (half to even, as jnp.round and
 // torch.round), and the build uses -fmad=false so no multiply-add is
 // contracted.
@@ -410,13 +422,16 @@ __device__ void stage_lifted(const int* __restrict__ tab, int2* dst, int E,
 // Bytes of the decode kernel's shared memory (the layouts below;
 // ops/fused_decoder.py::_smem_bytes computes the same).
 // `lifted`: the float state carries the lifted slot table (SP decode).
+// `track`: the fixed T's syndrome flags (two more int [G], and the parity
+// bits in the float state).
 __host__ __device__ __forceinline__ int decode_smem_bytes(int N, int M, int z,
                                                           int E, int G,
                                                           int ucn, bool deploy,
-                                                          bool code, bool lifted) {
+                                                          bool code, bool lifted,
+                                                          bool track = false) {
   const int head = table_bytes(N, M, E) + 4 * ((2 * E + N + 3) & ~3);
-  const int cnt = (deploy ? 4 : 2) * G;
-  const int bits = (ucn || deploy) ? N * z * G : 0;
+  const int cnt = (deploy || track ? 4 : 2) * G;
+  const int bits = (ucn || deploy || track) ? N * z * G : 0;
   if (code)  // no parity bits: each is bit 0 of its bit's packed total
     return head + 4 * ((cnt + kLutInts + 3) & ~3) + 8 * E * z + 2 * N * z * G +
            E * z * G;
@@ -453,15 +468,18 @@ __device__ __forceinline__ float cn_w(const float* wc, const float* wu,
 //   float state: SP decode only: the lifted slot table int2 [E*z] | C->V
 //     float [E*z][G] | bit totals float [N*z][G] | error
 //     counts int [2][G] | deploy only: frozen int [G], last unsatisfied step
-//     int [G] | parity bits uint8 [N*z][G] (with UCN or in deploy mode);
+//     int [G] | syndrome flags int [2][G] (fixed T with synd_out) | parity bits
+//     uint8 [N*z][G] (with UCN, in deploy mode or with synd_out);
 //   code state (kCode): error counts int [2][G] | deploy: frozen, last
-//     unsatisfied step int [G] each | the output-byte table int
+//     unsatisfied step int [G] each | syndrome flags int [2][G] (fixed T
+//     with synd_out) | the output-byte table int
 //     [kLutInts], padded to 16 bytes | the lifted slot table int2 [E*z] |
 //     bit totals int16 [N*z][G] (2 * code + the bit's hard decision) |
 //     C->V uint8 [E*z][G] (C->V bytes, V->C bytes between the passes).
 // Outputs: stats modes app [N*z][B] (clipped), err uint8 [T][B], nerr int
 // [T][B]; deploy app, err uint8 [B], nerr int [B], iters int [B], fail uint8
-// [B]; kTrain app [T-t0][target*z][B] (pre-clip) and, with hist_out, hist
+// [B]; with kExtra 2, synd_out uint8 [T][B] (fixed T), and kTrain's last_out
+// float [(N-target)*z][B]; kTrain app [T-t0][target*z][B] (pre-clip) and, with hist_out, hist
 // [tiles][T][E*z][W] and cres [tiles][T][R*M*z][W] (min-sum: R = 4 with
 // UCN, else 3; SP: R = 1 with UCN, else no cres), tiles = ceil(B / W).
 // Pass 1 of phase B in the code state for lifted check (i, h) of word g
@@ -522,8 +540,10 @@ struct LaunchBound {
 
 // kChunks: SP's checks have at most kChunks chunks of kSPRegDeg slots (1:
 // every check fits one chunk, as on wman; B4-SP takes that instance where
-// it can).
-template <int kMode, bool kSP, bool kCode, int kChunks = kSPChunks>
+// it can).  kExtra: 1, the instance that reads lab or writes last_out; 2,
+// that also writes synd_out (see the notes above; the others ignore the
+// three pointers).
+template <int kMode, bool kSP, bool kCode, int kChunks = kSPChunks, int kExtra = 0>
 __global__ void __launch_bounds__(LaunchBound<kMode, kSP, kCode, kChunks>::threads,
                                   LaunchBound<kMode, kSP, kCode, kChunks>::blocks)
 fused_nms_kernel(const float* __restrict__ llr,
@@ -540,7 +560,9 @@ fused_nms_kernel(const float* __restrict__ llr,
                  float* __restrict__ cres_out,
                  int N, int M, int z, int E, int T, int B, int G, int W,
                  int target, int t0, Msg ms, int cn_mode, int ucn,
-                 int vn_mode, int offset_mode, int dim_cn, int dim_vn) {
+                 int vn_mode, int offset_mode, int dim_cn, int dim_vn,
+                 const uint8_t* __restrict__ lab, uint8_t* __restrict__ synd_out,
+                 float* __restrict__ last_out) {
   constexpr bool kDep = kMode == kDeploy;
   constexpr bool kTr = kMode == kTrain;
   constexpr bool kLifted = LaunchBound<kMode, kSP, kCode>::lifted;
@@ -553,7 +575,10 @@ fused_nms_kernel(const float* __restrict__ llr,
   float* wu = wc + dim_cn;
   float* wv = wu + dim_cn;
   float* state = wc + ((2 * E + N + 3) & ~3);
-  const int ncnt = (kDep ? 4 : 2) * G;
+  // kExtra: count against the codeword bits; write the syndrome flags
+  const bool labelled = kExtra > 0 && !kTr && lab != nullptr;
+  const bool track = kExtra == 2 && kMode == kFixed && synd_out != nullptr;
+  const int ncnt = (kDep || track ? 4 : 2) * G;
   // float state (SP decode: after the lifted slot table)
   float* c2v = state + (kLifted && !kCode ? 2 * Ez : 0);
   float* tot = c2v + Ez * G;
@@ -570,8 +595,12 @@ fused_nms_kernel(const float* __restrict__ llr,
   // unsatisfied check of word g (step s tests iteration s-1's decisions)
   int* frozen = cnt + 2 * G;
   int* unsat_at = frozen + G;
+  // track: sflag[p][g] = phase B of a step of parity p found an unsatisfied
+  // check of word g in the iteration it tested (two buffers, as the counts:
+  // phase B sets one while the next step's statistics read the other)
+  int* sflag = cnt + 2 * G;
   uint8_t* bits = reinterpret_cast<uint8_t*>(cnt + ncnt);  // float state only
-  const bool need_bits = ucn || kDep;
+  const bool need_bits = ucn || kDep || track;
   const bool stream = kTr && hist_out != nullptr;
   const int R = kSP ? 1 : (ucn ? 4 : 3);
 
@@ -604,6 +633,7 @@ fused_nms_kernel(const float* __restrict__ llr,
   if (!kCode)
     for (int k = tid; k < Ez * G; k += nthr) c2v[k] = 0.0f;
   if (tid < 2 * G) cnt[tid] = 0;
+  if (track && tid < 2 * G) sflag[tid] = 0;
   if (kDep && tid < G) {
     frozen[tid] = 0;
     unsat_at[tid] = -1;
@@ -638,6 +668,9 @@ fused_nms_kernel(const float* __restrict__ llr,
       const int row = it.row, j = it.q;
       const int k = gr.at(row, gt);
       const float x = (b < B) ? __ldg(llr + (size_t)row * B + b) : 0.0f;
+      // kExtra: the codeword bit of iteration t-1's count, read with the LLR
+      const int lbit =
+          (labelled && t > 0 && j < target && b < B) ? __ldg(lab + (size_t)row * B + b) : 0;
       float S;
       int Sc = 0;
       int dec = 0;  // the hard decision that phase B's parity reads
@@ -654,6 +687,8 @@ fused_nms_kernel(const float* __restrict__ llr,
           if (ucn) bits[k] = app >= 0.0f;
           if (b < B && t - 1 >= t0 && j < target)
             app_out[((size_t)(t - 1 - t0) * target * z + row) * B + b] = app;
+          if (kExtra > 0 && t == T && j >= target && b < B && last_out != nullptr)
+            last_out[(size_t)(row - target * z) * B + b] = app;
         } else {
           const bool write = b < B && (kDep ? live : t == T);
           // the float sum is -0 (not +0) only when every term is -0
@@ -662,7 +697,7 @@ fused_nms_kernel(const float* __restrict__ llr,
             S = -0.0f;
           const float app = clip(base + S, ms.clip_llr);
           const bool bit = app >= 0.0f;
-          if (j < target) wrong += bit;
+          if (j < target) wrong += bit ^ lbit;
           if (kCode) {
             if (t == T && need_bits) tot16[k] = (short)bit;  // the syndrome's
           } else if (need_bits) {
@@ -705,6 +740,10 @@ fused_nms_kernel(const float* __restrict__ llr,
       }
       cnt[(p ^ 1) * G + tid] = 0;
       if (kDep) frozen[tid] = !live;
+      if (track && t >= 2) {  // phase B of step t-1 tested iteration t-2
+        if (b < B) synd_out[(size_t)(t - 2) * B + b] = !sflag[(p ^ 1) * G + tid];
+        sflag[(p ^ 1) * G + tid] = 0;
+      }
     }
     if (kMode == kEarlyStop && t > 0 && !__syncthreads_or(go)) {
       if (t < T) {
@@ -751,6 +790,7 @@ fused_nms_kernel(const float* __restrict__ llr,
                       : code_pass1<false>(ms, lt, cw, tot16 + g, k0, k1, z, t == 0);
         const int par = p1.par & 1;  // UCN mask, or the syndrome in deploy mode
         if (kDep && t > 0 && par) unsat_at[g] = t;  // all writers store t
+        if (track && t > 0 && par) sflag[p * G + g] = 1;
         // an outgoing message is negative when the count of positive
         // incoming messages, plus one for a negative own message, is odd
         const int ppar = ((k1 - k0) ^ (p1.nneg >> 31)) & 1;
@@ -784,10 +824,11 @@ fused_nms_kernel(const float* __restrict__ llr,
         continue;
       }
       float u = 0.0f;
-      if (ucn || (kDep && t > 0)) {
+      if (ucn || ((kDep || track) && t > 0)) {
         const int par = gr.check_parity(bits, i, h, g);
         u = (float)par;
         if (kDep && t > 0 && par) unsat_at[g] = t;  // all writers store t
+        if (track && t > 0 && par) sflag[p * G + g] = 1;
       }
       // the check's weight this iteration (per edge: per slot, below)
       const float w_chk =
@@ -956,6 +997,14 @@ fused_nms_kernel(const float* __restrict__ llr,
     }
     if (tid < G && b < B) fail_out[b] = !frozen[tid] && unsat_at[tid] == T;
   }
+  if (track) {  // the syndrome of the last iteration, T-1, into buffer T & 1
+    for (Rows it = rows0; it.row < Mz; it.next())
+      if (kCode ? gr.code_parity(ltab, tot16 + gt, it.q, it.r)
+                : gr.check_parity(bits, it.q, it.r, gt))
+        sflag[(T & 1) * G + gt] = 1;
+    __syncthreads();
+    if (tid < G && b < B) synd_out[(size_t)(T - 1) * B + b] = !sflag[(T & 1) * G + tid];
+  }
 }
 
 // Blocks of fused_nms_kernel<kMode, kSP, kCode> that one SM holds at
@@ -973,22 +1022,25 @@ int resident_blocks(int threads, int smem) {
   return n;
 }
 
-// One launch of fused_nms_kernel<kMode, kSP, kCode> on `stream` with
-// `smem` bytes of dynamic shared memory per block of G words.  Returns -2
-// when `smem` is not the layout's size, else cudaGetLastError() after the
-// launch (0 = launched).
-template <int kMode, bool kSP, bool kCode, int kChunks = kSPChunks>
+// One launch of fused_nms_kernel<kMode, kSP, kCode, kChunks, kExtra> on
+// `stream` with `smem` bytes of dynamic shared memory per block of G words
+// (lab, synd and last: kExtra's, else null).  Returns -2 when `smem` is not
+// the layout's size, else cudaGetLastError() after the launch (0 =
+// launched).
+template <int kMode, bool kSP, bool kCode, int kChunks = kSPChunks, int kExtra = 0>
 int launch(const void* llr, const void* w_cn, const void* w_ucn,
            const void* w_vn, const void* tab, void* app, void* err,
            void* nerr, void* iters, void* fail, void* hist, void* cres,
            int N, int M, int z, int E, int T, int B, int G, int W, int threads,
            int smem, int target, int t0, Msg ms, int cn_mode, int ucn,
            int vn_mode, int offset_mode, int dim_cn, int dim_vn,
-           cudaStream_t stream) {
+           cudaStream_t stream, const void* lab = nullptr, void* synd = nullptr,
+           void* last = nullptr) {
+  const bool track = kExtra == 2 && kMode == kFixed && synd != nullptr;
   if (smem != decode_smem_bytes(N, M, z, E, G, ucn, kMode == kDeploy, kCode,
-                                LaunchBound<kMode, kSP, kCode>::lifted))
+                                LaunchBound<kMode, kSP, kCode>::lifted, track))
     return -2;
-  auto* kern = fused_nms_kernel<kMode, kSP, kCode, kChunks>;
+  auto* kern = fused_nms_kernel<kMode, kSP, kCode, kChunks, kExtra>;
   cudaError_t st = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (st != cudaSuccess) return (int)st;
@@ -998,7 +1050,8 @@ int launch(const void* llr, const void* w_cn, const void* w_ucn,
       (const float*)w_vn, (const int*)tab, (float*)app, (uint8_t*)err,
       (int*)nerr, (int*)iters, (uint8_t*)fail, (float*)hist, (float*)cres,
       N, M, z, E, T, B, G, W, target, t0, ms, cn_mode, ucn, vn_mode,
-      offset_mode, dim_cn, dim_vn);
+      offset_mode, dim_cn, dim_vn, (const uint8_t*)lab, (uint8_t*)synd,
+      (float*)last);
   return (int)cudaGetLastError();
 }
 

@@ -20,8 +20,12 @@
 // traffic are ~20x the device-memory time at 3.35 TB/s.  SP adds a tanhf
 // and an atanhf per edge slot, which run on the special-function units.
 //
-// The loop itself, what its design does about that and how it rounds, is
-// csrc/fused_nms_kernel.cuh (shared with the training forward B4).  It
+// Each mode has a second instance (kExtra 1) that counts against given
+// codeword bits, and the fixed T a third (kExtra 2) that also writes the
+// per-iteration syndrome flags, as the scan decoder does with labels and
+// track_syndrome; the zero word keeps its own instance.  The loop itself, what its design does about
+// that and how it rounds, is csrc/fused_nms_kernel.cuh (shared with the
+// training forward B4).  It
 // launches on the caller's stream, allocates nothing and does not
 // synchronise.
 
@@ -31,57 +35,73 @@
 // code: the code-domain state (QMS only; u, uinv, clipc, qshift its grid in
 // units of u, see Msg).  Stats modes write app [N*z][B],
 // err uint8 [T][B], nerr int [T][B] (iters and fail unused); deploy writes
-// app, err uint8 [B], nerr int [B], iters int [B], fail uint8 [B].  `smem`
-// is the dynamic shared memory of one block (ops/fused_decoder.py::
-// _smem_bytes); qinv = 1/qstep, exactly (a power of two).  Returns
-// cudaGetLastError() after the launch (0 = launched), -1 for an unknown
-// instance, -2 for a shared-memory size that is not the layout's.
+// app, err uint8 [B], nerr int [B], iters int [B], fail uint8 [B].  `lab`
+// (uint8 [target*z][B], 0 or 1) is the codeword the errors count against
+// and `synd` (uint8 [T][B], fixed T only) receives the per-iteration
+// syndrome flags: `synd` not null takes the instance with kExtra 2, else
+// `lab` not null the one with kExtra 1, both null the zero word's.  `smem` is the dynamic shared memory of one
+// block (ops/fused_decoder.py::_smem_bytes); qinv = 1/qstep, exactly (a
+// power of two).  Returns cudaGetLastError() after the launch (0 =
+// launched), -1 for an unknown instance, -2 for a shared-memory size that
+// is not the layout's.
 #define FUSED_NMS_INSTANCES(X)                                                \
-  X(0, kFixed, false, false)                                                  \
-  X(1, kFixed, true, false)                                                   \
-  X(2, kFixed, false, true)                                                   \
-  X(3, kEarlyStop, false, false)                                              \
-  X(4, kEarlyStop, true, false)                                               \
-  X(5, kEarlyStop, false, true)                                               \
-  X(6, kDeploy, false, false)                                                 \
-  X(7, kDeploy, true, false)                                                  \
-  X(8, kDeploy, false, true)
+  X(0, kFixed, false, false, 0)                                               \
+  X(1, kFixed, true, false, 0)                                                \
+  X(2, kFixed, false, true, 0)                                                \
+  X(3, kEarlyStop, false, false, 0)                                           \
+  X(4, kEarlyStop, true, false, 0)                                            \
+  X(5, kEarlyStop, false, true, 0)                                            \
+  X(6, kDeploy, false, false, 0)                                              \
+  X(7, kDeploy, true, false, 0)                                               \
+  X(8, kDeploy, false, true, 0)                                               \
+  X(9, kFixed, false, false, 1)                                               \
+  X(10, kFixed, true, false, 1)                                               \
+  X(11, kFixed, false, true, 1)                                               \
+  X(12, kEarlyStop, false, false, 1)                                          \
+  X(13, kEarlyStop, true, false, 1)                                           \
+  X(14, kEarlyStop, false, true, 1)                                           \
+  X(15, kDeploy, false, false, 1)                                             \
+  X(16, kDeploy, true, false, 1)                                              \
+  X(17, kDeploy, false, true, 1)                                              \
+  X(18, kFixed, false, false, 2)                                              \
+  X(19, kFixed, true, false, 2)                                               \
+  X(20, kFixed, false, true, 2)
 
-static int instance(int mode, int sp, int code) {
-  if (mode < 0 || mode > 2 || (sp && code)) return -1;
-  return mode * 3 + (sp ? 1 : (code ? 2 : 0));
+static int instance(int mode, int sp, int code, int extra) {
+  if (mode < 0 || mode > 2 || (sp && code) || (extra == 2 && mode != 0)) return -1;
+  return extra * 9 + mode * 3 + (sp ? 1 : (code ? 2 : 0));
 }
 
 extern "C" int fused_nms_launch(
     const void* llr, const void* w_cn, const void* w_ucn, const void* w_vn,
     const void* tab, void* app, void* err, void* nerr, void* iters,
-    void* fail, int N, int M, int z, int E, int T, int B,
-    int G, int threads, int smem, int target, int dec_type, float qstep,
-    float qinv, float qclip, float clip_llr, float u, float uinv, int clipc,
-    int qshift, int cn_mode, int ucn, int vn_mode, int offset_mode,
+    void* fail, const void* lab, void* synd, int N, int M, int z, int E,
+    int T, int B, int G, int threads, int smem, int target, int dec_type,
+    float qstep, float qinv, float qclip, float clip_llr, float u, float uinv,
+    int clipc, int qshift, int cn_mode, int ucn, int vn_mode, int offset_mode,
     int dim_cn, int dim_vn, int mode, int sp, int code, void* stream) {
   const Msg ms{dec_type, qinv, qstep, qclip, clip_llr, u, uinv, clipc, qshift};
-  switch (instance(mode, sp, code)) {
-#define FUSED_NMS_LAUNCH(ID, MODE, SP, CODE)                                  \
+  switch (instance(mode, sp, code, synd != nullptr ? 2 : (lab != nullptr ? 1 : 0))) {
+#define FUSED_NMS_LAUNCH(ID, MODE, SP, CODE, EXTRA)                           \
   case ID:                                                                    \
-    return launch<MODE, SP, CODE>(                                            \
+    return launch<MODE, SP, CODE, kSPChunks, EXTRA>(                          \
         llr, w_cn, w_ucn, w_vn, tab, app, err, nerr, iters, fail, nullptr,    \
         nullptr, N, M, z, E, T, B, G, 1, threads, smem, target, 0, ms,        \
         cn_mode, ucn, vn_mode, offset_mode, dim_cn, dim_vn,                   \
-        (cudaStream_t)stream);
+        (cudaStream_t)stream, lab, synd);
     FUSED_NMS_INSTANCES(FUSED_NMS_LAUNCH)
 #undef FUSED_NMS_LAUNCH
   }
   return -1;
 }
 
-// Blocks of one instance that an SM of the current card holds at `threads`
-// threads and `smem` bytes of dynamic shared memory (0: none or a failed
-// query, -1: an unknown instance).
+// Blocks of one zero-word instance that an SM of the current card holds at
+// `threads` threads and `smem` bytes of dynamic shared memory (0: none or a
+// failed query, -1: an unknown instance).
 extern "C" int fused_nms_resident_blocks(int mode, int sp, int code,
                                          int threads, int smem) {
-  switch (instance(mode, sp, code)) {
-#define FUSED_NMS_RESIDENT(ID, MODE, SP, CODE)                                \
+  switch (instance(mode, sp, code, 0)) {
+#define FUSED_NMS_RESIDENT(ID, MODE, SP, CODE, EXTRA)                         \
   case ID:                                                                    \
     return resident_blocks<MODE, SP, CODE>(threads, smem);
     FUSED_NMS_INSTANCES(FUSED_NMS_RESIDENT)

@@ -25,7 +25,12 @@
 //   apps [T-t0][target*z][B]   the pre-clip APP for t >= t0 (the wrapper
 //                              clips it for the primal output; the loss
 //                              reads it, so it keeps the batch-minor
-//                              layout).
+//                              layout);
+//   last [(N-target)*z][B]     under a systematic target, when asked for
+//                              (the instance with kExtra 1), the last
+//                              iteration's pre-clip APP of the other rows,
+//                              so that the caller has its whole APP (the
+//                              scan decoder's app_last).
 // One backward block's residuals of one iteration are then one contiguous
 // run (on wman at W = 4: 33,792 bytes of hist and 6,912 of cres).  Without
 // hist (forward only, no gradient wanted) only the APPs are written.
@@ -48,6 +53,9 @@
 //     slot cotangents into those of the previous iteration's C->V messages,
 //     plus the previous iteration's APP cotangent under its clip mask; the
 //     VN-weight gradient through quantize_ste(llr * w).
+// The last iteration's APP cotangent enters before the loop, on every bit:
+// the window's on the target rows and, when given (g_last), that of the
+// last APP's rows past the target, each under its clip mask.
 // What bounds it on an H100 is latency, not bytes (it moves ~6.9 GB per
 // launch at batch 32768 on the base block, 2.06 ms at 3.35 TB/s): serial
 // slot loops, shared-memory round trips and three block-wide barriers per
@@ -499,7 +507,8 @@ train_bwd_kernel(const float* __restrict__ llr, const float* __restrict__ w_cn,
                  const float* __restrict__ apps_pre,
                  const float* __restrict__ g_apps, float* __restrict__ part_cn,
                  float* __restrict__ part_ucn, float* __restrict__ part_vn,
-                 Cfg c) {
+                 Cfg c, const float* __restrict__ last_pre,
+                 const float* __restrict__ g_last) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const BwdLayout L(c, kSP);
   const int z = c.z, G = c.G, B = c.B, T = c.T;
@@ -568,7 +577,12 @@ train_bwd_kernel(const float* __restrict__ llr, const float* __restrict__ w_cn,
   }
   __syncthreads();  // the tables, the weights, the mbarrier
   for (Rows it = rows0; it.row < Nz; it.next()) {
-    const float f = real ? fold(T - 1, it.row) : 0.0f;
+    float f = real ? fold(T - 1, it.row) : 0.0f;
+    if (real && g_last != nullptr && (size_t)it.row >= Tz) {  // the last APP's other rows
+      const size_t at = (size_t)(it.row - Tz) * B + b;
+      const float ap = __ldg(last_pre + at);
+      f = (ap >= -c.ms.clip_llr && ap <= c.ms.clip_llr) ? __ldg(g_last + at) : 0.0f;
+    }
     for (int e = gr.vn_ptr[it.q], r = e * z + it.r; e < gr.vn_ptr[it.q + 1];
          ++e, r += z)
       gc[gr.at(r, gt)] = f;
@@ -884,38 +898,46 @@ Cfg make_cfg(int N, int M, int z, int E, int T, int B, int G, int target,
 // B4: fused_nms_kernel<kTrain, SP?>.  Writes apps [T-t0][target*z][B]
 // (pre-clip) and, when hist is not null, hist [tiles][T][E*z][W] and cres
 // [tiles][T][R*M*z][W] (null for SP without UCN), tiles = ceil(B / W), W
-// the backward's G.  `smem` is one block's dynamic shared memory
+// the backward's G; when `last` is not null (the instance with kExtra 1), the
+// last iteration's pre-clip APP of the rows past the target, last
+// [(N-target)*z][B].  `smem` is one block's dynamic shared memory
 // (ops/fused_decoder.py::_smem_bytes); qinv = 1/qstep exactly.  Returns
 // cudaGetLastError() after the launch (0 = launched).
 extern "C" int fused_nms_train_fwd_launch(
     const void* llr, const void* w_cn, const void* w_ucn, const void* w_vn,
-    const void* tab, void* apps, void* hist, void* cres, TRAIN_CFG_ARGS,
-    void* stream) {
+    const void* tab, void* apps, void* hist, void* cres, void* last,
+    TRAIN_CFG_ARGS, void* stream) {
   const Msg ms{dec_type, qinv, qstep, qclip, clip_llr};
-#define TRAIN_FWD_LAUNCH(SP, CHUNKS)                                          \
-  launch<kTrain, SP, false, CHUNKS>(llr, w_cn, w_ucn, w_vn, tab, apps,       \
+#define TRAIN_FWD_LAUNCH(SP, CHUNKS, EXTRA)                                   \
+  launch<kTrain, SP, false, CHUNKS, EXTRA>(llr, w_cn, w_ucn, w_vn, tab, apps, \
                             nullptr,                                          \
                             nullptr, nullptr, nullptr, hist, cres, N, M, z,   \
                             E, T, B, G, W, threads, smem, target, t0, ms,     \
                             cn_mode, ucn, vn_mode, offset_mode, dim_cn,       \
-                            dim_vn, (cudaStream_t)stream)
-  if (dec_type != kSPDec) return TRAIN_FWD_LAUNCH(false, kSPChunks);
-  return Dc <= kSPRegDeg ? TRAIN_FWD_LAUNCH(true, 1) : TRAIN_FWD_LAUNCH(true, kSPChunks);
+                            dim_vn, (cudaStream_t)stream, nullptr, nullptr,   \
+                            last)
+  const bool x = last != nullptr;
+  if (dec_type != kSPDec)
+    return x ? TRAIN_FWD_LAUNCH(false, kSPChunks, 1) : TRAIN_FWD_LAUNCH(false, kSPChunks, 0);
+  if (Dc <= kSPRegDeg)
+    return x ? TRAIN_FWD_LAUNCH(true, 1, 1) : TRAIN_FWD_LAUNCH(true, 1, 0);
+  return x ? TRAIN_FWD_LAUNCH(true, kSPChunks, 1) : TRAIN_FWD_LAUNCH(true, kSPChunks, 0);
 #undef TRAIN_FWD_LAUNCH
 }
 
 // B5 (B5-SP for dec_type SP), G = W words per block.  Reads the forward's
-// residuals and the APP cotangent g_apps (same layout as apps), writes the
-// partials part_* [blocks][T][dim] (scratch) and the weight gradients g_*
-// [T][dim] (null for a kind without weights).  Returns -2 when `smem` is
-// not the layout's size, else cudaGetLastError() after the launches (0 =
-// launched).
+// residuals and the APP cotangent g_apps (same layout as apps) and, when
+// g_last is not null, the cotangent of the last APP's rows past the target
+// (same layout as last_pre, B4's `last`), writes the partials part_*
+// [blocks][T][dim] (scratch) and the weight gradients g_* [T][dim] (null
+// for a kind without weights).  Returns -2 when `smem` is not the layout's
+// size, else cudaGetLastError() after the launches (0 = launched).
 extern "C" int fused_nms_train_bwd_launch(
     const void* llr, const void* w_cn, const void* w_ucn, const void* w_vn,
     const void* tab, const void* hist, const void* cres,
-    const void* apps_pre, const void* g_apps, void* part_cn, void* part_ucn,
-    void* part_vn, void* g_cn, void* g_ucn, void* g_vn, TRAIN_CFG_ARGS,
-    void* stream) {
+    const void* apps_pre, const void* g_apps, const void* last_pre,
+    const void* g_last, void* part_cn, void* part_ucn, void* part_vn,
+    void* g_cn, void* g_ucn, void* g_vn, TRAIN_CFG_ARGS, void* stream) {
   (void)W;
   cudaStream_t s = (cudaStream_t)stream;
   const bool sp = dec_type == kSPDec;
@@ -932,7 +954,8 @@ extern "C" int fused_nms_train_bwd_launch(
       (const float*)llr, (const float*)w_cn, (const float*)w_ucn,
       (const float*)w_vn, (const int*)tab, (const float*)hist,
       (const float*)cres, (const float*)apps_pre, (const float*)g_apps,
-      (float*)part_cn, (float*)part_ucn, (float*)part_vn, cfg);
+      (float*)part_cn, (float*)part_ucn, (float*)part_vn, cfg,
+      (const float*)last_pre, (const float*)g_last);
   int rc = (int)cudaGetLastError();
   if (rc == 0) rc = reduce(part_cn, g_cn, blocks, T * dim_cn, s);
   if (rc == 0) rc = reduce(part_ucn, g_ucn, blocks, T * dim_cn, s);

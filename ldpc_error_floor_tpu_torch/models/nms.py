@@ -8,13 +8,14 @@ B]`` (None: the all-zero codeword; with ``DecoderConfig.early_stop``, the
 genie early stop).  ``collect='deploy'`` stops each word at its first
 iteration whose hard decisions satisfy every check (`DeployResult`).
 ``collect='apps'`` returns the per-iteration APP stack on the target
-columns, differentiable with respect to the weights (training);
-`NMSDecoder.apply` is `decode` with that default, as in the JAX package.
-The work goes to `ops.fused_decoder.FusedNMSKernel` and, for 'apps',
+columns and the last iteration's APP over every bit, differentiable with
+respect to the weights (training); `NMSDecoder.apply` is `decode` with that
+default, as in the JAX package.  The work goes to
+`ops.fused_decoder.FusedNMSKernel` and, for 'apps',
 `ops.fused_train.FusedTrainKernel`: hand-written CUDA kernels for a tensor
-on the card, their plain PyTorch versions for a tensor on the CPU.  The
-kernels count against the all-zero codeword: on the card, labels whose
-bits are not all zero raise, and so does ``track_syndrome``.
+on the card, their plain PyTorch versions for a tensor on the CPU, with the
+semantics of the JAX scan decoder (labels and ``track_syndrome`` included)
+on both.
 
 Sign conventions (as in the JAX package): positive LLR means bit 1; a bit is
 wrong when ``APP >= 0``; the check-node sign is
@@ -61,8 +62,8 @@ class DecoderConfig:
     #   [T - app_t0, target*z, B].  Legal only under the static eta = 0 loss,
     #   whose cotangents below the window are zero; training sets T-1 then
     track_syndrome: bool = False  # collect='stats' also returns syndrome_ok,
-    #   [T, B]: H*x == 0 at iteration t.  The plain path only (no kernel
-    #   computes it: a decoder on the card raises), and not with early_stop
+    #   [T, B]: H*x == 0 at iteration t (the fixed-T kernel writes it on the
+    #   card).  Not with early_stop
 
     def __post_init__(self):
         if self.decoding_type not in (SP, MS, QMS, MS_RAW):
@@ -76,7 +77,7 @@ class DecoderConfig:
 
 
 class DecodeResult(NamedTuple):
-    app_last: torch.Tensor                 # [N*z, B] final-iteration APP LLRs
+    app_last: torch.Tensor                 # [N*z, B] final-iteration APP LLRs (all bits)
     err_flags: Optional[torch.Tensor]      # [T, B] bool — frame wrong at iter t
     bit_errors: Optional[torch.Tensor]     # [T, B] int32 — bit errors at iter t
     apps: Optional[torch.Tensor] = None    # [T - app_t0, target*z, B] clipped APPs
@@ -116,8 +117,6 @@ class NMSDecoder:
         self.cfg = cfg
         self.spec = spec
         self.graph = graph if graph is not None else TannerGraph(code)
-        if cfg.track_syndrome and torch.device(device).type != "cpu":
-            raise ValueError("track_syndrome has no kernel: decode on the CPU")
         self.device = resolve_device(device)
         self.N, self.M, self.z = code.N, code.M, code.z
         self.target = cfg.target_node if cfg.target_node > 0 else self.N
@@ -130,16 +129,16 @@ class NMSDecoder:
 
         labels: the codeword bits ``[target*z, B]`` (any dtype; bit 1 where
         ``labels >= 0.5``) that 'stats' and 'deploy' count errors against;
-        None is the all-zero codeword.  The kernels count against the zero
-        word, so on the card labels with a bit set raise `ValueError`.
-        'apps' and 'app_last' ignore them.
+        None is the all-zero codeword.  'apps' and 'app_last' ignore them.
 
         collect: 'stats' (final APP + per-iteration error flags and
         bit-error counts, and with ``cfg.track_syndrome`` the per-iteration
         syndrome flags), 'app_last' (final APP only), 'deploy' (syndrome
         stop per word; returns a `DeployResult`) or 'apps' (the clipped APPs
         of iterations t >= app_t0 on the target columns, differentiable
-        with respect to `params`; `app_last` is then the last of them).
+        with respect to `params`; `app_last` is then the last iteration's
+        clipped APP over every bit, differentiable too, as JAX's scan
+        carry: under a systematic target more rows than ``apps[-1]``).
         """
         if collect not in ("stats", "app_last", "deploy", "apps"):
             raise ValueError(f"bad collect {collect!r}")
@@ -149,8 +148,8 @@ class NMSDecoder:
         if collect == "deploy":
             return DeployResult(*self.kernel.decode_deploy(stacked, llr, labels))
         if collect == "apps":
-            apps = self.train_kernel.apps(stacked, llr)
-            return DecodeResult(apps[-1], None, None, apps)
+            apps, app_last = self.train_kernel.apps_and_last(stacked, llr)
+            return DecodeResult(app_last, None, None, apps)
         if collect == "app_last":
             return DecodeResult(self.kernel.decode_stats(stacked, llr)[0], None, None)
         app, err, nerr, *synd = self.kernel.decode_stats(stacked, llr, labels)

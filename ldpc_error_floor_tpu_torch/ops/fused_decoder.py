@@ -4,11 +4,13 @@ versions.
 `FusedNMSKernel` replaces `ldpc_error_floor_tpu/ops/pallas_decoder.py::
 FusedNMSKernel` in all its modes, for every decoding type (SP, MS, QMS,
 MS_RAW).  It takes ``llr [N*z, B]`` float32 and per-iteration weights
-``[T, dim]`` and decodes against the all-zero codeword (the plain versions
-also against given codeword bits, ``labels``):
+``[T, dim]`` and counts errors against the codeword bits ``labels``
+(``[target*z, B]``, bit 1 where ``labels >= 0.5``; None: the all-zero
+codeword), as the JAX scan decoder does (its Pallas path ignores labels):
 
 * `decode_stats` returns ``(app_last [N*z, B] float32, err_flags [T, B]
-  bool, bit_errors [T, B] int32)``: a fixed T, or with
+  bool, bit_errors [T, B] int32)`` and, under ``cfg.track_syndrome``, a
+  fourth, ``syndrome_ok [T, B]`` bool: a fixed T, or with
   ``DecoderConfig.early_stop`` the genie early stop (a block of G words
   stops once each of them has decoded at least once; the rows of skipped
   iterations read 0 and the APP is that of the block's last iteration);
@@ -17,7 +19,10 @@ also against given codeword bits, ``labels``):
   its first iteration whose hard decisions satisfy H*x = 0.
 
 A tensor on the card goes to `csrc/fused_nms_stats.cu` (built with nvcc at
-first use, bound with ctypes); a failed build or launch raises.  Under QMS
+first use, bound with ctypes); a failed build or launch raises.  Labels
+reach the kernel as one byte per bit (``labels >= 0.5`` on the card, no
+host read) and run each mode's second instance; ``track_syndrome`` runs
+the fixed T's third (labels or not); the zero word keeps its own.  Under QMS
 the kernel keeps its state in integer codes (`code_grid`, three blocks per
 SM, four under the early stop, six under the syndrome stop); MS, MS_RAW
 and SP keep float state: SP two blocks per SM (one under the early stop),
@@ -142,7 +147,7 @@ def load_library() -> Tuple[ctypes.CDLL, str]:
     """Build and load `csrc/fused_nms_stats.cu` (`build_library`)."""
     lib, log = build_library(_SRC)
     fn = lib.fused_nms_launch
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 11
                    + [ctypes.c_float] * 6 + [ctypes.c_int] * 11
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -163,22 +168,24 @@ def _table_bytes(N: int, M: int, E: int) -> int:
 
 
 def _smem_bytes(N: int, M: int, z: int, E: int, G: int, ucn: bool,
-                deploy: bool = False, code: bool = False, sp: bool = False) -> int:
+                deploy: bool = False, code: bool = False, sp: bool = False,
+                track: bool = False) -> int:
     """Dynamic shared memory of one block of G words, as the kernel lays it
     out: the graph table (`_table_bytes`), one iteration's weights float
     [2E + N] (cn, ucn, vn at most; rounded up to 16 bytes), then
     - the float state: for SP (`sp`) the lifted slot table int2 [E*z],
       then C->V float [E*z][G], bit totals float [N*z][G],
       error counts int [2][G], in deploy mode two more int [G] (frozen flag,
-      last unsatisfied step), parity bits uint8 [N*z][G] (with UCN or in
-      deploy mode);
-    - the code state (`code`): the counts and deploy flags as above and the
-      table of output bytes int [_LUT_INTS], padded to 16 bytes, the lifted
-      slot table int2 [E*z], bit totals int16 [N*z][G] (twice the code plus
-      the bit's hard decision), C->V bytes [E*z][G].
+      last unsatisfied step), with `track` (the fixed T's syndrome flags)
+      two more int [G], parity bits uint8 [N*z][G] (with UCN, in deploy
+      mode or with `track`);
+    - the code state (`code`): the counts, deploy and syndrome flags as
+      above and the table of output bytes int [_LUT_INTS], padded to 16
+      bytes, the lifted slot table int2 [E*z], bit totals int16 [N*z][G]
+      (twice the code plus the bit's hard decision), C->V bytes [E*z][G].
     The launch reserves this (and the kernel refuses another size)."""
-    cnt = (4 if deploy else 2) * G
-    bits = N * z * G if ucn or deploy else 0
+    cnt = (4 if deploy or track else 2) * G
+    bits = N * z * G if ucn or deploy or track else 0
     head = _table_bytes(N, M, E) + _align16(4 * (2 * E + N))
     if code:  # no parity bits: each is bit 0 of its bit's packed total
         return (head + _align16(4 * (cnt + _LUT_INTS)) + 8 * E * z
@@ -257,15 +264,17 @@ def sp_launch_shape(graph: TannerGraph, smem: Callable[[int], int],
 
 def launch_shape(graph: TannerGraph, ucn: bool, deploy: bool = False,
                  code: bool = False, early_stop: bool = False,
-                 sp: bool = False) -> Tuple[int, int]:
+                 sp: bool = False, track: bool = False) -> Tuple[int, int]:
     """(G, threads) of the decode kernel (`pick_launch_shape`): for the code
     state (`code`) `_CODE_BLOCKS` blocks of up to `_CODE_THREADS` per SM,
     `_EARLY_STOP_BLOCKS` under the genie early stop, `_DEPLOY_BLOCKS` of up
     to `_DEPLOY_THREADS` under the syndrome stop; for SP (`sp`)
     `sp_launch_shape`, under the early stop one block of up to
-    `_SP_THREADS`; for the other float states one block of up to 1024."""
+    `_SP_THREADS`; for the other float states one block of up to 1024.
+    `track`: the fixed T writing the syndrome flags (`_smem_bytes`)."""
     c = graph.code
-    smem = lambda g: _smem_bytes(c.N, c.M, c.z, graph.E, g, ucn, deploy, code, sp)
+    smem = lambda g: _smem_bytes(c.N, c.M, c.z, graph.E, g, ucn, deploy, code, sp,
+                                 track)
     if sp and not early_stop:
         return sp_launch_shape(graph, smem)
     if code and deploy:
@@ -581,8 +590,9 @@ def _group_any(x: torch.Tensor, group: int) -> torch.Tensor:
 
 def _label_bits(labels: Optional[torch.Tensor], rows: int,
                 llr: torch.Tensor) -> Optional[torch.Tensor]:
-    """The codeword bits ``labels >= 0.5`` ([rows, B] bool, on llr's
-    device), or None for the all-zero word."""
+    """The codeword bits ``labels >= 0.5`` ([rows, B] bool, contiguous, on
+    llr's device: one byte per bit, as the kernel reads them), or None for
+    the all-zero word."""
     if labels is None:
         return None
     want = (rows, llr.shape[-1])
@@ -590,7 +600,7 @@ def _label_bits(labels: Optional[torch.Tensor], rows: int,
         raise ValueError(f"labels of shape {tuple(labels.shape)}, wanted {want}")
     if labels.device != llr.device:
         raise ValueError(f"labels on {labels.device}, llr on {llr.device}")
-    return labels >= 0.5
+    return (labels >= 0.5).contiguous()
 
 
 def decode_stats_plain(graph: TannerGraph, tables: PlainTables,
@@ -697,13 +707,16 @@ class FusedNMSKernel:
         self.code = cfg.decoding_type == QMS  # the code-domain state
 
     def launch_shape(self, mode: int) -> Tuple[int, int, int]:
-        """(G, threads, shared bytes per block) of the kernel in `mode`."""
+        """(G, threads, shared bytes per block) of the kernel in `mode` (at
+        a fixed T under ``cfg.track_syndrome``, with the syndrome flags)."""
         deploy = mode == DEPLOY
         sp = self.cfg.decoding_type == SP
+        track = mode == FIXED and self.cfg.track_syndrome
         G, threads = launch_shape(self.graph, self.spec.ucn_enabled, deploy, self.code,
-                                  mode == EARLY_STOP, sp)
+                                  mode == EARLY_STOP, sp, track)
         return G, threads, _smem_bytes(self.N, self.M, self.z, self.E, G,
-                                       self.spec.ucn_enabled, deploy, self.code, sp)
+                                       self.spec.ucn_enabled, deploy, self.code, sp,
+                                       track)
 
     @property
     def group(self) -> int:
@@ -724,19 +737,14 @@ class FusedNMSKernel:
                      labels: Optional[torch.Tensor] = None):
         """llr: [N*z, B] float32.  The CUDA kernel (fixed T, or the genie
         early stop under ``cfg.early_stop``) for a tensor on the card, the
-        plain version for a tensor on the CPU.  `labels` as in
-        `decode_stats_plain`; the kernel counts against the zero word, so
-        on the card labels with a bit set raise, as does
-        ``cfg.track_syndrome``."""
+        plain version for a tensor on the CPU.  `labels` and the fourth
+        output under ``cfg.track_syndrome`` as in `decode_stats_plain`."""
         if llr.device.type == "cpu":
             return self.decode_stats_plain(stacked, llr, labels=labels)
         if llr.device.type != "cuda":
             raise ValueError(f"unsupported device {llr.device}")
-        if self.cfg.track_syndrome:
-            raise ValueError("track_syndrome has no kernel: decode on the CPU")
-        self._zero_labels(labels, llr)
         return self._launch(stacked, llr,
-                            EARLY_STOP if self.cfg.early_stop else FIXED)
+                            EARLY_STOP if self.cfg.early_stop else FIXED, labels)
 
     def decode_deploy(self, stacked: Stacked, llr: torch.Tensor,
                       labels: Optional[torch.Tensor] = None):
@@ -747,16 +755,7 @@ class FusedNMSKernel:
             return self.decode_deploy_plain(stacked, llr, labels=labels)
         if llr.device.type != "cuda":
             raise ValueError(f"unsupported device {llr.device}")
-        self._zero_labels(labels, llr)
-        return self._launch(stacked, llr, DEPLOY)
-
-    def _zero_labels(self, labels: Optional[torch.Tensor], llr: torch.Tensor) -> None:
-        """Raise unless `labels` is None or the all-zero word (one host
-        read), which is what the kernel counts against."""
-        bits = _label_bits(labels, self.target * self.z, llr)
-        if bits is not None and bool(bits.any()):
-            raise ValueError("the kernel counts errors against the all-zero codeword: "
-                             "labels with a bit set decode on the CPU")
+        return self._launch(stacked, llr, DEPLOY, labels)
 
     def _tables(self, device) -> PlainTables:
         tabs = self._plain_tables.get(device)
@@ -800,7 +799,8 @@ class FusedNMSKernel:
         w = stacked[kind] if self.spec.mode(kind) else None
         return w, check_weights(self.graph, self.spec, kind, w, device)
 
-    def _launch(self, stacked: Stacked, llr: torch.Tensor, mode: int):
+    def _launch(self, stacked: Stacked, llr: torch.Tensor, mode: int,
+                labels: Optional[torch.Tensor] = None):
         cfg, spec = self.cfg, self.spec
         sp = cfg.decoding_type == SP
         if sp:
@@ -811,6 +811,7 @@ class FusedNMSKernel:
             raise ValueError(f"llr must be a contiguous float32 [{Nz}, B] tensor")
         dev = llr.device
         B = llr.shape[1]
+        bits = _label_bits(labels, self.target * self.z, llr)
         w_cn, dim_cn = self._weights(stacked, "cn", dev)
         w_vn, dim_vn = self._weights(stacked, "vn", dev)
         w_ucn = self._weights(stacked, "ucn", dev)[0] if spec.ucn_enabled else None
@@ -824,6 +825,10 @@ class FusedNMSKernel:
         if deploy:
             outs += (torch.empty(B, dtype=torch.int32, device=dev),
                      torch.empty(B, dtype=torch.bool, device=dev))
+        synd = None
+        if mode == FIXED and cfg.track_syndrome:
+            synd = torch.empty((self.T, B), dtype=torch.bool, device=dev)
+            outs += (synd,)
         if B == 0:
             return outs
         qstep, qinv, qclip = kernel_grid(cfg)
@@ -837,8 +842,8 @@ class FusedNMSKernel:
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.fused_nms_launch(
                 ptr(llr), ptr(w_cn), ptr(w_ucn), ptr(w_vn), ptr(tab),
-                ptr(app), ptr(err), ptr(nerr), ptr(iters), ptr(fail),
-                self.N, self.M, self.z, self.E, self.T, B, G, threads, smem,
+                ptr(app), ptr(err), ptr(nerr), ptr(iters), ptr(fail), ptr(bits),
+                ptr(synd), self.N, self.M, self.z, self.E, self.T, B, G, threads, smem,
                 self.target, cfg.decoding_type, qstep, qinv, qclip, cfg.clip_llr,
                 u, uinv, clipc, qshift,
                 spec.sharing[0], int(spec.ucn_enabled), spec.sharing[2],

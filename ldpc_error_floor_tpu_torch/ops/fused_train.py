@@ -4,7 +4,10 @@ wrapper and their plain PyTorch version.
 `FusedTrainKernel.apps(stacked, llr)` returns the per-iteration APP stack
 ``[T - t0, target*z, B]`` (iterations ``t >= DecoderConfig.app_t0``),
 differentiable with respect to the stacked weights ``[T, dim]`` (the LLRs
-get no gradient).  It replaces `ldpc_error_floor_tpu/ops/pallas_train.py::
+get no gradient); `apps_and_last` also the last iteration's clipped APP
+over every bit, ``[N*z, B]``, differentiable too (the JAX scan decoder's
+`app_last` under ``collect='apps'``: its carry, whole under a systematic
+target).  It replaces `ldpc_error_floor_tpu/ops/pallas_train.py::
 FusedTrainKernel` (`apps`, `_build_vjp`):
 
 * a tensor on the card goes to `csrc/fused_nms_train.cu` through
@@ -13,6 +16,8 @@ FusedTrainKernel` (`apps`, `_build_vjp`):
   messages, the per-check residuals and the pre-clip APPs) and whose
   backward launches B5 (``fused_nms_train_bwd``: the reverse loop over the
   residuals, weight gradients reduced over the batch in a fixed order).
+  Under a systematic target `apps_and_last` has B4 also write the last
+  iteration's APP of the other rows, and B5 take their cotangent.
   For SP (neural BP) the two launches run the SP instances, B4-SP
   (``fused_nms_train_fwd_sp``) and B5-SP (``fused_nms_train_bwd_sp``);
   B4-SP streams the pre-clip V->C messages and, with UCN, the UCN mask, and
@@ -58,9 +63,9 @@ def load_library() -> Tuple[ctypes.CDLL, str]:
     lib, log = fd.build_library(_SRC)
     cfg = [ctypes.c_int] * 14 + [ctypes.c_float] * 4 + [ctypes.c_int] * 6
     lib.fused_nms_train_fwd_launch.argtypes = (
-        [ctypes.c_void_p] * 8 + cfg + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 9 + cfg + [ctypes.c_void_p])
     lib.fused_nms_train_bwd_launch.argtypes = (
-        [ctypes.c_void_p] * 15 + cfg + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 17 + cfg + [ctypes.c_void_p])
     lib.fused_nms_train_fwd_launch.restype = ctypes.c_int
     lib.fused_nms_train_bwd_launch.restype = ctypes.c_int
     return lib, log
@@ -148,41 +153,53 @@ def _train_table(graph: TannerGraph) -> np.ndarray:
 
 def decode_apps_plain(graph: TannerGraph, tables: fd.PlainTables,
                       cfg: DecoderConfig, spec: WeightSpec, stacked: Stacked,
-                      llr: torch.Tensor, t0: int = 0) -> torch.Tensor:
-    """[T - t0, target*z, B]: the clipped APPs of iterations t >= t0 on the
-    target columns, differentiable through the plain scan body."""
+                      llr: torch.Tensor,
+                      t0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(apps [T - t0, target*z, B], app_last [N*z, B]): the clipped APPs of
+    iterations t >= t0 on the target columns, and the last iteration's on
+    every bit, differentiable through the plain scan body."""
     z = graph.code.z
     target = cfg.target_node if cfg.target_node > 0 else graph.code.N
-    apps = [app[: target * z] for t, app in enumerate(
-        fd.plain_iterations(graph, tables, cfg, spec, stacked, llr)) if t >= t0]
-    return torch.stack(apps)
+    apps, app = [], None
+    for t, app in enumerate(fd.plain_iterations(graph, tables, cfg, spec, stacked, llr)):
+        if t >= t0:
+            apps.append(app[: target * z])
+    return torch.stack(apps), app
 
 
 # ----- the autograd Function -----------------------------------------------------
 
 class _FusedTrainFn(torch.autograd.Function):
     """B4 forward, B5 backward.  Inputs: the kernel wrapper, whether to
-    stream the residuals (a gradient is wanted), the stacked cn, ucn and vn
-    weights (None where a kind has none) and the LLRs."""
+    stream the residuals (a gradient is wanted), whether to write the last
+    iteration's APP of the rows past the target, the stacked cn, ucn and vn
+    weights (None where a kind has none) and the LLRs.  Outputs: the clipped
+    APP window and those rows, clipped (None when not asked for)."""
 
     @staticmethod
-    def forward(ctx, kern, stream, w_cn, w_ucn, w_vn, llr):
+    def forward(ctx, kern, stream, last, w_cn, w_ucn, w_vn, llr):
         weights = (w_cn, w_ucn, w_vn)
-        apps_pre, hist, cres = kern._forward(weights, llr, stream)
+        last_pre = (torch.empty(((kern.N - kern.target) * kern.z, llr.shape[1]),
+                                dtype=torch.float32, device=llr.device)
+                    if last else None)
+        apps_pre, hist, cres = kern._forward(weights, llr, stream, last_pre)
         ctx.kern = kern
-        ctx.save_for_backward(llr, hist, cres, apps_pre, *[
+        ctx.set_materialize_grads(False)  # an unused output: no cotangent to read
+        ctx.save_for_backward(llr, hist, cres, apps_pre, last_pre, *[
             w if w is not None else torch.empty(0) for w in weights])
         ctx.has = tuple(w is not None for w in weights)
         clip = kern.cfg.clip_llr
-        return torch.clamp(apps_pre, -clip, clip)
+        return (torch.clamp(apps_pre, -clip, clip),
+                None if last_pre is None else torch.clamp(last_pre, -clip, clip))
 
     @staticmethod
-    def backward(ctx, g_apps):
-        llr, hist, cres, apps_pre, *ws = ctx.saved_tensors
+    def backward(ctx, g_apps, g_last):
+        llr, hist, cres, apps_pre, last_pre, *ws = ctx.saved_tensors
         weights = tuple(w if h else None for w, h in zip(ws, ctx.has))
-        grads = ctx.kern._backward(weights, llr, hist, cres, apps_pre,
-                                   g_apps.contiguous())
-        return (None, None, *grads, None)
+        g_apps = torch.zeros_like(apps_pre) if g_apps is None else g_apps.contiguous()
+        grads = ctx.kern._backward(weights, llr, hist, cres, apps_pre, g_apps, last_pre,
+                                   None if g_last is None else g_last.contiguous())
+        return (None, None, None, *grads, None)
 
 
 # ----- the wrapper ---------------------------------------------------------------------
@@ -218,6 +235,20 @@ class FusedTrainKernel:
         version for a tensor on the CPU."""
         if llr.device.type == "cpu":
             return self.apps_plain(stacked, llr)
+        return self._pair(stacked, llr, last=False)[0]
+
+    def apps_and_last(self, stacked: Stacked,
+                      llr: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(the APP stack of `apps`, the last iteration's clipped APP over
+        every bit [N*z, B]), both differentiable.  On the card, under a
+        systematic target, B4 also writes the last APP's other rows (and B5
+        takes their cotangent); at target N the last APP is ``apps[-1]``."""
+        if llr.device.type == "cpu":
+            return self.apps_and_last_plain(stacked, llr)
+        apps, rest = self._pair(stacked, llr, last=self.target < self.N)
+        return apps, apps[-1] if rest is None else torch.cat([apps[-1], rest])
+
+    def _pair(self, stacked: Stacked, llr: torch.Tensor, last: bool):
         if llr.device.type != "cuda":
             raise ValueError(f"unsupported device {llr.device}")
         if self.cfg.decoding_type == SP:
@@ -225,10 +256,16 @@ class FusedTrainKernel:
         ws = (stacked["cn"], stacked["ucn"], stacked["vn"])
         stream = torch.is_grad_enabled() and any(
             w is not None and w.requires_grad for w in ws)
-        return _FusedTrainFn.apply(self, stream, *ws, llr)
+        return _FusedTrainFn.apply(self, stream, last, *ws, llr)
 
     def apps_plain(self, stacked: Stacked, llr: torch.Tensor) -> torch.Tensor:
-        """The plain PyTorch version on any device (the kernels' reference)."""
+        """The plain PyTorch version of `apps` on any device (the kernels'
+        reference)."""
+        return self.apps_and_last_plain(stacked, llr)[0]
+
+    def apps_and_last_plain(self, stacked: Stacked,
+                            llr: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The plain PyTorch version of `apps_and_last` on any device."""
         tabs = self._plain_tables.get(llr.device)
         if tabs is None:
             tabs = self._plain_tables[llr.device] = fd.PlainTables(
@@ -300,10 +337,14 @@ class FusedTrainKernel:
                 _train_table(self.graph), device=dev)
         return tab
 
-    def _forward(self, weights, llr: torch.Tensor, stream: bool):
+    def _forward(self, weights, llr: torch.Tensor, stream: bool,
+                 last: Optional[torch.Tensor] = None):
         """Launch B4: (apps_pre [T-t0, target*z, B], hist or None, cres or
         None), the residual streams tile-major as `streams` allocates them
-        (`cres_rows` gives R); only the pair reads them."""
+        (`cres_rows` gives R); only the pair reads them.  With `last`, a
+        contiguous float32 [(N-target)*z, B] tensor (target < N), B4 also
+        writes there the last iteration's pre-clip APP of the rows past the
+        target."""
         Nz = self.N * self.z
         if (llr.dtype != torch.float32 or llr.dim() != 2 or llr.shape[0] != Nz
                 or not llr.is_contiguous()):
@@ -314,6 +355,12 @@ class FusedTrainKernel:
         dim_vn = self._weights(w_vn, "vn", dev)
         if self.spec.ucn_enabled:
             self._weights(w_ucn, "ucn", dev)
+        rest = ((self.N - self.target) * self.z, B)
+        if last is not None and (self.target == self.N or tuple(last.shape) != rest
+                                 or last.dtype != torch.float32 or last.device != dev
+                                 or not last.is_contiguous()):
+            raise ValueError(f"last must be a contiguous float32 {list(rest)} tensor "
+                             f"on {dev} (with target_node < N)")
         apps, hist, cres = self.streams(B, dev, stream)
         if B == 0:
             return apps, hist, cres
@@ -323,7 +370,7 @@ class FusedTrainKernel:
         with torch.cuda.device(dev):
             rc = lib.fused_nms_train_fwd_launch(
                 ptr(llr), ptr(w_cn), ptr(w_ucn), ptr(w_vn), ptr(self._table(dev)),
-                ptr(apps), ptr(hist), ptr(cres),
+                ptr(apps), ptr(hist), ptr(cres), ptr(last),
                 *self._cfg_args(B, G, self.tile_width, threads, smem, dim_cn,
                                 dim_vn),
                 torch.cuda.current_stream(dev).cuda_stream)
@@ -332,10 +379,14 @@ class FusedTrainKernel:
         self.launches[self.fwd_name] += 1
         return apps, hist, cres
 
-    def _backward(self, weights, llr, hist, cres, apps_pre, g_apps):
+    def _backward(self, weights, llr, hist, cres, apps_pre, g_apps,
+                  last_pre: Optional[torch.Tensor] = None,
+                  g_last: Optional[torch.Tensor] = None):
         """Launch B5 on B4's outputs (hist and cres tile-major, apps_pre and
-        g_apps [T-t0, target*z, B]): the [T, dim] gradients of cn, ucn and vn
-        (None for a kind without weights)."""
+        g_apps [T-t0, target*z, B]; with `g_last`, the cotangent of the last
+        APP's rows past the target, B4's `last_pre`, both [(N-target)*z,
+        B]): the [T, dim] gradients of cn, ucn and vn (None for a kind
+        without weights)."""
         if hist is None:
             raise RuntimeError("the forward streamed no residuals (no weight "
                                "required a gradient)")
@@ -354,6 +405,9 @@ class FusedTrainKernel:
         if hist.shape[-1] != G:
             raise ValueError(f"the streams' tiles hold {hist.shape[-1]} words, "
                              f"B5 takes {G}")
+        if g_last is not None and (last_pre is None or g_last.shape != last_pre.shape
+                                   or not g_last.is_contiguous()):
+            raise ValueError("g_last must be a contiguous tensor of last_pre's shape")
         Ez, RMz = self.E * self.z, self.cres_rows * self.M * self.z
         if Ez * G % 4 or RMz * G % 4:
             raise ValueError(f"{self.graph.code.name}: a staged residual run "
@@ -368,6 +422,7 @@ class FusedTrainKernel:
             rc = lib.fused_nms_train_bwd_launch(
                 ptr(llr), ptr(w_cn), ptr(w_ucn), ptr(w_vn), ptr(self._table(dev)),
                 ptr(hist), ptr(cres), ptr(apps_pre), ptr(g_apps),
+                ptr(last_pre if g_last is not None else None), ptr(g_last),
                 *[ptr(p) for p in parts], ptr(g_cn), ptr(g_ucn), ptr(g_vn),
                 *self._cfg_args(B, G, G, threads, smem, dim_cn, dim_vn),
                 torch.cuda.current_stream(dev).cuda_stream)

@@ -1,8 +1,9 @@
 """The decoder's public API against the JAX package's, on the CPU:
 `decode(labels=...)` (stats, deploy, the genie early stop, systematic
 targets), `DecoderConfig.track_syndrome` / `DecodeResult.syndrome_ok`,
-`apply`'s default ``collect='apps'``, `BoostedDecoder.decode(labels=...)`
-and `codes.save_proto_json`.
+`apply`'s default ``collect='apps'`` and its `app_last` under a systematic
+target (the scan's carry: the last APP over every bit, and its gradient),
+`BoostedDecoder.decode(labels=...)` and `codes.save_proto_json`.
 
 Inputs are real codewords: numpy messages encoded by both packages'
 `Encoder.encode` (equal), sent as BPSK over numpy noise and turned into LLRs
@@ -12,10 +13,12 @@ Each JAX function runs through its scan backend.
 Tolerances: error flags, bit-error counts and deploy's wrong / bit_errors /
 iters / detected_fail integer-equal, syndrome flags bool-equal; APPs within
 atol 1e-4 + rtol 1e-5 (the port sums C->V messages in slot order, XLA may
-reduce in another order; SP's tanh/atanh are not XLA's); `save_proto_json`
-byte-equal.
+reduce in another order; SP's tanh/atanh are not XLA's); gradients within
+rtol 5e-5 and atol 5e-6 x max|g| (as `tests/test_torch_train_grad.py`);
+`save_proto_json` byte-equal.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -167,14 +170,13 @@ def test_labels_of_the_wrong_shape_raise(collect):
 
 def test_track_syndrome_config_and_card_raise():
     """`track_syndrome` with the early stop raises (JAX cannot produce the
-    pair either); a decoder for the card with `track_syndrome` raises (no
-    kernel computes it); other collects leave `syndrome_ok` None."""
+    pair either); other collects leave `syndrome_ok` None.  (A decoder for
+    the card takes `track_syndrome`: the fixed-T kernel writes the flags,
+    `tests/test_torch_kernel_cuda.py`.)"""
     with pytest.raises(ValueError, match="early_stop"):
         DecoderConfig(track_syndrome=True, early_stop=True)
     code = get_code(MACKAY)
     spec = WeightSpec(sharing=(0, 0, 0), n_iters=3)
-    with pytest.raises(ValueError, match="track_syndrome"):
-        NMSDecoder(code, DecoderConfig(track_syndrome=True), spec, device="cuda")
     dec = NMSDecoder(code, DecoderConfig(track_syndrome=True), spec, device="cpu")
     p = init_weights(spec, dec.graph, device="cpu")
     llr = torch.full((code.n_full, 4), -3.0)
@@ -201,6 +203,60 @@ def test_apply_defaults_to_apps_as_jax():
     stats = dec.decode(p, torch.from_numpy(llr))
     assert stats.apps is None and stats.err_flags.shape == (4, 32)
     assert torch.equal(stats.app_last, res.apps[-1].detach())
+
+
+# (id, code, sharing, decoding type, SNR dB, T, target_node); B = 32.  SP on
+# wman, whose checks are sparse (SP's APPs drift from XLA's on dense checks,
+# ROADMAP.md section 3), at 2 dB where few words converge (see LABEL_CASES)
+APP_LAST_CASES = [
+    ("mackay_ms", MACKAY, (3, 0, 3), 1, 2.5, 4, 48),
+    ("mackay_qms_ucn", MACKAY, (3, 3, 3), 2, 2.5, 4, 48),
+    ("wman_sp", WMAN, (3, 0, 3), 0, 2.0, 3, 18),
+]
+
+
+@pytest.mark.parametrize("case", APP_LAST_CASES, ids=[c[0] for c in APP_LAST_CASES])
+def test_apply_app_last_under_a_systematic_target_matches_jax(case):
+    """`apply(params, llr)` under ``target_node > 0``: `app_last` is the
+    scan's carry, the last iteration's clipped APP over all N*z bits (not
+    only the target rows of `apps`), equal to JAX's; the gradient of a loss
+    on it, ``sum(app_last * r)``, equal to `jax.grad` of the same loss."""
+    _, name, sharing, dec, snr, T, target = case
+    jcode, jgraph, code, graph, params, _, llr = _inputs(name, sharing, dec, snr, T, 32,
+                                                         seed=8)
+    r = np.random.default_rng(9).standard_normal(llr.shape).astype(np.float32)
+    jdec = JaxDecoder(jcode, JaxConfig(decoding_type=dec, q_bit=5, target_node=target),
+                      JaxSpec(sharing=sharing, n_iters=T), graph=jgraph)
+
+    def jloss(p):
+        return jnp.sum(jdec.apply(p, jnp.asarray(llr)).app_last * jnp.asarray(r))
+
+    ref = jdec.apply(_jax(params), jnp.asarray(llr))
+    g_ref = jax.grad(jloss)(_jax(params))
+    tdec = NMSDecoder(code, DecoderConfig(decoding_type=dec, q_bit=5, target_node=target),
+                      WeightSpec(sharing=sharing, n_iters=T), graph=graph, device="cpu")
+    tp = params_from_numpy(params, device="cpu")
+    for v in tp.values():
+        if v is not None:
+            v.requires_grad_(True)
+    res = tdec.apply(tp, torch.from_numpy(llr))
+    nz, tz = code.n_full, target * code.z
+    assert res.app_last.shape == (nz, 32) == ref.app_last.shape
+    assert res.apps.shape == (T, tz, 32) == ref.apps.shape
+    np.testing.assert_allclose(res.app_last.detach().numpy(), np.asarray(ref.app_last),
+                               **APP_TOL)
+    np.testing.assert_allclose(res.apps.detach().numpy(), np.asarray(ref.apps), **APP_TOL)
+    assert torch.equal(res.app_last[:tz], res.apps[-1])
+    (res.app_last * torch.from_numpy(r)).sum().backward()
+    for kind in ("cn", "ucn", "vn"):
+        if tp[kind] is None:
+            assert g_ref[kind] is None
+            continue
+        g = np.asarray(g_ref[kind])
+        scale = max(float(np.abs(g).max()), 1e-8)
+        np.testing.assert_allclose(tp[kind].grad.numpy(), g, rtol=5e-5, atol=5e-6 * scale,
+                                   err_msg=f"{kind} gradient (scale {scale:.3e})")
+        assert float(tp[kind].grad.abs().max()) > 0.0
 
 
 def test_boosted_decode_with_labels_matches_jax():

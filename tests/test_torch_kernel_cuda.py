@@ -35,8 +35,15 @@ captures a new graph.  The mesh's host read under an NCCL world of one: its
 summed counters equal the replay's (==) at K = 1 and 4, it does not
 synchronise, and a point on a new generator captures a new graph.  The
 decoder's API: all-zero labels bit-equal to none through B1, B2 and B3,
-labels with a bit set or of the wrong shape and `track_syndrome` raising
-before any launch, and `apply`'s default 'apps' through B4.  The channel
+labels of the wrong shape raising before any launch; real codewords (the
+port's `Encoder` on the card) as labels through B1, B2, B3, B1-SP and the
+SP early stop and syndrome stop, one launch each, counters integer-equal to
+the plain version (SP on at least 99.9% of words), APPs as above;
+`track_syndrome` through B1 and B1-SP, its flags bool-equal to the plain
+version's (SP on 99.9% of words); `apply`'s default 'apps' through B4, and
+under a systematic target its `app_last`: the last APP's rows past the
+target from B4 and their cotangent through B5, against autograd through
+the plain version at the training tolerances.  The channel
 sampler's kernel (S1): its LLRs bit-equal to the plain version's as int32
 views (signs of zero included, grid ties among them) for every decoding
 type and grid, the zero word, codewords and the fold, one sigma and mixed
@@ -344,7 +351,8 @@ API_PATHS = [
 def test_decoder_labels_on_card(path):
     """`NMSDecoder.decode` on the card: all-zero labels (float and bool) run
     the kernel once and give outputs bit-equal to no labels; labels with a
-    bit set, and labels of the wrong shape, raise before any launch."""
+    bit set run it once too, counting against them as the plain version
+    does; labels of the wrong shape raise before any launch."""
     dev = _cuda()
     overrides, collect, name = path
     kern, stacked, llr = _setup(dev, WMAN, (3, 3, 3), 2, 3.5, T=8, B=1001)
@@ -363,26 +371,40 @@ def test_decoder_labels_on_card(path):
         assert torch.equal(torch.signbit(out[0]), torch.signbit(ref[0]))
     one_bit = zeros.clone()
     one_bit[5, 7] = 1.0
-    for labels, msg in ((one_bit, "all-zero codeword"), (zeros[:-1], "labels of shape")):
-        with pytest.raises(ValueError, match=msg):
-            dec.decode(stacked, llr, labels=labels, collect=collect)
+    dec.kernel.launches.clear()
+    out = dec.decode(stacked, llr, labels=one_bit, collect=collect)
+    ref = (dec.kernel.decode_deploy_plain(stacked, llr, labels=one_bit) if collect == "deploy"
+           else dec.kernel.decode_stats_plain(stacked, llr, labels=one_bit))
+    torch.cuda.synchronize()
+    assert dec.kernel.launches == {name: 1}
+    for x, y in zip(out[1:], ref[1:]):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    with pytest.raises(ValueError, match="labels of shape"):
+        dec.decode(stacked, llr, labels=zeros[:-1], collect=collect)
     assert dec.kernel.launches == {name: 1}
 
 
 @pytest.mark.cuda
 def test_track_syndrome_and_apply_default_on_card():
-    """A decoder for the card with `track_syndrome` raises, and so does the
-    kernel wrapper given a card tensor under it; `apply(params, llr)`
-    returns the APP stack through B4 alone, as JAX's default 'apps'."""
+    """A decoder for the card with `track_syndrome` runs the fixed-T kernel
+    once and returns the syndrome flags, bool-equal to the plain version's,
+    with the other outputs bit-equal to a decode without them;
+    `apply(params, llr)` returns the APP stack through B4 alone, as JAX's
+    default 'apps'."""
     dev = _cuda()
     kern, stacked, llr = _setup(dev, WMAN, (3, 3, 3), 2, 3.5, T=8, B=1001)
     code = kern.graph.code
-    with pytest.raises(ValueError, match="track_syndrome"):
-        NMSDecoder(code, DecoderConfig(track_syndrome=True), kern.spec, device=dev)
-    tracking = FusedNMSKernel(kern.graph, DecoderConfig(track_syndrome=True), kern.spec)
-    with pytest.raises(ValueError, match="track_syndrome"):
-        tracking.decode_stats(stacked, llr)
-    assert not tracking.launches
+    tracking = NMSDecoder(code, DecoderConfig(track_syndrome=True), kern.spec,
+                          graph=kern.graph, device=dev)
+    res = tracking.decode(stacked, llr)
+    ref = tracking.kernel.decode_stats_plain(stacked, llr)
+    plain_b1 = kern.decode_stats(stacked, llr)
+    torch.cuda.synchronize()
+    assert tracking.kernel.launches == {"fused_nms_stats": 1}
+    assert res.syndrome_ok.shape == (8, 1001) and torch.equal(res.syndrome_ok, ref[3])
+    assert 0 < int(res.syndrome_ok[-1].sum()) < 1001
+    assert all(torch.equal(x, y) for x, y in zip(res[:3], plain_b1))
+    kern.launches.clear()
     dec = NMSDecoder(code, DecoderConfig(), kern.spec, graph=kern.graph, device=dev)
     res = dec.apply(stacked, llr)
     app_b1 = kern.decode_stats(stacked, llr)[0]
@@ -391,6 +413,167 @@ def test_track_syndrome_and_apply_default_on_card():
     assert dec.train_kernel.launches == {dec.train_kernel.fwd_name: 1}
     assert not dec.kernel.launches
     assert torch.equal(res.apps[-1], app_b1)  # B4 and B1 run one loop: QMS bit-equal
+
+
+def _codewords(dev, kern, snr, B, seed=7):
+    """(random codewords [n_full, B] from the port's `Encoder` on the card,
+    their LLRs at `snr` dB: BPSK of the encoded word, no fold)."""
+    from ldpc_error_floor_tpu_torch.codes import Encoder
+    code = kern.graph.code
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bits = Encoder(kern.graph, device=dev).random_codewords(gen, B)
+    sig = torch.full((B,), float(code.snr_sigmas([snr])[0]), device=dev)
+    ch = AWGNChannel(code, decoding_type=kern.cfg.decoding_type, device=dev)
+    return bits, ch.sample_codewords(gen, sig, bits, fold=False)
+
+
+# (code, sharing, decoding type, SNR dB, target_node): codewords through the
+# labelled instances; at these SNRs some blocks stop early and some words fail
+LABEL_CASES = [
+    (WMAN, (3, 3, 3), 2, 3.5, 0),   # the code state with UCN
+    (WMAN, (3, 0, 3), 2, 3.5, 18),  # a systematic target
+    (MACKAY, (3, 0, 3), 1, 3.5, 0),  # the float state
+    (WMAN, (3, 0, 3), 0, 3.5, 0),   # SP
+    (WIFI, (3, 0, 3), 0, 4.0, 0),   # SP past one chunk of 16 slots
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LABEL_CASES, ids=lambda c: f"{c[0][:6]}_{c[1]}_{c[2]}_t{c[4]}")
+def test_codeword_labels_through_every_decode_kernel_on_card(case):
+    """Real codewords as labels through the fixed T, the genie early stop
+    and the syndrome stop on 1001 words (no multiple of G), one launch
+    each: counters integer-equal to the plain version on the card (the
+    early stop grouped as the kernel groups words; SP on at least 99.9% of
+    words), APPs as the zero word's tests hold them; the genie-failure
+    masks of the fixed T and the early stop equal, and some words right
+    and some wrong against their codewords."""
+    dev = _cuda()
+    code_name, sharing, dec, snr, target = case
+    kern, stacked, _ = _setup(dev, code_name, sharing, dec, snr, T=8, B=8, target=target)
+    bits, llr = _codewords(dev, kern, snr, 1001)
+    labels = bits[: kern.target * kern.z]
+    es = FusedNMSKernel(kern.graph, DecoderConfig(decoding_type=dec, early_stop=True,
+                                                  target_node=target), kern.spec)
+    outs = {"fixed": kern.decode_stats(stacked, llr, labels),
+            "early_stop": es.decode_stats(stacked, llr, labels),
+            "deploy": kern.decode_deploy(stacked, llr, labels)}
+    refs = {"fixed": kern.decode_stats_plain(stacked, llr, labels=labels),
+            "early_stop": es.decode_stats_plain(stacked, llr, labels=labels),
+            "deploy": kern.decode_deploy_plain(stacked, llr, labels=labels)}
+    torch.cuda.synchronize()
+    sfx = "_sp" if dec == 0 else ""
+    assert kern.launches == {"fused_nms_stats" + sfx: 1, "fused_nms_deploy" + sfx: 1}
+    assert es.launches == {"fused_nms_early_stop" + sfx: 1}
+    for name, out in outs.items():
+        ref = refs[name]
+        off = torch.zeros(1001, dtype=torch.bool, device=dev)
+        for x, y in zip(out[1:], ref[1:]):
+            assert x.dtype == y.dtype
+            off |= (x != y).reshape(-1, 1001).any(dim=0)
+        if dec == 0:
+            assert off.sum().item() <= 1, name
+            torch.testing.assert_close(out[0][:, ~off], ref[0][:, ~off], rtol=1e-4, atol=1e-3)
+        else:
+            assert not bool(off.any()), name
+            _assert_app(out[0], ref[0], dec)
+    uncor = outs["fixed"][1].all(dim=0)
+    assert torch.equal(outs["early_stop"][1].all(dim=0), uncor)
+    assert 0 < int(uncor.sum()) < 1001 and bool(outs["deploy"][1].any())
+
+
+# (code, sharing, decoding type, SNR dB): track_syndrome at a fixed T
+TRACK_CASES = [
+    (WMAN, (3, 3, 3), 2, 3.5),   # the code state, UCN's parity
+    (WMAN, (3, 0, 3), 2, 3.5),   # the code state without UCN
+    (MACKAY, (3, 0, 3), 1, 3.5),  # the float state: parity bits of its own
+    (WMAN, (2, 2, 2), 0, 3.5),   # SP with UCN
+    (WIFI, (3, 0, 3), 0, 4.0),   # SP without UCN
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TRACK_CASES, ids=lambda c: f"{c[0][:6]}_{c[1]}_{c[2]}")
+def test_track_syndrome_matches_plain_on_card(case):
+    """`track_syndrome` through B1 and B1-SP on 1001 words, with and
+    without codeword labels: the flags [T, B] bool-equal to the plain
+    version's (SP on 99.9% of words), the other outputs bit-equal to the
+    decode without them, and against the syndrome stop on the same LLRs:
+    a word's flags hold at some iteration exactly when it has no
+    detected_fail, first at its iters - 1."""
+    dev = _cuda()
+    code_name, sharing, dec, snr = case
+    kern, stacked, llr = _setup(dev, code_name, sharing, dec, snr, T=8, B=1001)
+    tk = FusedNMSKernel(kern.graph, DecoderConfig(decoding_type=dec, track_syndrome=True),
+                        kern.spec)
+    bits, llr_cw = _codewords(dev, kern, snr, 1001)
+    for x, lab in ((llr, None), (llr_cw, bits[: kern.target * kern.z])):
+        out = tk.decode_stats(stacked, x, lab)
+        ref = tk.decode_stats_plain(stacked, x, labels=lab)
+        b1 = kern.decode_stats(stacked, x, lab)
+        _, _, _, iters, fail = kern.decode_deploy(stacked, x, lab)
+        torch.cuda.synchronize()
+        assert len(out) == 4 and out[3].dtype == torch.bool and out[3].shape == (8, 1001)
+        off = (out[3] != ref[3]).any(dim=0)
+        assert off.sum().item() <= (1 if dec == 0 else 0)
+        assert all(torch.equal(p, q) for p, q in zip(out[:3], b1))
+        held = out[3].any(dim=0)
+        assert torch.equal(held, ~fail)
+        first = out[3].int().argmax(dim=0) + 1
+        assert torch.equal(iters[held], first[held].int())
+        assert 0 < int(out[3][-1].sum()) < 1001
+    assert tk.launches == {"fused_nms_stats" + ("_sp" if dec == 0 else ""): 2}
+
+
+# (code, sharing, decoding type, target_node): app_last under a systematic target
+APP_LAST_CASES = [
+    (G5, (2, 2, 2), 2, 10),
+    (WMAN, (3, 3, 3), 1, 18),
+    (MACKAY, (3, 0, 3), 0, 48),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", APP_LAST_CASES, ids=lambda c: f"{c[0][:6]}_{c[1]}_{c[2]}")
+def test_app_last_under_a_systematic_target_on_card(case):
+    """`apply(params, llr)` under ``target_node > 0`` on the card: `app_last`
+    [N*z, B] from B4 (its rows past the target from the kExtra instance),
+    equal to the plain version's (QMS bit-equal, MS within atol 1e-5, SP
+    within atol 1e-3 / rtol 1e-4), its target rows `apps[-1]`; the gradient
+    of ``sum(app_last * r)`` through B5 against autograd through the plain
+    version within rtol 1e-4 and atol 1e-5 x max|g|, two launches
+    bit-identical."""
+    dev = _cuda()
+    code_name, sharing, dec, target = case
+    tcase = (code_name, sharing, dec, 4, 2, 0.5, "scale", target)
+    kern, stacked, llr = _train_setup(dev, tcase, B=1001)
+    dec_t = NMSDecoder(kern.graph.code, kern.cfg, kern.spec, graph=kern.graph, device=dev)
+    r = torch.randn(llr.shape, generator=torch.Generator(device=dev).manual_seed(3),
+                    device=dev)
+    runs = []
+    for route in ("kernel", "kernel", "plain"):
+        ws = {k: None if v is None else v.clone().requires_grad_(True)
+              for k, v in stacked.items()}
+        if route == "kernel":
+            res = dec_t.apply(ws, llr)
+            apps, last = res.apps, res.app_last
+        else:
+            apps, last = dec_t.train_kernel.apps_and_last_plain(ws, llr)
+        (last * r).sum().backward()
+        runs.append((apps.detach(), last.detach(),
+                     {k: v.grad for k, v in ws.items() if v is not None}))
+    torch.cuda.synchronize()
+    tk = dec_t.train_kernel
+    assert tk.launches == {tk.fwd_name: 2, tk.bwd_name: 2}
+    (apps, last, g1), (_, _, g2), (apps_p, last_p, g_p) = runs
+    assert last.shape == (kern.N * kern.z, 1001) and torch.equal(last[: apps.shape[1]], apps[-1])
+    _assert_train_apps(last, last_p, dec)
+    _assert_train_apps(apps, apps_p, dec)
+    for k, g_ref in g_p.items():
+        assert torch.equal(g1[k], g2[k])
+        scale = max(float(g_ref.abs().max()), 1e-8)
+        torch.testing.assert_close(g1[k], g_ref, rtol=1e-4, atol=1e-5 * scale)
+        assert float(g1[k].abs().max()) > 0.0
 
 
 # (code, sharing, decoding_type, T, loss_type, etha, neural_mode, target_node):

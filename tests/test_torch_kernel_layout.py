@@ -371,7 +371,8 @@ def _cuh_constant(name: str) -> int:
 
 @pytest.mark.parametrize("name", available_codes())
 def test_decode_launch_shapes_hold_to_the_kernel_layout(name):
-    """For every bundled code, fixed-T, early-stop and deploy modes, float
+    """For every bundled code, fixed-T (with and without the syndrome
+    flags of ``track_syndrome``), early-stop and deploy modes, float
     state (MS), SP's float state and code state:
     the launch shape within the kernel's launch bound (the .cuh constants:
     the syndrome stop's own blocks per SM under the code state, blocks of
@@ -379,7 +380,8 @@ def test_decode_launch_shapes_hold_to_the_kernel_layout(name):
     the most words whose blocks fit an SM as many times as the bound asks
     (else whose one block fits; SP's fixed T and syndrome stop: a block
     that fits, `sp_launch_shape`), and the shared bytes of the layout: the
-    staged head, then for the code state the counts (and deploy flags) and
+    staged head, then for the code state the counts (and deploy or
+    syndrome flags) and
     the output-byte table padded to 16 bytes, the lifted slot table, int16
     totals (each with its bit's decision), C->V bytes; for SP the lifted
     slot table before the float state."""
@@ -402,10 +404,11 @@ def test_decode_launch_shapes_hold_to_the_kernel_layout(name):
     N, M, z, E = code.N, code.M, code.z, graph.E
     head = _table_bytes(N, M, E) + -(-4 * (2 * E + N) // 16) * 16
     for ucn in (False, True):
-        for deploy, es in ((False, False), (False, True), (True, False)):
+        for deploy, es, track in ((False, False, False), (False, False, True),
+                                  (False, True, False), (True, False, False)):
             for state in ("float", "sp", "code"):
                 code_state, sp = state == "code", state == "sp"
-                G, threads = launch_shape(graph, ucn, deploy, code_state, es, sp)
+                G, threads = launch_shape(graph, ucn, deploy, code_state, es, sp, track)
                 if code_state and deploy:
                     top, blocks = _DEPLOY_THREADS, _DEPLOY_BLOCKS
                 elif code_state:
@@ -416,9 +419,9 @@ def test_decode_launch_shapes_hold_to_the_kernel_layout(name):
                     top, blocks = 1024, 1
                 assert G in (1, 2, 4, 8, 16, 32) and threads % 32 == 0
                 assert threads % G == 0 and threads <= top
-                smem = _smem_bytes(N, M, z, E, G, ucn, deploy, code_state, sp)
-                cnt = (4 if deploy else 2) * G
-                bits = N * z * G if ucn or deploy else 0
+                smem = _smem_bytes(N, M, z, E, G, ucn, deploy, code_state, sp, track)
+                cnt = (4 if deploy or track else 2) * G
+                bits = N * z * G if ucn or deploy or track else 0
                 if code_state:  # the decisions ride in bit 0 of the totals
                     assert smem == (head + -(-4 * (cnt + _LUT_INTS) // 16) * 16
                                     + 8 * E * z + 2 * N * z * G + E * z * G)
@@ -426,7 +429,8 @@ def test_decode_launch_shapes_hold_to_the_kernel_layout(name):
                     assert smem == (head + (8 * E * z if sp else 0)
                                     + 4 * (E + N) * z * G + 4 * cnt + bits)
                 fits = lambda s, n: s <= _SMEM_LIMIT and n * (s + _SMEM_RESERVED) <= _SMEM_PER_SM
-                size = lambda g: _smem_bytes(N, M, z, E, g, ucn, deploy, code_state, sp)
+                size = lambda g: _smem_bytes(N, M, z, E, g, ucn, deploy, code_state, sp,
+                                             track)
                 if sp and not es:  # the fastest shape measured, not the most words
                     assert fits(smem, 1)
                 elif fits(size(1), blocks):

@@ -140,7 +140,10 @@ def test_apps_match_jax_scan(case):
                      collect="apps")
     assert not tdec.train_kernel.launches  # CPU tensors take the plain version
     _assert_apps(res.apps.numpy(), ref, dec, rtol=APP_RTOL.get(case[0], 0.0))
-    np.testing.assert_array_equal(res.app_last.numpy(), res.apps[-1].numpy())
+    # app_last is the last APP over every bit; its target rows are apps[-1]
+    assert res.app_last.shape == (tdec.N * tdec.z, llr.shape[1])
+    np.testing.assert_array_equal(res.app_last[: tdec.target * tdec.z].numpy(),
+                                  res.apps[-1].numpy())
     # the emission window of the static eta = 0 loss: the last iteration only
     T = ref.shape[0]
     _, tdec_w, _, _ = _decoders(case, app_t0=T - 1)

@@ -32,7 +32,10 @@ process; it builds that tree's kernels, makes the inputs from fixed seeds
   (syndrome stop, T=20; also at 5.0 and 5.5 dB), B1-SP (BP, T=20) and the
   SP early-stop and syndrome-stop instances on its inputs, and the MS float
   state's B1 (MS, base20 weights), each at batch 65536 and 4.0 dB unless
-  noted;
+  noted; the labelled instances of B1, B2 (T=30), B3 and B1-SP on 65536
+  random codewords (the port's `Encoder`, BPSK of the encoded word) as
+  labels, and B1 with `track_syndrome` on the zero word (a tree whose
+  decoder refuses them records the refusal under ``refused``);
   `FERSimulator.run_point` frames/s on the base20 fixed-T, base20
   early-stop, boosted30 early-stop, base20 syndrome-stop and BP fixed-T
   paths (4.0 dB, 2^20 frames, seed 0); and the deep anchor: base20 with
@@ -441,6 +444,35 @@ def decode_runs(out: dict, gen) -> None:
         out["times_ms"][name] = time_ms(fn, 10)
         out["digests"][name] = [digest(o) for o in fn()]
 
+    # codeword labels and the syndrome flags (a generator of their own, so
+    # the inputs above do not depend on them)
+    from ldpc_error_floor_tpu_torch.codes import Encoder
+    g_cw = torch.Generator(device=dev).manual_seed(5)
+    words = Encoder(graph, device=dev).random_codewords(g_cw, DECODE_B)
+    sig = torch.full((DECODE_B,), float(wman.snr_sigmas([4.0])[0]), device=dev)
+    s_cw = g_cw.get_state()
+    llr_cw = AWGNChannel(wman, device=dev).sample_codewords(g_cw, sig, words)
+    g_cw.set_state(s_cw)
+    llr_cw_sp = AWGNChannel(wman, decoding_type=0, device=dev).sample_codewords(
+        g_cw, sig, words)
+    extra = {  # name: (kernel, weights, LLRs, labels, deploy)
+        "b1_fixed20_labels": (runs["b1_fixed20"][0], st20, llr_cw, words, False),
+        "b2_early_stop30_labels": (runs["b2_early_stop30"][0], st30, llr_cw, words, False),
+        "b3_deploy20_labels": (dep20, st20, llr_cw, words, True),
+        "b1sp_bp20_labels": (sp20, st_bp, llr_cw_sp, words, False),
+        "b1_fixed20_track_syndrome": (K(graph, DecoderConfig(track_syndrome=True), spec20),
+                                      st20, llr, None, False),
+    }
+    for name, (kern, st, x, lab, deploy) in extra.items():
+        fn = (lambda: kern.decode_deploy(st, x, lab)) if deploy else (
+            lambda: kern.decode_stats(st, x, lab))
+        try:
+            out["times_ms"][name] = time_ms(fn, 10)
+        except ValueError as e:  # a tree without these instances
+            out.setdefault("refused", {})[name] = str(e)
+            continue
+        out["digests"][name] = [digest(o) for o in fn()]
+
     out["run_point"] = {}
     bp = init_weights(spec_bp, graph, device=dev)
     for name, spec, params, es, stop, dec in (
@@ -672,7 +704,8 @@ def main() -> int:
                                                    "grad_sums", "bwd_bit_identical",
                                                    "build_s", "run_point",
                                                    "base_step_trace_ms",
-                                                   "base_step_syncs")}), flush=True)
+                                                   "base_step_syncs", "refused")}),
+              flush=True)
         runs.append(row)
     summary = {}
     for name in dict.fromkeys(order):
