@@ -28,6 +28,7 @@ import torch
 import torch.distributed as dist
 
 from ldpc_error_floor_tpu_torch.utils import resolve_device
+from ldpc_error_floor_tpu_torch.utils.profiling import annotate
 
 TIMEOUT_S = 600.0  # a collective that waits longer raises
 
@@ -146,9 +147,11 @@ def replicate(mesh: Optional[DataMesh], params):
 
 def all_sum(mesh: Optional[DataMesh], t: torch.Tensor) -> torch.Tensor:
     """`t` summed over the ranks, in place (the counters' psum); `t`
-    itself without a mesh."""
+    itself without a mesh.  Under a profiler the call is the host span
+    ``ldpc.mesh.all_sum``."""
     if mesh is not None:
-        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        with annotate("ldpc.mesh.all_sum"):
+            dist.all_reduce(t, op=dist.ReduceOp.SUM)
     return t
 
 

@@ -32,6 +32,15 @@ samples and decodes its share of the lanes from its own generator
 replay, on the same stream, before they are copied to the host: one
 collective per host read and no host synchronisation.  Every stop rule
 reads the summed counters, so every rank stops on the same read.
+
+Under a profiler `run_point` records host spans (`utils.profiling.annotate`):
+``ldpc.fer.point``, the whole call; within it ``ldpc.fer.start``, from
+entry until the first read is enqueued (the resume, the rank's generator,
+sigma and the first issue); ``ldpc.fer.issue`` (a read's replay, its mesh
+sum and the copy behind its event) and within an issue that needs a new
+graph ``ldpc.fer.capture`` (`_capture`); ``ldpc.fer.wait`` (the host
+waiting for a read's counters) and ``ldpc.fer.ckpt`` (a checkpoint write).
+Nothing inside the captured steps opens a span.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ from ldpc_error_floor_tpu_torch.models.nms import NMSDecoder
 from ldpc_error_floor_tpu_torch.models.weights import KINDS, Params, stack_weights
 from ldpc_error_floor_tpu_torch.parallel.mesh import (DataMesh, all_max, all_sum,
                                                       rank_generator)
+from ldpc_error_floor_tpu_torch.utils.profiling import annotate
 
 _COUNTERS = ("frames", "bit_errors_last", "frame_errors_last",
              "frame_errors_genie", "frame_errors_undetected", "iters_sum")
@@ -189,9 +199,10 @@ class _Pending:
 
     def get(self):
         """(the counters, whether to checkpoint after them)."""
-        if self._event is not None:
-            self._event.synchronize()
-        vals = self._host.tolist()
+        with annotate("ldpc.fer.wait"):
+            if self._event is not None:
+                self._event.synchronize()
+            vals = self._host.tolist()
         if self._reduced:
             return vals[:-1], vals[-1] > 0
         return vals, self._due
@@ -311,7 +322,8 @@ class FERSimulator:
             g = self._graphed
             if g is None or not g.fits(key, params, generator):
                 self._graphed = None  # free the stale graph's memory first
-                g = self._graphed = self._capture(key, params, generator, sigma)
+                with annotate("ldpc.fer.capture"):
+                    g = self._graphed = self._capture(key, params, generator, sigma)
             g.graph.replay()
             for owner, n in zip(self._counted(), g.launches):
                 owner.launches.update(n)
@@ -330,14 +342,15 @@ class FERSimulator:
         checkpoints on the same read.  The sum runs outside the captured
         graph, after the replay on the same stream; the next replay, which
         overwrites the graph's output, is enqueued after the copy."""
-        counters = self._chunk(params, generator, sigma)
-        if self.mesh is None:
-            return _Pending(counters, ckpt_due)
-        flagged = torch.empty(counters.numel() + 1, dtype=torch.int64,
-                              device=counters.device)
-        flagged[:-1].copy_(counters)
-        flagged[-1:].fill_(int(ckpt_due))
-        return _Pending(all_sum(self.mesh, flagged), ckpt_due, reduced=True)
+        with annotate("ldpc.fer.issue"):
+            counters = self._chunk(params, generator, sigma)
+            if self.mesh is None:
+                return _Pending(counters, ckpt_due)
+            flagged = torch.empty(counters.numel() + 1, dtype=torch.int64,
+                                  device=counters.device)
+            flagged[:-1].copy_(counters)
+            flagged[-1:].fill_(int(ckpt_due))
+            return _Pending(all_sum(self.mesh, flagged), ckpt_due, reduced=True)
 
     def _capture(self, key: tuple, params: Params, generator: torch.Generator,
                  sigma: float) -> _GraphedChunk:
@@ -415,73 +428,77 @@ class FERSimulator:
         checkpoint in ``{ckpt_path}.part{rank}`` (the summed counters and
         its generator's state), and a resume under another world size
         raises (`resume_ckpt`)."""
-        sigma = float(np.float32(self.channel.code.snr_sigmas([snr_db])[0]))
-        c = SimCounters()
-        ckpt_path, resumed = resume_ckpt(ckpt_path, snr_db, self.mesh)
-        generator = rank_generator(generator, self.mesh)
-        if resumed is not None:
-            for f in _COUNTERS:
-                setattr(c, f, int(resumed.get(f, 0)))
-            set_generator_state(generator, resumed["generator_state"])
-        frames0 = c.frames
-        frames_per_step = self.batch * self.inner_steps
-        if max_frames < frames_per_step and c.frames == 0:
-            raise ValueError(
-                f"max_frames {max_frames} below one simulation chunk "
-                f"(batch {self.batch} * inner_steps {self.inner_steps}); "
-                "raise max_frames or shrink the batch")
-        syndrome = self.stop == "syndrome"
+        with annotate("ldpc.fer.point"):
+            with annotate("ldpc.fer.start"):
+                sigma = float(np.float32(self.channel.code.snr_sigmas([snr_db])[0]))
+                c = SimCounters()
+                ckpt_path, resumed = resume_ckpt(ckpt_path, snr_db, self.mesh)
+                generator = rank_generator(generator, self.mesh)
+                if resumed is not None:
+                    for f in _COUNTERS:
+                        setattr(c, f, int(resumed.get(f, 0)))
+                    set_generator_state(generator, resumed["generator_state"])
+                frames0 = c.frames
+                frames_per_step = self.batch * self.inner_steps
+                if max_frames < frames_per_step and c.frames == 0:
+                    raise ValueError(
+                        f"max_frames {max_frames} below one simulation chunk "
+                        f"(batch {self.batch} * inner_steps {self.inner_steps}); "
+                        "raise max_frames or shrink the batch")
+                syndrome = self.stop == "syndrome"
 
-        def target_met() -> bool:
-            errors = c.frame_errors_last if syndrome else c.frame_errors_genie
-            return (target_frame_errors is not None
-                    and c.frames >= min_frames
-                    and errors >= target_frame_errors)
+                def target_met() -> bool:
+                    errors = c.frame_errors_last if syndrome else c.frame_errors_genie
+                    return (target_frame_errors is not None
+                            and c.frames >= min_frames
+                            and errors >= target_frame_errors)
 
-        t0 = time.perf_counter()
-        t_ckpt = t0
+                t0 = time.perf_counter()
+                t_ckpt = t0
 
-        def read() -> _Pending:
-            # the timer restarts when a due read is queued, so the read
-            # queued behind it (before its checkpoint) is not due as well
-            nonlocal t_ckpt
-            now = time.perf_counter()
-            due = bool(ckpt_path) and now - t_ckpt >= ckpt_every_s
-            if due:
-                t_ckpt = now
-            return self._read(params, generator, sigma, due)
+                def read() -> _Pending:
+                    # the timer restarts when a due read is queued, so the read
+                    # queued behind it (before its checkpoint) is not due as well
+                    nonlocal t_ckpt
+                    now = time.perf_counter()
+                    due = bool(ckpt_path) and now - t_ckpt >= ckpt_every_s
+                    if due:
+                        t_ckpt = now
+                    return self._read(params, generator, sigma, due)
 
-        pending = None
-        reads = 0
-        # the generator state that regenerates every chunk not yet counted
-        state_unacc = generator_state(generator) if ckpt_path else None
-        if c.frames + frames_per_step <= max_frames and not target_met():
-            pending = read()
-        while pending is not None:
-            nxt = None
-            state_next = generator_state(generator) if ckpt_path else None
-            if c.frames + 2 * frames_per_step <= max_frames:
-                nxt = read()
-            counts, ckpt_due = pending.get()
-            if syndrome:
-                c.add_deploy(frames_per_step, *counts)
-            else:
-                c.add(frames_per_step, *counts)
-            pending = nxt
-            state_unacc = state_next
-            reads += 1
-            if progress is not None and reads % 50 == 0:
-                progress(c)
-            if ckpt_due:
-                _save_ckpt(ckpt_path, self._ckpt_obj(snr_db, c, state_unacc))
-            if target_met():
-                break
-        if ckpt_path:
-            # final record: a re-run of the same command reports the point
-            # done instead of silently extending it
-            _save_ckpt(ckpt_path, self._ckpt_obj(snr_db, c, state_unacc,
-                                                 done=True))
-        dt = time.perf_counter() - t0
+                pending = None
+                reads = 0
+                # the generator state that regenerates every chunk not yet counted
+                state_unacc = generator_state(generator) if ckpt_path else None
+                if c.frames + frames_per_step <= max_frames and not target_met():
+                    pending = read()
+            while pending is not None:
+                nxt = None
+                state_next = generator_state(generator) if ckpt_path else None
+                if c.frames + 2 * frames_per_step <= max_frames:
+                    nxt = read()
+                counts, ckpt_due = pending.get()
+                if syndrome:
+                    c.add_deploy(frames_per_step, *counts)
+                else:
+                    c.add(frames_per_step, *counts)
+                pending = nxt
+                state_unacc = state_next
+                reads += 1
+                if progress is not None and reads % 50 == 0:
+                    progress(c)
+                if ckpt_due:
+                    with annotate("ldpc.fer.ckpt"):
+                        _save_ckpt(ckpt_path, self._ckpt_obj(snr_db, c, state_unacc))
+                if target_met():
+                    break
+            if ckpt_path:
+                # final record: a re-run of the same command reports the point
+                # done instead of silently extending it
+                with annotate("ldpc.fer.ckpt"):
+                    _save_ckpt(ckpt_path, self._ckpt_obj(snr_db, c, state_unacc,
+                                                         done=True))
+            dt = time.perf_counter() - t0
         nbits = self.decoder.target * self.decoder.z
         return FERPoint(
             snr_db=float(snr_db), frames=c.frames,

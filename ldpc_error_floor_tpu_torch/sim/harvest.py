@@ -11,6 +11,10 @@ and, in a world of W > 1, appends to ``{out_file}.part{rank}`` and keeps
 ``{ckpt_path}.part{rank}``.  The stop reads the words kept by every rank
 (one `all_reduce` per batch), so every rank leaves on the same batch; JAX's
 loop stops each process on its own count.
+
+Under a profiler `collect` records host spans (`utils.profiling.annotate`):
+``ldpc.harvest.step`` (a batch enqueued), ``ldpc.harvest.read`` (its count
+and kept rows read back to the host) and ``ldpc.harvest.ckpt``.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from ldpc_error_floor_tpu_torch.parallel.mesh import (DataMesh, all_sum,
 from ldpc_error_floor_tpu_torch.sim.fer import (_save_ckpt, generator_state,
                                                 part_path, resume_ckpt,
                                                 set_generator_state)
+from ldpc_error_floor_tpu_torch.utils.profiling import annotate
 
 
 def _truncate_rows(path: str, n_rows: int) -> None:
@@ -129,12 +134,14 @@ class UncorHarvester:
         t_ckpt = t0
         world = 1 if self.mesh is None else self.mesh.world
         while n_words < target_words and frames < max_frames:
-            count, picked = self._step(params, generator, sigma)
+            with annotate("ldpc.harvest.step"):
+                count, picked = self._step(params, generator, sigma)
             frames += self.batch
-            c = int(count)
-            kept = min(c, self.cap)
+            with annotate("ldpc.harvest.read"):
+                c = int(count)
+                kept = min(c, self.cap)
+                got = picked[:, :kept].T.cpu().numpy() if kept else None
             if kept:
-                got = picked[:, :kept].T.cpu().numpy()
                 words.append(got)
                 if out_file is not None:
                     append_uncor_file(out_file, got)
@@ -149,11 +156,12 @@ class UncorHarvester:
                 t_ckpt = time.perf_counter()
                 # the generator now regenerates everything after this batch,
                 # whose hits are already appended on disk
-                _save_ckpt(ckpt_path, {"snr_db": float(snr_db),
-                                       "frames": frames, "n_words": n_words,
-                                       "hits": hits, "file_rows": file_rows,
-                                       "generator_state": generator_state(generator),
-                                       "world": world})
+                with annotate("ldpc.harvest.ckpt"):
+                    _save_ckpt(ckpt_path, {"snr_db": float(snr_db),
+                                           "frames": frames, "n_words": n_words,
+                                           "hits": hits, "file_rows": file_rows,
+                                           "generator_state": generator_state(generator),
+                                           "world": world})
             if log_every and frames % log_every == 0 and (
                     self.mesh is None or self.mesh.rank == 0):
                 dt = time.perf_counter() - t0

@@ -21,6 +21,13 @@ batch; the masked gradients and the loss are summed over the ranks as one
 flat buffer and divided by the world's size, so every rank takes the same
 Adam step on the global batch's mean gradient and the parameters stay
 replicated.
+
+Under a profiler a step records host spans (`utils.profiling.annotate`):
+``ldpc.train.sample`` (an epoch's batch), ``ldpc.train.forward`` (the
+decode, B4 on the card), ``ldpc.train.loss``, ``ldpc.train.backward`` (B5
+and the loss's gradient) and ``ldpc.train.update`` (the gradient mask, the
+mesh sum, Adam and the clip), the update timed on the card as well, between
+CUDA events on the batch's device.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from ldpc_error_floor_tpu_torch.models.weights import (Params, WeightSpec,
 from ldpc_error_floor_tpu_torch.parallel.mesh import (DataMesh, all_sum,
                                                       batch_constraint)
 from ldpc_error_floor_tpu_torch.training.losses import multi_iteration_loss
+from ldpc_error_floor_tpu_torch.utils.profiling import annotate
 
 
 def make_optimizer(params: Params, lr: float = 1e-3) -> torch.optim.Adam:
@@ -94,31 +102,35 @@ class TrainStep:
         live = {k: p for k, p in params.items() if p is not None}
         for p in live.values():
             p.grad = None
-        res = self.decoder.apply(params, llr, collect="apps")
+        with annotate("ldpc.train.forward"):
+            res = self.decoder.apply(params, llr, collect="apps")
         e = self.static_etha if self.static_etha is not None else etha
-        loss = multi_iteration_loss(res.apps, labels, self.loss_type, e,
-                                    t_start=self.t_lo)
-        loss.backward()
-        masks = self._device_masks(llr.device)
-        with torch.no_grad():
-            for k, p in live.items():
-                if p.grad is None:  # Adam must still see the (zero) gradient
-                    p.grad = torch.zeros_like(p)
-                p.grad.mul_(masks[k])
-            loss = loss.detach()
-            if self.mesh is not None:
-                grads = [p.grad for p in live.values()]
-                flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
-                all_sum(self.mesh, flat).div_(self.mesh.world)
-                for g, v in zip(grads, flat[:-1].split([g.numel() for g in grads])):
-                    g.copy_(v.view_as(g))
-                loss = flat[-1]
-        optimizer.step()
-        with torch.no_grad():
-            clipped = clip_weights(self.spec, {k: p.detach() for k, p in live.items()},
-                                   masks=masks)
-            for k, p in live.items():
-                p.copy_(clipped[k])
+        with annotate("ldpc.train.loss"):
+            loss = multi_iteration_loss(res.apps, labels, self.loss_type, e,
+                                        t_start=self.t_lo)
+        with annotate("ldpc.train.backward"):
+            loss.backward()
+        with annotate("ldpc.train.update", device=llr.device):
+            masks = self._device_masks(llr.device)
+            with torch.no_grad():
+                for k, p in live.items():
+                    if p.grad is None:  # Adam must still see the (zero) gradient
+                        p.grad = torch.zeros_like(p)
+                    p.grad.mul_(masks[k])
+                loss = loss.detach()
+                if self.mesh is not None:
+                    grads = [p.grad for p in live.values()]
+                    flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
+                    all_sum(self.mesh, flat).div_(self.mesh.world)
+                    for g, v in zip(grads, flat[:-1].split([g.numel() for g in grads])):
+                        g.copy_(v.view_as(g))
+                    loss = flat[-1]
+            optimizer.step()
+            with torch.no_grad():
+                clipped = clip_weights(self.spec, {k: p.detach() for k, p in live.items()},
+                                       masks=masks)
+                for k, p in live.items():
+                    p.copy_(clipped[k])
         return loss
 
 
@@ -170,7 +182,8 @@ def make_epoch_step(decoder: NMSDecoder, spec: WeightSpec, loss_type: int,
               etha) -> torch.Tensor:
         losses = []
         for i in range(n_steps):
-            llr, lab = batch_of(source, i)
+            with annotate("ldpc.train.sample"):
+                llr, lab = batch_of(source, i)
             losses.append(step(params, optimizer, llr, lab, etha))
         return torch.stack(losses).mean()
 

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from ldpc_error_floor_tpu_torch.utils.profiling import Timer, annotate, trace
+from ldpc_error_floor_tpu_torch.utils.profiling import annotate, snapshot, trace
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -24,4 +24,4 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device", "trace", "annotate", "Timer"]
+__all__ = ["resolve_device", "trace", "annotate", "snapshot"]

@@ -1,5 +1,4 @@
-"""Tracing and timing helpers (port of
-`ldpc_error_floor_tpu/utils/profiling.py`).
+"""Tracing helpers (port of `ldpc_error_floor_tpu/utils/profiling.py`).
 
 * `trace(trace_dir)` profiles the enclosed block with `torch.profiler`: the
   host's PyTorch operations and, on the card, its kernels and copies; it
@@ -7,26 +6,134 @@
   directory it does nothing, so call sites can wrap a phase
   unconditionally.  There is no environment switch: the caller passes the
   directory.
-* `annotate(name)` names a host span in that trace
-  (`torch.profiler.record_function`).
-* `Timer` is the accumulating wall-clock timer the perf log uses.
+* `annotate(name, device=None)` is the port's one span.  While no
+  `torch.profiler` is active it reads the profiler's flag and does nothing
+  else: it opens no range and records nothing.  While one is active (under
+  `trace`, or a profiler the caller started) it opens a
+  `record_function(name)` range, which the profiler's Chrome trace holds on
+  the clock of the card's kernels, and adds the span's count and
+  host-clock seconds to an in-memory table keyed by name.  Given the
+  `device` the enclosed work runs on, a CUDA device whose current stream
+  is not capturing a graph, it also records a CUDA event on that stream at
+  entry and at exit; the card's milliseconds between them join the table
+  as the pairs complete.  Work on the CPU records no event, whatever cards
+  the host has.
+* `snapshot()` reads that table: ``{name: {"count", "host_ms",
+  "device_ms"}}`` (``device_ms`` None for a span no event pair timed),
+  waiting for pairs still on the card.  `reset()` empties it; `trace`
+  does so on entry, so the table holds that block's spans.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import time
-from typing import Iterator, Optional
+from typing import Dict, Iterator, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_NOTHING = contextlib.nullcontext()
+
+
+class _Row:
+    """One span name's totals, and its event pairs not yet folded in."""
+
+    __slots__ = ("count", "host_s", "device_ms", "timed", "pending")
+
+    def __init__(self):
+        self.count, self.host_s = 0, 0.0
+        self.device_ms, self.timed = 0.0, 0
+        self.pending: collections.deque = collections.deque()
+
+    def fold(self, wait: bool = False) -> None:
+        """Add the card time of the completed pairs (all of them with
+        `wait`), oldest first: one stream completes them in order."""
+        while self.pending:
+            start, end = self.pending[0]
+            if wait:
+                end.synchronize()
+            elif not end.query():
+                return
+            self.device_ms += start.elapsed_time(end)
+            self.timed += 1
+            self.pending.popleft()
+
+
+_TABLE: Dict[str, _Row] = {}
+
+
+class _Span:
+    __slots__ = ("name", "range", "events", "t0")
+
+    def __init__(self, name: str, device: Optional[torch.device]):
+        self.name = name
+        self.range = torch.profiler.record_function(name)
+        self.events = None
+        if device is not None and torch.device(device).type == "cuda":
+            with torch.cuda.device(device):
+                if not torch.cuda.is_current_stream_capturing():
+                    self.events = (torch.cuda.current_stream(),
+                                   torch.cuda.Event(enable_timing=True),
+                                   torch.cuda.Event(enable_timing=True))
+
+    def __enter__(self):
+        self.range.__enter__()
+        if self.events is not None:
+            self.events[1].record(self.events[0])
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        host_s = time.perf_counter() - self.t0
+        if self.events is not None:
+            self.events[2].record(self.events[0])
+        self.range.__exit__(*exc)
+        row = _TABLE.get(self.name)
+        if row is None:
+            row = _TABLE[self.name] = _Row()
+        row.count += 1
+        row.host_s += host_s
+        if self.events is not None:
+            row.pending.append(self.events[1:])
+            row.fold()
+        return False
+
+
+def annotate(name: str, device: Optional[torch.device] = None):
+    """A named span: nothing while no profiler is active; else a range in
+    the profiler's trace and a row of `snapshot()` (given the work's CUDA
+    `device`, its card time too, between CUDA events on that device's
+    current stream)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NOTHING
+    return _Span(name, device)
+
+
+def snapshot() -> Dict[str, dict]:
+    """Every span recorded since the last `reset`: its count, host-clock
+    ms and card ms (None where no event pair timed it)."""
+    out = {}
+    for name, row in _TABLE.items():
+        row.fold(wait=True)
+        out[name] = {"count": row.count, "host_ms": row.host_s * 1e3,
+                     "device_ms": row.device_ms if row.timed else None}
+    return out
+
+
+def reset() -> None:
+    """Empty the span table."""
+    _TABLE.clear()
 
 
 @contextlib.contextmanager
 def trace(trace_dir: Optional[str] = None) -> Iterator[Optional[torch.profiler.profile]]:
     """Profile the enclosed block into ``{trace_dir}/trace.json`` and yield
     the profiler (its `key_averages()` sum the block by operation and
-    kernel); a no-op yielding None without `trace_dir`."""
+    kernel); the span table starts empty.  A no-op yielding None without
+    `trace_dir`."""
     if not trace_dir:
         yield None
         return
@@ -34,28 +141,7 @@ def trace(trace_dir: Optional[str] = None) -> Iterator[Optional[torch.profiler.p
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
+    reset()
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
-
-
-def annotate(name: str):
-    """A named host span in the trace `trace` writes."""
-    return torch.profiler.record_function(name)
-
-
-class Timer:
-    """Accumulating wall-clock phase timer (perf-log granularity)."""
-
-    def __init__(self):
-        self.seconds = 0.0
-        self._t0: Optional[float] = None
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.seconds += time.perf_counter() - self._t0
-        self._t0 = None
-        return False
