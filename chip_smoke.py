@@ -481,9 +481,10 @@ def train_bound(kern, B: int, backward: bool) -> dict:
 
 
 def early_stop_word_iters(err, G: int) -> int:
-    """(word, iteration) pairs the early-stop kernel ran, from its flags
-    [T, B]: a block of G words runs until the first iteration by which each
-    of its words has decoded once, or T."""
+    """(word, iteration) pairs of the genie early stop from its flags [T,
+    B], words stopping in blocks of G: a block runs until the first
+    iteration by which each of its words has decoded once, or T (G = 1:
+    each word's own iterations, what B2's stop per word needs)."""
     import torch
     T, B = err.shape
     still = torch.cumprod(err.to(torch.int32), dim=0).bool()   # [T, B]
@@ -492,17 +493,23 @@ def early_stop_word_iters(err, G: int) -> int:
     return int(iters.sum()) * G
 
 
-def tile_iters(err, G: int) -> dict:
-    """Iterations each tile of G words ran under the early stop (from its
-    flags [T, B], the last tile ragged): mean, max and the share of tiles
-    that ran all T."""
+def lane_steps(decode) -> dict:
+    """The early stop's engagement pair of one call of `decode` (a B2
+    launch), counted under the profiler's flag alone (no profiler runs):
+    its lane-steps (each block's lanes times its loop entries, idle lanes
+    included), its words and the lane-steps a word."""
     import torch
-    T, B = err.shape
-    still = torch.cumprod(err.to(torch.int32), dim=0).bool()
-    still = torch.cat([still, still.new_zeros((T, -B % G))], dim=1)
-    iters = (1 + still.view(T, -1, G).any(dim=2)[:-1].sum(dim=0)).float()
-    return {"tiles": iters.numel(), "mean": float(iters.mean()), "max": int(iters.max()),
-            "share_all_T": float((iters == T).float().mean())}
+
+    from ldpc_error_floor_tpu_torch.utils import profiling
+    profiling.reset()
+    torch.autograd.profiler._is_profiler_enabled = True
+    try:
+        decode()
+    finally:
+        torch.autograd.profiler._is_profiler_enabled = False
+    pair = profiling.snapshot().get("fused_nms_early_stop", {"lane_steps": 0, "words": 0})
+    profiling.reset()
+    return {**pair, "per_word": pair["lane_steps"] / max(pair["words"], 1)}
 
 
 def binomial_two_sample_p(k1: int, n1: int, k2: int, n2: int) -> float:
@@ -655,7 +662,8 @@ def ptxas_by_instance(log: str, kern_name) -> dict:
     """ptxas' registers, stack frame and spill bytes of each kernel instance
     in a library's build log (`-Xptxas -v`), by kernel name: the decode
     library's `fused_nms_kernel<mode, sp, code, chunks, extra>` (the min-sum
-    ones marked [code] or [float]), the training library's
+    ones marked [code] or [float]) and `fused_nms_kernel_word_stop<extra>`
+    (the code state's early stop, marked [code]), the training library's
     `fused_nms_kernel<kTrain, sp, false, chunks, extra>` (B4, B4-SP) and
     `train_bwd_kernel<sp, chunks>` (B5, B5-SP); the SP training instances
     for checks of more than one chunk of 16 slots marked [wide], the
@@ -669,7 +677,10 @@ def ptxas_by_instance(log: str, kern_name) -> dict:
             k = re.search(r"fused_nms_kernelILi(\d)ELb([01])ELb([01])ELi(\d+)ELi(\d)E",
                           mangled)
             b = re.search(r"train_bwd_kernelILb([01])ELi(\d+)E", mangled)
-            if k:  # B4-SP: for checks of one chunk, and [wide] for up to 64 slots
+            ws = re.search(r"fused_nms_kernel_word_stopILi(\d)E", mangled)
+            if ws:  # B2: the code state's genie stop per word
+                entry = kern_name(1, False) + "[code]" + ("", "[labels]")[int(ws.group(1))]
+            elif k:  # B4-SP: for checks of one chunk, and [wide] for up to 64 slots
                 mode, sp, code, chunks, extra = (int(x) for x in k.groups())
                 sfx = "_sp" if sp else ""
                 entry = ("fused_nms_train_fwd" + sfx + ("[wide]" if sp and chunks > 1 else "")
@@ -2127,7 +2138,7 @@ def main() -> int:
     dep20 = FusedNMSKernel(wman_graph, DecoderConfig(), spec20)
     sp20 = FusedNMSKernel(wman_graph, DecoderConfig(decoding_type=0), spec_bp)
     st_bp = stack_weights(spec_bp, init_weights(spec_bp, wman_graph, device=dev))
-    G = es20.group
+    G = es20.group  # 1: each word's own stop
     timing, bounds = {}, {}
 
     # S1, the sampler's kernel, at the main path's batch: the zero word
@@ -2163,7 +2174,8 @@ def main() -> int:
         timing[f"fixed20_ms_{snr}dB"] = time_ms(lambda: fixed20.decode_stats(st20, llr), reps=10)
         err_es = es20.decode_stats(st20, llr)[1]
         timing[f"early_stop20_word_iters_{snr}dB"] = early_stop_word_iters(err_es, G)
-        timing[f"early_stop20_tile_iters_{snr}dB"] = tile_iters(err_es, G)
+        timing[f"early_stop20_lane_steps_{snr}dB"] = lane_steps(
+            lambda: es20.decode_stats(st20, llr))
     llr = llr_at(4.0)  # B2 on its main path: boosted30, T=30
     timing["early_stop30_ms"] = time_ms(lambda: es30.decode_stats(st30, llr), reps=10)
     timing["early_stop30_plain_ms"] = time_ms(lambda: es30.decode_stats_plain(st30, llr),
@@ -2171,10 +2183,12 @@ def main() -> int:
     err_es = es30.decode_stats(st30, llr)[1]
     wi = early_stop_word_iters(err_es, G)
     timing["early_stop30_word_iters"] = wi
-    timing["early_stop30_tile_iters"] = tile_iters(err_es, G)
-    # the bound had B2 kept the fixed-T kernel's G of 16 words on wman (a
-    # word's flags up to its first decode are the same under any G)
+    timing["early_stop30_lane_steps"] = lane_steps(lambda: es30.decode_stats(st30, llr))
+    # the bound had B2 stopped blocks of the fixed-T kernel's G of 16 words
+    # on wman, and of its own 8 lanes (a word's flags up to its first
+    # decode are the same under any G)
     timing["early_stop30_word_iters_G16"] = early_stop_word_iters(err_es, 16)
+    timing["early_stop30_word_iters_G8"] = early_stop_word_iters(err_es, 8)
     bounds["fused_nms_early_stop_at_G16"] = bound(
         wman_graph, spec30, MAIN_B, word_iters=timing["early_stop30_word_iters_G16"])
     bounds["fused_nms_early_stop"] = bound(wman_graph, spec30, MAIN_B, word_iters=wi)

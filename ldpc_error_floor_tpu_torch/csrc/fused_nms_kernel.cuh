@@ -72,9 +72,9 @@
 // integer codes: every stored value is a whole number of u, the largest
 // power of two dividing the grid's step and clip (0.5 for q_bit 5), so a
 // word needs 3.2 KB instead of 11.3 on wman and three blocks of up to 384
-// threads share an SM (kCodeThreads, kCodeBlocks: 56 registers; four under
-// the early stop, G = 8 on wman), so one block's barrier leaves the SM
-// others to issue:
+// threads share an SM (kCodeThreads, kCodeBlocks: 56 registers; four of
+// G = 8 lanes on wman for the early stop, fused_nms_kernel_word_stop
+// below), so one block's barrier leaves the SM others to issue:
 //   - a C->V message is one byte, its code as 7-bit two's complement, with
 //     bit 7 flagging -0 (a negative message whose weighted magnitude
 //     rounds to 0); a bit total is an int16, twice its code plus the bit's
@@ -100,16 +100,20 @@
 // The code state gives the float loop's outputs bit for bit (the sign of
 // every APP included): the integer steps are exact, and a CPU test
 // (tests/test_torch_kernel_layout.py) holds each to the float loop.
-// Measured and not kept: a persistent grid (blocks taking tiles from a
-// counter) ran no faster than one block per G words, 5% slower at 5.5 dB.
-// The stops end a block's loop, never a thread's: early stop decides with
-// __syncthreads_or after the statistics of an iteration, deploy after phase
-// B, from shared flags that every thread reads alike.  Both stop per block
-// of G words, so they take fewer words under more blocks than the fixed T
-// (kEarlyStopBlocks, kDeployBlocks).  A block of G words
-// stops as a whole (the JAX tile stops as a whole too, at another size), so
-// the early-stop rows after a block's stop and its APP depend on G; the
-// genie-failure mask and every deploy output do not.
+// The stops of this loop end a block's loop, never a thread's: the float
+// state's early stop decides with __syncthreads_or after the statistics of
+// an iteration, deploy after phase B, from shared flags that every thread
+// reads alike.  Both stop per block of G words, so they take fewer words
+// under more blocks than the fixed T (kDeployBlocks; the float early stop
+// one block of the most words).  A block of G words stops as a whole (the
+// JAX tile stops as a whole too, at another size), so the float early
+// stop's rows after a block's stop and its APP depend on G; the
+// genie-failure mask and every deploy output do not.  The code state's
+// early stop is a kernel of its own (fused_nms_kernel_word_stop, below):
+// each word stops alone, its rows and APP those of its own stop, whatever
+// G.  (A persistent grid of blocks that kept the block stop, taking tiles
+// of G words from a counter, ran 5% slower at 5.5 dB than one block per G
+// words: persistence alone does not pay; the stop per word does the work.)
 // kTrain counts nothing and writes, straight to device memory, the pre-clip
 // APPs of iterations t >= t0 ([T-t0][target*z][B], the G threads of a row
 // writing G consecutive words) and, when hist_out is not null, per
@@ -164,14 +168,14 @@ constexpr int kTrain = 3;
 constexpr int kTwoBlockThreads = 576;
 // The launch bound of the code-domain decode instances (QMS B1, B2, B3):
 // kCodeBlocks blocks of at most kCodeThreads threads per SM (56
-// registers), kEarlyStopBlocks for the genie early stop (40 registers; its
-// G halves, so a block runs fewer iterations for its slowest word)
+// registers), kEarlyStopBlocks for the genie early stop (40 registers;
+// fused_nms_kernel_word_stop, G lanes a block)
 // (ops/fused_decoder.py::_CODE_THREADS, _CODE_BLOCKS, _EARLY_STOP_BLOCKS).
 constexpr int kCodeThreads = 384;
 constexpr int kCodeBlocks = 3;
 constexpr int kEarlyStopBlocks = 4;
-// The syndrome stop's own bound (code state): like the early stop, a block
-// runs until its slowest word stops, so it takes fewer words under more
+// The syndrome stop's own bound (code state): like the float state's early
+// stop, a block runs until its slowest word stops, so it takes fewer words under more
 // blocks: kDeployBlocks blocks of at most kDeployThreads threads (G = 4 on
 // wman, 56 registers; G = 8 under four blocks of 384 was 6.8% slower at
 // 4.0 dB, 1.7% at 5.5 dB) (ops/fused_decoder.py::_DEPLOY_THREADS,
@@ -494,13 +498,13 @@ struct CodePass1 {
   int m1, m2, nneg, par;
 };
 
-template <bool kShift>
-__device__ __forceinline__ CodePass1 code_pass1(const Msg& ms, const int2* lt,
+template <bool kShift, class Slot>
+__device__ __forceinline__ CodePass1 code_pass1(const Msg& ms, const Slot* lt,
                                                 uint8_t* c2v8, const short* tot16,
                                                 int k0, int k1, int z, bool first) {
   CodePass1 r{kPadC, kPadC, 0, 0};
   for (int q = k0; q < k1; ++q, lt += z) {
-    const int2 o = *lt;
+    const Slot o = *lt;
     uint8_t* c = c2v8 + o.x;
     const int tv = tot16[o.y];
     const int x = ms.quantize_code<kShift>((tv >> 1) - (first ? 0 : c2v_code(*c)));
@@ -567,6 +571,8 @@ fused_nms_kernel(const float* __restrict__ llr,
   constexpr bool kTr = kMode == kTrain;
   constexpr bool kLifted = LaunchBound<kMode, kSP, kCode>::lifted;
   static_assert(!kCode || (!kSP && !kTr), "the code state is QMS decode only");
+  static_assert(!kCode || kMode != kEarlyStop,
+                "the code state's early stop is fused_nms_kernel_word_stop");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int Nz = N * z, Mz = M * z, Ez = E * z;
   const Graph gr = stage_table(tab, reinterpret_cast<int*>(smem_raw), N, M,
@@ -753,16 +759,7 @@ fused_nms_kernel(const float* __restrict__ llr,
           if (b < B) {
             const float x = __ldg(llr + (size_t)it.row * B + b);
             const float base = qms ? ms.quantize(x) : x;
-            float S;
-            if (kCode) {
-              const int Sc = gr.code_sum(c2v8, it.q, it.r, gt);
-              S = __int2float_rn(Sc) * ms.u;
-              if (Sc == 0 && __float_as_int(base) == (int)0x80000000 &&
-                  gr.all_neg_zero(c2v8, it.q, it.r, gt))
-                S = -0.0f;
-            } else {
-              S = gr.bit_sum(c2v, it.q, it.r, gt);
-            }
+            const float S = gr.bit_sum(c2v, it.q, it.r, gt);
             app_out[(size_t)it.row * B + b] = clip(base + S, ms.clip_llr);
           }
         }
@@ -1007,19 +1004,497 @@ fused_nms_kernel(const float* __restrict__ llr,
   }
 }
 
-// Blocks of fused_nms_kernel<kMode, kSP, kCode> that one SM holds at
-// `threads` threads and `smem` bytes of dynamic shared memory (0 when the
-// query fails).
-template <int kMode, bool kSP, bool kCode>
-int resident_blocks(int threads, int smem) {
+// ---- the genie early stop per word (B2: QMS, code state) -----------------
+//
+// fused_nms_kernel_word_stop<kExtra> is B2, the early stop of the code
+// state (kEarlyStop with kCode; the float state's early stop stays in the
+// loop above, per block).  Each word stops at its own first correct
+// iteration, as decode_stats_plain(..., group=1) does, and its lane of the
+// block takes a new word:
+//   - at most the resident blocks of the card run (persistent); each holds
+//     G lanes, a word each, takes words from its current tile of G
+//     consecutive words, keeps the next tile ahead, and claims a tile from a
+//     device counter (`g_word_stop_claim`) as the tile ahead becomes its
+//     current one.  The launch's last block to exit sets the counter back to 0, so
+//     the next launch on the stream starts from word 0 with no other kernel
+//     (two launches of one instance must not overlap on two streams);
+//   - a lane is blockDim.x / G consecutive threads (48 on wman: two of every
+//     three warps hold one lane alone) and its state is its own run of
+//     shared memory, [G][rows] and not the loop's [rows][G]: a lane whose
+//     word has stopped leaves its warps idle at the barrier, which frees the
+//     SM for the other blocks (were the lanes interleaved in every warp, as
+//     in the loop above, a stopped lane would idle only its threads, and a
+//     warp would cost as much as before);
+//   - every lane keeps its own iteration t in shared memory beside the
+//     counts; the lanes step together (three barriers a step, as the loop
+//     above), each at its own t: phase A and phase B read their lane's t,
+//     its weights (from device memory; the output-byte tables of all T, when
+//     they fit the block's room, staged once per block), `first` of
+//     code_pass1 and the UCN decision at t = 0;
+//   - after a step's statistics thread g of warp 0 ends lane g's word when it
+//     was correct at t-1 or reached T, and the warp refills the ended lanes
+//     (one ballot; one atomic when a tile is claimed).  A word that stopped
+//     at t < T skips phase B, so its C->V state stays that of t-1; while the
+//     other lanes run phase B, the lane's own threads, idle otherwise, write
+//     its APP from that state, zero its rows t..T-1 and copy the next word's
+//     LLR codes into the lane.  The codes of a tile are staged once, when it
+//     is claimed, by the whole block at the start of the next phase A (a
+//     warp reads 32 / G rows of the tile's G consecutive words: each sector
+//     once), as int8 codes of the QMS unit u where each is one exactly (-128:
+//     -0), as the channel's QMS LLRs are; the block keeps its current tile
+//     and the tile ahead.  A word with another value reads it from device
+//     memory at every step.  So a word's APP and LLRs cost no step of their
+//     own, and the steps read no LLR from device memory;
+//   - the graph table, the lifted slot table and the output-byte tables are
+//     staged once per block, not once per G words.
+// Under a profiler (`engage`) each block adds, at its exit, its lane-steps
+// (G times its loop entries, idle lanes included) and its words to the
+// device pair `g_word_stop_engage` (utils.profiling.snapshot() reads it).
+
+__device__ unsigned int g_word_stop_claim[2][2];  // [kExtra]: next tile, blocks done
+__device__ unsigned long long g_word_stop_engage[2];  // lane-steps, words
+
+constexpr int kWordStopCtl = 16;  // the block's ints of the word stop's control
+
+// The shared memory of fused_nms_kernel_word_stop, as byte offsets
+// (ops/fused_decoder.py::_smem_bytes with early_stop computes its size):
+// graph table | control int: counts [2][G], then per lane its word, t, the
+// word that stopped this step, whether phase B runs, its LLR flags and
+// where its next word's codes are, [G] each, then kWordStopCtl of the block
+// (padded to 16 bytes) | the output-byte tables uint16 [lut_iters][kLutInts]
+// (padded to 16 bytes; lut_iters 0: none) | the lifted slot table ushort2
+// [E*z] (each slot's two row offsets in 16 bits: a warp's 32 slots are one
+// 128-byte read) | per lane: bit totals int16 [G][N*z], LLR codes int8
+// [G][N*z] | two tile buffers of LLR codes int8 [2][N*z][G] | per lane: C->V
+// bytes [G][E*z].  The launch passes it by value, so the kernel reads the
+// offsets from its parameters and keeps no register for them.
+struct WordStopLayout {
+  int cnt, lut, ltab, tot, xc, xt, c2v, bytes;
+};
+
+__host__ __device__ __forceinline__ WordStopLayout word_stop_layout(int N, int M, int z,
+                                                                    int E, int G,
+                                                                    int lut_iters) {
+  WordStopLayout L;
+  L.cnt = table_bytes(N, M, E);
+  L.lut = L.cnt + 4 * ((8 * G + kWordStopCtl + 3) & ~3);
+  L.ltab = L.lut + ((2 * kLutInts * lut_iters + 15) & ~15);
+  L.tot = L.ltab + 4 * E * z;
+  L.xc = L.tot + 2 * N * z * G;
+  L.xt = L.xc + N * z * G;
+  L.c2v = L.xt + 2 * N * z * G;
+  L.bytes = L.c2v + E * z * G;
+  return L;
+}
+
+// The lifted slot table of `stage_lifted` with unshifted rows (lg 0), each
+// offset in 16 bits (E*z < 65536; the caller synchronises before use).
+__device__ void stage_lifted16(const int* __restrict__ tab, ushort2* dst, int E,
+                               int z) {
+  const int4* slot = reinterpret_cast<const int4*>(tab);
+  for (int k = threadIdx.x; k < E * z; k += blockDim.x) {
+    const int q = k / z, h = k - q * z;
+    const int4 sd = __ldg(slot + q);
+    const int sl = h + sd.z >= z ? h + sd.z - z : h + sd.z;
+    dst[k] = make_ushort2((unsigned short)(sd.x + sl), (unsigned short)(sd.y + sl));
+  }
+}
+
+// Warp 0 (all 32 threads): the next words of the block for the lanes of
+// `want` (thread g < G for lane g): the unstarted words of the block's
+// current tile in turn, then those of its tile ahead, whose LLR codes are
+// staged already; *src: the tile buffer (bit 8) and column of the word's
+// codes, and bit 16 set where they are not all codes.  When the current
+// tile is used up the tile ahead becomes current and the block claims the
+// next tile of G words from `claim`, to be staged by the next phase A.  -1 where the launch has no word left.  blk (see the
+// kernel): [0] next unstarted word, [1] end of the current tile, [2] set
+// once a claim found no word, [6] base of the tile ahead (-1: none), [7] its
+// end, [8] the current tile's buffer, [9] the tile ahead is to be staged,
+// [10 + buffer] its words whose LLRs are not all codes, [12] base of the
+// current tile.
+__device__ __forceinline__ int claim_words(bool want, int* blk, unsigned* claim,
+                                           int G, int B, int* src) {
+  const unsigned need = __ballot_sync(0xffffffffu, want);
+  if (!need) return -1;
+  const int lane = threadIdx.x;
+  const int nw = __popc(need), nxt = blk[0], avail = blk[1] - nxt;
+  const int cur = blk[8], abase = blk[6];
+  const int aavail = abase >= 0 ? blk[7] - abase : 0;
+  const int rank = __popc(need & ((1u << lane) - 1u));
+  int w = -1, buf = cur, col = 0;
+  if (rank < avail) {
+    w = nxt + rank;
+    col = w - blk[12];
+  } else if (rank < avail + aavail) {
+    w = abase + rank - avail;
+    buf = cur ^ 1;
+    col = w - abase;
+  }
+  if (w >= 0) *src = (buf << 8) | col | ((blk[10 + buf] >> col & 1) << 16);
+  const bool promote = nw >= avail && abase >= 0;
+  int base = B;
+  if (promote && !blk[2]) {
+    if (lane == 0) base = (int)atomicAdd(claim, (unsigned)G);
+    base = __shfl_sync(0xffffffffu, base, 0);
+  }
+  __syncwarp();
+  if (lane == 0) {
+    if (!promote) {
+      blk[0] = min(nxt + nw, blk[1]);
+    } else {
+      blk[8] = cur ^ 1;
+      blk[12] = abase;
+      blk[1] = blk[7];
+      blk[0] = min(abase + nw - avail, blk[1]);
+      if (base < B) {  // into the old current tile's buffer
+        blk[6] = base;
+        blk[7] = min(base + G, B);
+        blk[9] = 1;
+        blk[10 + cur] = 0;
+      } else {
+        blk[6] = -1;
+        blk[2] = 1;
+      }
+    }
+  }
+  return want ? w : -1;
+}
+
+// All threads: the LLRs of the G words [base, end) as int8 codes of u where
+// each is one exactly (-128: -0), into the tile buffer `xt` [N*z][G]; bit w
+// of `off` set where word w's are not all codes.  A warp reads 32 / G rows
+// of the tile's consecutive words, so each sector is read once for its G
+// words (four loads in flight).
+__device__ __forceinline__ void stage_tile(const float* __restrict__ llr, int base,
+                                           int end, int B, int Nz, int G,
+                                           const Msg& ms, signed char* xt, int* off) {
+  const int lgG = __ffs(G) - 1, w = threadIdx.x & (G - 1);  // blockDim.x % G == 0
+  const bool in = base + w < end;
+  bool odd = false;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < Nz << lgG; e += blockDim.x) {
+    const float x = in ? __ldg(llr + (size_t)(e >> lgG) * B + base + w) : 0.0f;
+    const int cx = __float2int_rn(x * ms.uinv);
+    odd = odd || !(cx >= -127 && cx <= 127 && __int2float_rn(cx) * ms.u == x);
+    xt[e] = (signed char)(cx == 0 && __float_as_int(x) < 0 ? -128 : cx);
+  }
+  if (odd && in) atomicOr(off, 1 << w);
+}
+
+// The value of a staged LLR code (-128: -0).
+__device__ __forceinline__ float llr_of_code(int c, float u) {
+  return c == -128 ? -0.0f : __int2float_rn(c) * u;
+}
+
+// A lane's threads (thread k of tpl): the codes of its word from column
+// `src & 0xff` of tile buffer `src >> 8 & 1` of `xt` [2][N*z][G] into the
+// lane's `xc`, and bit 0 of `flag` where they are not all codes (bit 16 of
+// `src`).  Nothing for src < 0.
+__device__ __forceinline__ void copy_codes(const signed char* xt, int src, int Nz,
+                                           int G, int k, int tpl, signed char* xc,
+                                           int* flag) {
+  if (src < 0) return;
+  const signed char* t = xt + (size_t)(src >> 8 & 1) * Nz * G + (src & 0xff);
+  for (int row = k; row < Nz; row += tpl) xc[row] = t[row * G];
+  if (k == 0 && (src >> 16 & 1)) atomicOr(flag, 1);
+}
+
+template <int kExtra>
+__global__ void __launch_bounds__(LaunchBound<kEarlyStop, false, true>::threads,
+                                  LaunchBound<kEarlyStop, false, true>::blocks)
+fused_nms_kernel_word_stop(const float* __restrict__ llr,
+                           const float* __restrict__ w_cn,
+                           const float* __restrict__ w_ucn,
+                           const float* __restrict__ w_vn,
+                           const int* __restrict__ tab,
+                           float* __restrict__ app_out,
+                           uint8_t* __restrict__ err_out,
+                           int* __restrict__ nerr_out,
+                           int N, int M, int z, int E, int T, int B, int G,
+                           int target, Msg ms, int cn_mode, int ucn,
+                           int vn_mode, int offset_mode, int dim_cn, int dim_vn,
+                           WordStopLayout L, int engage,
+                           const uint8_t* __restrict__ lab) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int Nz = N * z, Mz = M * z, Ez = E * z;
+  // a lane's rows are its own run of shared memory: the graph's rows
+  // unshifted (lg 0)
+  const Graph gr = stage_table(tab, reinterpret_cast<int*>(smem_raw), N, M,
+                               E, z, 1);
+  int* cnt = reinterpret_cast<int*>(smem_raw + L.cnt);
+  int* lw = cnt + 2 * G;    // lane g's word (-1: none)
+  int* lt = lw + G;         // its iteration t
+  int* ldone = lt + G;      // its word that stopped at t < T this step (-1)
+  int* lrun = ldone + G;    // phase B runs for lane g this step
+  int* lflag = lrun + G;    // bit 0: its word's LLRs are not all codes; bit 1: ldone's
+  int* lsrc = lflag + G;    // where its next word's codes are (claim_words)
+  int* blk = lsrc + G;      // claim_words' and: [3] alive, [4] steps, [5] words
+  unsigned short* lut = reinterpret_cast<unsigned short*>(smem_raw + L.lut);
+  ushort2* ltab = reinterpret_cast<ushort2*>(smem_raw + L.ltab);
+  unsigned* claim = g_word_stop_claim[kExtra];
+  const bool labelled = kExtra > 0 && lab != nullptr;
+
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int tpl = nthr / G;  // threads per lane (blockDim.x % G == 0)
+  const int g = tid / tpl;   // this thread's lane
+  const int kl = tid - g * tpl;  // and its index there
+  const Rows rows0(kl, tpl, z);  // its items of the lane's rows
+  short* tot_g = reinterpret_cast<short*>(smem_raw + L.tot) + g * Nz;
+  signed char* xc_g = reinterpret_cast<signed char*>(smem_raw + L.xc) + g * Nz;
+  signed char* xt = reinterpret_cast<signed char*>(smem_raw + L.xt);
+  uint8_t* c2v_g = smem_raw + L.c2v + g * Ez;
+  const bool per_edge = cn_mode == 1 || cn_mode == 4;
+  const bool vn_per_bit = vn_mode == 2 || vn_mode == 5;
+  const bool use_lut = L.ltab > L.lut;  // the tables of every iteration
+  const int nlut = ms.clipc + 2;
+
+  stage_lifted16(tab, ltab, E, z);
+  if (use_lut)  // the output bytes of every iteration (see the loop above)
+    for (int k = tid; k < T * 2 * nlut; k += nthr) {
+      const int t = k / (2 * nlut), r = k - t * 2 * nlut;
+      const int um = r >= nlut, mc = r - um * nlut;
+      float w = 1.0f;
+      if (cn_mode > 0) {
+        w = __ldg(w_cn + t);
+        if (ucn) w = w * (1.0f - (float)um) + __ldg(w_ucn + t) * (float)um;
+      }
+      lut[t * kLutInts + um * kLutRow + mc] = (unsigned short)code_out_bytes(
+          ms, mc == nlut - 1 ? kPadC : mc, w, cn_mode, offset_mode);
+    }
+  if (tid < 2 * G) cnt[tid] = 0;
+  if (tid < G) {
+    ldone[tid] = -1;
+    lflag[tid] = 0;
+  }
+  if (tid == 0) {  // the first tile, staged as the tile ahead
+    for (int k = 0; k < kWordStopCtl; ++k) blk[k] = 0;
+    const int base = (int)atomicAdd(claim, (unsigned)G);
+    blk[6] = base < B ? base : -1;
+    blk[7] = min(base + G, B);
+    blk[2] = base >= B;
+  }
+  __syncthreads();
+  if (blk[6] >= 0)
+    stage_tile(llr, blk[6], blk[7], B, Nz, G, ms, xt + Nz * G, blk + 11);
+  __syncthreads();
+  if (tid < 32) {
+    int src = -1;
+    const int w = claim_words(tid < G, blk, claim, G, B, &src);
+    const int words = __popc(__ballot_sync(0xffffffffu, w >= 0));
+    if (tid < G) {
+      lw[tid] = w;
+      lt[tid] = 0;
+      lsrc[tid] = src;
+    }
+    if (tid == 0) {
+      blk[3] = words > 0;
+      blk[5] = words;
+    }
+  }
+  __syncthreads();
+  copy_codes(xt, lsrc[g], Nz, G, kl, tpl, xc_g, lflag + g);
+  __syncthreads();
+
+  for (int p = 0; blk[3]; p ^= 1) {
+    // this step of lane g: its word b at iteration t
+    const int b = lw[g], t = lt[g];
+    const bool live = b >= 0;
+    const bool app_cur = live && t > 0;  // the APP and count of t-1
+    // ---- phase A: per lifted bit ------------------------------------------
+    if (blk[9]) {  // all threads: the tile ahead, claimed at the last step
+      const int ahead = blk[8] ^ 1;
+      stage_tile(llr, blk[6], blk[7], B, Nz, G, ms, xt + ahead * Nz * G, blk + 10 + ahead);
+    }
+    int wrong = 0;
+    if (live) {
+      const bool off = lflag[g] & 1;  // an LLR of the word that is no code
+      const float wvs = (t < T && vn_mode > 0 && !vn_per_bit)
+                            ? __ldg(w_vn + (size_t)t * dim_vn) : 1.0f;
+      for (Rows it = rows0; it.row < Nz; it.next()) {
+        const int row = it.row, j = it.q;
+        const float x = off ? __ldg(llr + (size_t)row * B + b)
+                            : llr_of_code(xc_g[row], ms.u);
+        int Sc = 0;
+        int dec = 0;  // the hard decision that phase B's parity reads
+        if (app_cur) {
+          Sc = gr.code_sum(c2v_g, j, it.r, 0);
+          const float base = ms.quantize(x);
+          float S = __int2float_rn(Sc) * ms.u;
+          // the float sum is -0 (not +0) only when every term is -0
+          if (t == T && Sc == 0 && __float_as_int(base) == (int)0x80000000 &&
+              gr.all_neg_zero(c2v_g, j, it.r, 0))
+            S = -0.0f;
+          const float app = clip(base + S, ms.clip_llr);
+          const int lbit =
+              (labelled && j < target) ? __ldg(lab + (size_t)row * B + b) : 0;
+          dec = app >= 0.0f;
+          if (j < target) wrong += dec ^ lbit;
+          if (t == T && app_out != nullptr) app_out[(size_t)row * B + b] = app;
+        }
+        if (t < T) {
+          float lw_x = x;
+          if (vn_mode > 0)
+            lw_x = x * (vn_per_bit ? __ldg(w_vn + (size_t)t * dim_vn + j) : wvs);
+          lw_x = ms.quantize(lw_x);
+          if (ucn && t == 0) dec = lw_x >= 0.0f;
+          tot_g[row] = (short)(((ms.to_code(lw_x) + Sc) << 1) | (dec & ucn));
+        }
+      }
+    }
+    if (app_cur && wrong) atomicAdd(&cnt[p * G + g], wrong);
+    __syncthreads();
+    // ---- statistics, stops and refills: warp 0, thread l for lane l -------
+    if (tid < 32) {
+      bool ended = false;
+      int bl = -1;
+      if (tid < G) {
+        bl = lw[tid];
+        const int tl = lt[tid];
+        bool run = bl >= 0 && tl < T;
+        int done = -1;
+        if (bl >= 0 && tl > 0) {
+          const int n = cnt[p * G + tid];
+          if (n == 0 || tl == T) {  // correct at t-1, or wrong at every iteration
+            ended = true;
+            run = false;
+            if (tl < T) done = bl;  // its APP and rows are due
+          }
+        }
+        cnt[(p ^ 1) * G + tid] = 0;
+        // bit 1: the stopped word's LLRs are not all codes; bit 0, the next
+        // word's, is set as they are staged
+        if (ended) lflag[tid] = (lflag[tid] & 1) << 1;
+        ldone[tid] = done;
+        lrun[tid] = run;
+        lt[tid] = ended ? 0 : tl + 1;
+      }
+      if (tid == 0) blk[9] = 0;
+      int src = -1;
+      const int w = claim_words(ended, blk, claim, G, B, &src);
+      const unsigned got = __ballot_sync(0xffffffffu, w >= 0);
+      if (ended) {
+        lw[tid] = w;
+        lsrc[tid] = src;
+      }
+      const unsigned alive =
+          __ballot_sync(0xffffffffu, tid < G && (ended ? w : bl) >= 0);
+      if (tid == 0) {
+        blk[3] = alive != 0;
+        blk[4] += 1;  // loop entries
+        blk[5] += __popc(got);
+      }
+    }
+    __syncthreads();
+    if (kl == 0 && app_cur) {  // the lane's row t-1 (its count stays until
+      const int n = cnt[p * G + g];  // the next statistics)
+      err_out[(size_t)(t - 1) * B + b] = n > 0;
+      nerr_out[(size_t)(t - 1) * B + b] = n;
+    }
+    // ---- phase B: per lifted check, the lanes that go on ------------------
+    if (lrun[g]) {
+      const unsigned short* lut_t = lut + t * kLutInts;
+      const float* wc = cn_mode > 0 ? w_cn + (size_t)t * dim_cn : nullptr;
+      const float* wu = ucn ? w_ucn + (size_t)t * dim_cn : nullptr;
+      for (Rows it = rows0; it.row < Mz; it.next()) {
+        const int i = it.q, h = it.r;
+        const int k0 = gr.cn_ptr[i], k1 = gr.cn_ptr[i + 1];
+        const ushort2* lt2 = ltab + k0 * z + h;
+        const CodePass1 p1 =
+            ms.qshift ? code_pass1<true>(ms, lt2, c2v_g, tot_g, k0, k1, z, t == 0)
+                      : code_pass1<false>(ms, lt2, c2v_g, tot_g, k0, k1, z, t == 0);
+        const int par = p1.par & 1;  // the UCN mask
+        const int ppar = ((k1 - k0) ^ (p1.nneg >> 31)) & 1;
+        if (!per_edge) {
+          unsigned K;
+          if (use_lut) {
+            const unsigned short* lr = lut_t + par * kLutRow;
+            K = (unsigned)lr[min(p1.m2, nlut - 1)] | ((unsigned)lr[p1.m1] << 16);
+          } else {
+            const float w = cn_mode > 0 ? cn_w(wc, wu, cn_col(cn_mode, i, 0), ucn, (float)par)
+                                        : 1.0f;
+            K = (unsigned)code_out_bytes(ms, p1.m2, w, cn_mode, offset_mode) |
+                ((unsigned)code_out_bytes(ms, p1.m1, w, cn_mode, offset_mode) << 16);
+          }
+          for (int q = k0; q < k1; ++q, lt2 += z) {
+            uint8_t* c = c2v_g + lt2->x;
+            const int xb = *c;
+            const int sel = (((xb & 0x7f) != p1.m1) << 1) | (((xb >> 7) ^ ppar) & 1);
+            *c = (uint8_t)__byte_perm(K, 0, sel);
+          }
+        } else {
+          for (int q = k0; q < k1; ++q, lt2 += z) {
+            uint8_t* c = c2v_g + lt2->x;
+            const int xb = *c;
+            const int ob = code_out_bytes(ms, (xb & 0x7f) == p1.m1 ? p1.m2 : p1.m1,
+                                          cn_w(wc, wu, q, ucn, (float)par), cn_mode,
+                                          offset_mode);
+            *c = (uint8_t)(ob >> (8 * (((xb >> 7) ^ ppar) & 1)));
+          }
+        }
+      }
+    } else if (live) {
+      // ---- the lane's word ended: while the other lanes run phase B, its
+      // threads write the APP of a word that stopped at t - 1 < T (its
+      // C->V state is still that of t - 1) and zero its rows t..T-1, then
+      // stage the LLR codes of the lane's next word
+      const int bd = ldone[g];
+      if (bd >= 0) {
+        for (int r = t + kl; r < T; r += tpl) {
+          err_out[(size_t)r * B + bd] = 0;
+          nerr_out[(size_t)r * B + bd] = 0;
+        }
+        const bool off = lflag[g] & 2;
+        for (Rows it = rows0; app_out != nullptr && it.row < Nz; it.next()) {
+          const int row = it.row;
+          const float base = ms.quantize(off ? __ldg(llr + (size_t)row * B + bd)
+                                             : llr_of_code(xc_g[row], ms.u));
+          const int Sc = gr.code_sum(c2v_g, it.q, it.r, 0);
+          float S = __int2float_rn(Sc) * ms.u;
+          if (Sc == 0 && __float_as_int(base) == (int)0x80000000 &&
+              gr.all_neg_zero(c2v_g, it.q, it.r, 0))
+            S = -0.0f;
+          app_out[(size_t)row * B + bd] = clip(base + S, ms.clip_llr);
+        }
+      }
+      copy_codes(xt, lsrc[g], Nz, G, kl, tpl, xc_g, lflag + g);
+    }
+    __syncthreads();
+  }
+
+  if (tid == 0) {
+    if (engage) {
+      atomicAdd(&g_word_stop_engage[0], (unsigned long long)blk[4] * G);
+      atomicAdd(&g_word_stop_engage[1], (unsigned long long)blk[5]);
+    }
+    __threadfence();
+    if (atomicAdd(claim + 1, 1u) == gridDim.x - 1) {  // the launch's last block
+      claim[0] = 0;
+      claim[1] = 0;
+    }
+  }
+}
+
+// Blocks of kernel `kern` that one SM holds at `threads` threads and `smem`
+// bytes of dynamic shared memory (0 when the query fails).
+template <class Kernel>
+int resident_blocks_of(Kernel* kern, int threads, int smem) {
   int n = 0;
-  if (cudaFuncSetAttribute(fused_nms_kernel<kMode, kSP, kCode>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, fused_nms_kernel<kMode, kSP, kCode>, threads, smem) != cudaSuccess)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, threads, smem) != cudaSuccess)
     return 0;
   return n;
+}
+
+// The same for fused_nms_kernel<kMode, kSP, kCode>, or, for the code
+// state's early stop, fused_nms_kernel_word_stop.
+template <int kMode, bool kSP, bool kCode>
+int resident_blocks(int threads, int smem) {
+  if constexpr (kMode == kEarlyStop && kCode)
+    return resident_blocks_of(fused_nms_kernel_word_stop<0>, threads, smem);
+  else
+    return resident_blocks_of(fused_nms_kernel<kMode, kSP, kCode>, threads, smem);
 }
 
 // One launch of fused_nms_kernel<kMode, kSP, kCode, kChunks, kExtra> on
@@ -1052,6 +1527,54 @@ int launch(const void* llr, const void* w_cn, const void* w_ucn,
       N, M, z, E, T, B, G, W, target, t0, ms, cn_mode, ucn, vn_mode,
       offset_mode, dim_cn, dim_vn, (const uint8_t*)lab, (uint8_t*)synd,
       (float*)last);
+  return (int)cudaGetLastError();
+}
+
+// One launch of fused_nms_kernel_word_stop<kExtra> (lab: kExtra's, else
+// null) on `stream`: at most the blocks that the card holds at once, G
+// lanes each.  `lut`: the output-byte tables of all T iterations are staged
+// (no or scalar CN weights only).  `engage`: add the launch's lane-steps
+// and words to `g_word_stop_engage`.  `app` null: write no APP (a caller
+// that only counts).  Returns -2 when `smem` is not the
+// layout's size, else the first CUDA error of the queries and the launch
+// (0 = launched).
+template <int kExtra>
+int launch_word_stop(const void* llr, const void* w_cn, const void* w_ucn,
+                     const void* w_vn, const void* tab, void* app, void* err,
+                     void* nerr, int N, int M, int z, int E, int T, int B, int G,
+                     int threads, int smem, int target, Msg ms, int cn_mode, int ucn,
+                     int vn_mode, int offset_mode, int dim_cn, int dim_vn, int lut,
+                     int engage, cudaStream_t stream, const void* lab) {
+  const WordStopLayout L = word_stop_layout(N, M, z, E, G, lut ? T : 0);
+  if (smem != L.bytes || (lut && cn_mode != 0 && cn_mode != 3)) return -2;
+  auto* kern = fused_nms_kernel_word_stop<kExtra>;
+  // the blocks the card holds at once, per card and shape: asked once (a
+  // CUDA graph captures a launch per batch, and the query costs more than
+  // the launch)
+  static int known[64][3];  // [card]: threads, smem, blocks
+  int dev = 0;
+  cudaError_t st = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (st == cudaSuccess) st = cudaGetDevice(&dev);
+  if (st != cudaSuccess) return (int)st;
+  int* k = known[dev & 63];
+  if (k[0] != threads || k[1] != smem) {
+    int sms = 0, per_sm = 0;
+    st = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (st == cudaSuccess)
+      st = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
+    if (st != cudaSuccess) return (int)st;
+    k[2] = (per_sm > 0 ? per_sm : 1) * sms;
+    k[1] = smem;
+    k[0] = threads;
+  }
+  const int tiles = (B + G - 1) / G, resident = k[2];
+  const int blocks = tiles < resident ? tiles : resident;
+  kern<<<blocks, threads, smem, stream>>>(
+      (const float*)llr, (const float*)w_cn, (const float*)w_ucn,
+      (const float*)w_vn, (const int*)tab, (float*)app, (uint8_t*)err,
+      (int*)nerr, N, M, z, E, T, B, G, target, ms, cn_mode, ucn, vn_mode,
+      offset_mode, dim_cn, dim_vn, L, engage, (const uint8_t*)lab);
   return (int)cudaGetLastError();
 }
 

@@ -41,9 +41,11 @@
 // syndrome flags: `synd` not null takes the instance with kExtra 2, else
 // `lab` not null the one with kExtra 1, both null the zero word's.  `smem` is the dynamic shared memory of one
 // block (ops/fused_decoder.py::_smem_bytes); qinv = 1/qstep, exactly (a
-// power of two).  Returns cudaGetLastError() after the launch (0 =
-// launched), -1 for an unknown instance, -2 for a shared-memory size that
-// is not the layout's.
+// power of two).  The code state's early stop (`launch_word_stop`) also
+// takes `lut` (the output-byte tables of every iteration staged) and
+// `engage` (count its lane-steps and words); the others ignore both.
+// Returns cudaGetLastError() after the launch (0 = launched), -1 for an
+// unknown instance, -2 for a shared-memory size that is not the layout's.
 #define FUSED_NMS_INSTANCES(X)                                                \
   X(0, kFixed, false, false, 0)                                               \
   X(1, kFixed, true, false, 0)                                                \
@@ -72,6 +74,28 @@ static int instance(int mode, int sp, int code, int extra) {
   return extra * 9 + mode * 3 + (sp ? 1 : (code ? 2 : 0));
 }
 
+// The early stop of the code state is its own kernel, the genie stop per
+// word (fused_nms_kernel_word_stop); every other instance is the loop's.
+template <int kMode, bool kSP, bool kCode, int kExtra>
+static int launch_instance(const void* llr, const void* w_cn, const void* w_ucn,
+                           const void* w_vn, const void* tab, void* app, void* err,
+                           void* nerr, void* iters, void* fail, int N, int M, int z,
+                           int E, int T, int B, int G, int threads, int smem,
+                           int target, Msg ms, int cn_mode, int ucn, int vn_mode,
+                           int offset_mode, int dim_cn, int dim_vn, int lut, int engage,
+                           cudaStream_t stream, const void* lab, void* synd) {
+  if constexpr (kMode == kEarlyStop && kCode)
+    return launch_word_stop<kExtra>(llr, w_cn, w_ucn, w_vn, tab, app, err, nerr, N, M,
+                                    z, E, T, B, G, threads, smem, target, ms, cn_mode,
+                                    ucn, vn_mode, offset_mode, dim_cn, dim_vn, lut,
+                                    engage, stream, lab);
+  else
+    return launch<kMode, kSP, kCode, kSPChunks, kExtra>(
+        llr, w_cn, w_ucn, w_vn, tab, app, err, nerr, iters, fail, nullptr, nullptr, N,
+        M, z, E, T, B, G, 1, threads, smem, target, 0, ms, cn_mode, ucn, vn_mode,
+        offset_mode, dim_cn, dim_vn, stream, lab, synd);
+}
+
 extern "C" int fused_nms_launch(
     const void* llr, const void* w_cn, const void* w_ucn, const void* w_vn,
     const void* tab, void* app, void* err, void* nerr, void* iters,
@@ -79,16 +103,17 @@ extern "C" int fused_nms_launch(
     int T, int B, int G, int threads, int smem, int target, int dec_type,
     float qstep, float qinv, float qclip, float clip_llr, float u, float uinv,
     int clipc, int qshift, int cn_mode, int ucn, int vn_mode, int offset_mode,
-    int dim_cn, int dim_vn, int mode, int sp, int code, void* stream) {
+    int dim_cn, int dim_vn, int mode, int sp, int code, int lut, int engage,
+    void* stream) {
   const Msg ms{dec_type, qinv, qstep, qclip, clip_llr, u, uinv, clipc, qshift};
   switch (instance(mode, sp, code, synd != nullptr ? 2 : (lab != nullptr ? 1 : 0))) {
 #define FUSED_NMS_LAUNCH(ID, MODE, SP, CODE, EXTRA)                           \
   case ID:                                                                    \
-    return launch<MODE, SP, CODE, kSPChunks, EXTRA>(                          \
-        llr, w_cn, w_ucn, w_vn, tab, app, err, nerr, iters, fail, nullptr,    \
-        nullptr, N, M, z, E, T, B, G, 1, threads, smem, target, 0, ms,        \
-        cn_mode, ucn, vn_mode, offset_mode, dim_cn, dim_vn,                   \
-        (cudaStream_t)stream, lab, synd);
+    return launch_instance<MODE, SP, CODE, EXTRA>(                            \
+        llr, w_cn, w_ucn, w_vn, tab, app, err, nerr, iters, fail, N, M, z, E, \
+        T, B, G, threads, smem, target, ms, cn_mode, ucn, vn_mode,            \
+        offset_mode, dim_cn, dim_vn, lut, engage, (cudaStream_t)stream, lab,  \
+        synd);
     FUSED_NMS_INSTANCES(FUSED_NMS_LAUNCH)
 #undef FUSED_NMS_LAUNCH
   }
@@ -108,4 +133,21 @@ extern "C" int fused_nms_resident_blocks(int mode, int sp, int code,
 #undef FUSED_NMS_RESIDENT
   }
   return -1;
+}
+
+// The early stop's engagement pair on the current card (both instances of
+// fused_nms_kernel_word_stop add to it under a profiler): out[0] its
+// lane-steps, out[1] its words; `reset` sets it back to 0 after the read.
+// Synchronises with the card.  Returns the CUDA error (0 = read).
+extern "C" int fused_nms_word_stop_counters(long long* out, int reset) {
+  unsigned long long pair[2];
+  cudaError_t st = cudaMemcpyFromSymbol(pair, g_word_stop_engage, sizeof pair);
+  if (st != cudaSuccess) return (int)st;
+  out[0] = (long long)pair[0];
+  out[1] = (long long)pair[1];
+  if (reset) {
+    pair[0] = pair[1] = 0;
+    st = cudaMemcpyToSymbol(g_word_stop_engage, pair, sizeof pair);
+  }
+  return (int)st;
 }

@@ -53,10 +53,11 @@ class DecoderConfig:
     #   'offset': wmag = relu(mag - beta) (neural offset min-sum)
     target_node: int = 0  # >0: count errors over the first `target_node`
     #                        proto columns only (systematic option)
-    early_stop: bool = False  # genie early stop of collect='stats': a block
-    #   of G words stops once each has decoded correctly at least once.  The
-    #   genie-failure mask is exact; the rows after a block's stop read 0,
-    #   so FER_last refers to the stop iteration (ops/fused_decoder.py)
+    early_stop: bool = False  # genie early stop of collect='stats': under
+    #   QMS each word stops after its own first correct iteration; for the
+    #   float states a block of G words once each has decoded correctly at
+    #   least once.  The genie-failure mask is exact; the rows after a stop
+    #   read 0, so FER_last refers to the stop iteration (ops/fused_decoder.py)
     app_t0: int = 0  # APP emission window of collect='apps' (the JAX
     #   package's pallas_app_t0): only iterations t >= app_t0 are returned,
     #   [T - app_t0, target*z, B].  Legal only under the static eta = 0 loss,
@@ -77,7 +78,8 @@ class DecoderConfig:
 
 
 class DecodeResult(NamedTuple):
-    app_last: torch.Tensor                 # [N*z, B] final-iteration APP LLRs (all bits)
+    app_last: Optional[torch.Tensor]       # [N*z, B] final-iteration APP LLRs (all bits;
+    #                                        None under collect='counts')
     err_flags: Optional[torch.Tensor]      # [T, B] bool — frame wrong at iter t
     bit_errors: Optional[torch.Tensor]     # [T, B] int32 — bit errors at iter t
     apps: Optional[torch.Tensor] = None    # [T - app_t0, target*z, B] clipped APPs
@@ -133,14 +135,17 @@ class NMSDecoder:
 
         collect: 'stats' (final APP + per-iteration error flags and
         bit-error counts, and with ``cfg.track_syndrome`` the per-iteration
-        syndrome flags), 'app_last' (final APP only), 'deploy' (syndrome
+        syndrome flags), 'counts' ('stats' without the final APP: `app_last`
+        None, for a caller that only counts, as the simulator and the
+        harvester; on the card the early stop under QMS then writes no APP),
+        'app_last' (final APP only), 'deploy' (syndrome
         stop per word; returns a `DeployResult`) or 'apps' (the clipped APPs
         of iterations t >= app_t0 on the target columns, differentiable
         with respect to `params`; `app_last` is then the last iteration's
         clipped APP over every bit, differentiable too, as JAX's scan
         carry: under a systematic target more rows than ``apps[-1]``).
         """
-        if collect not in ("stats", "app_last", "deploy", "apps"):
+        if collect not in ("stats", "counts", "app_last", "deploy", "apps"):
             raise ValueError(f"bad collect {collect!r}")
         if llr.device.type != self.device.type:
             raise ValueError(f"llr on {llr.device}, decoder on {self.device}")
@@ -152,7 +157,8 @@ class NMSDecoder:
             return DecodeResult(app_last, None, None, apps)
         if collect == "app_last":
             return DecodeResult(self.kernel.decode_stats(stacked, llr)[0], None, None)
-        app, err, nerr, *synd = self.kernel.decode_stats(stacked, llr, labels)
+        app, err, nerr, *synd = self.kernel.decode_stats(stacked, llr, labels,
+                                                         app=collect == "stats")
         return DecodeResult(app, err, nerr, None, *synd)
 
     def apply(self, params: Params, llr: torch.Tensor,

@@ -11,9 +11,11 @@ codeword), as the JAX scan decoder does (its Pallas path ignores labels):
 * `decode_stats` returns ``(app_last [N*z, B] float32, err_flags [T, B]
   bool, bit_errors [T, B] int32)`` and, under ``cfg.track_syndrome``, a
   fourth, ``syndrome_ok [T, B]`` bool: a fixed T, or with
-  ``DecoderConfig.early_stop`` the genie early stop (a block of G words
-  stops once each of them has decoded at least once; the rows of skipped
-  iterations read 0 and the APP is that of the block's last iteration);
+  ``DecoderConfig.early_stop`` the genie early stop: under QMS each word
+  stops after its own first correct iteration (B2, the kernel's lanes take
+  a new word as each one stops), for the float states a block of G words
+  once each of them has decoded at least once; the rows of skipped
+  iterations read 0 and the APP is that of the stop (`group`);
 * `decode_deploy` returns ``(app [N*z, B], wrong [B] bool, bit_errors [B]
   int32, iters [B] int32, detected_fail [B] bool)``, each word frozen at
   its first iteration whose hard decisions satisfy H*x = 0.
@@ -24,7 +26,9 @@ reach the kernel as one byte per bit (``labels >= 0.5`` on the card, no
 host read) and run each mode's second instance; ``track_syndrome`` runs
 the fixed T's third (labels or not); the zero word keeps its own.  Under QMS
 the kernel keeps its state in integer codes (`code_grid`, three blocks per
-SM, four under the early stop, six under the syndrome stop); MS, MS_RAW
+SM, six under the syndrome stop; the early stop is a kernel of its own,
+four blocks per SM, at most as many blocks as the card holds at once, that
+stop each word alone); MS, MS_RAW
 and SP keep float state: SP two blocks per SM (one under the early stop),
 MS and MS_RAW one.  A tensor on the CPU goes to `decode_stats_plain` /
 `decode_deploy_plain`, ports of the scan body of
@@ -51,6 +55,7 @@ from ldpc_error_floor_tpu_torch.codes.graph import TannerGraph
 from ldpc_error_floor_tpu_torch.models.nms import MS, QMS, SP, DecoderConfig
 from ldpc_error_floor_tpu_torch.models.weights import WeightSpec
 from ldpc_error_floor_tpu_torch.ops.ste import clip_tf_grad, qms_grid, quantize_ste
+from ldpc_error_floor_tpu_torch.utils import profiling
 
 _PAD_MAG = 1.0e4  # magnitude sentinel excluded from extrinsic mins
 _EPS_MSG = 1.0e-4  # zero-message nudge
@@ -89,6 +94,7 @@ _SP_THREADS = 768
 _SP_WARPS_PER_SM = 24
 _MAX_C2V_CODE = 63  # a C->V code is 7-bit two's complement
 _LUT_INTS = 132  # kLutInts: the code state's table of output bytes
+_WORD_STOP_CTL = 16  # kWordStopCtl: the early stop's control ints of a block
 _MAX_TOT_CODE = 16383  # a bit total is an int16 code, doubled
 _MAX_DEG_SP = 64  # kMaxDegSP of the .cu: the largest check degree SP takes
 _SP_REG_DEG = 16  # kSPRegDeg: the slots of one chunk of SP's registers
@@ -148,12 +154,15 @@ def load_library() -> Tuple[ctypes.CDLL, str]:
     lib, log = build_library(_SRC)
     fn = lib.fused_nms_launch
     fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 11
-                   + [ctypes.c_float] * 6 + [ctypes.c_int] * 11
+                   + [ctypes.c_float] * 6 + [ctypes.c_int] * 13
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     occ = lib.fused_nms_resident_blocks
     occ.argtypes = [ctypes.c_int] * 5
     occ.restype = ctypes.c_int
+    pair = lib.fused_nms_word_stop_counters
+    pair.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
+    pair.restype = ctypes.c_int
     return lib, log
 
 
@@ -169,7 +178,8 @@ def _table_bytes(N: int, M: int, E: int) -> int:
 
 def _smem_bytes(N: int, M: int, z: int, E: int, G: int, ucn: bool,
                 deploy: bool = False, code: bool = False, sp: bool = False,
-                track: bool = False) -> int:
+                track: bool = False, early_stop: bool = False,
+                lut_iters: int = 0) -> int:
     """Dynamic shared memory of one block of G words, as the kernel lays it
     out: the graph table (`_table_bytes`), one iteration's weights float
     [2E + N] (cn, ucn, vn at most; rounded up to 16 bytes), then
@@ -182,8 +192,21 @@ def _smem_bytes(N: int, M: int, z: int, E: int, G: int, ucn: bool,
     - the code state (`code`): the counts, deploy and syndrome flags as
       above and the table of output bytes int [_LUT_INTS], padded to 16
       bytes, the lifted slot table int2 [E*z], bit totals int16 [N*z][G]
-      (twice the code plus the bit's hard decision), C->V bytes [E*z][G].
+      (twice the code plus the bit's hard decision), C->V bytes [E*z][G];
+    - the code state's early stop (`code` and `early_stop`: the genie stop
+      per word, `word_stop_layout` of the .cuh) no weights, then int
+      [2G] counts and, per lane, word, t, stopped word, phase-B flag, LLR
+      flags and next word's source [G] each, and `_WORD_STOP_CTL` ints of
+      the block (padded to 16 bytes), the output-byte tables uint16
+      [lut_iters][_LUT_INTS] (padded to 16 bytes), the lifted slot table
+      ushort2 [E*z], per lane bit totals int16 [N*z] and LLR codes int8
+      [N*z], two tiles' LLR codes int8 [2][N*z][G], per lane C->V bytes
+      [E*z].
     The launch reserves this (and the kernel refuses another size)."""
+    if code and early_stop:
+        return (_table_bytes(N, M, E) + _align16(4 * (8 * G + _WORD_STOP_CTL))
+                + _align16(2 * _LUT_INTS * lut_iters) + 4 * E * z + 5 * N * z * G
+                + E * z * G)
     cnt = (4 if deploy or track else 2) * G
     bits = N * z * G if ucn or deploy or track else 0
     head = _table_bytes(N, M, E) + _align16(4 * (2 * E + N))
@@ -191,6 +214,11 @@ def _smem_bytes(N: int, M: int, z: int, E: int, G: int, ucn: bool,
         return (head + _align16(4 * (cnt + _LUT_INTS)) + 8 * E * z
                 + 2 * N * z * G + E * z * G)
     return head + (8 * E * z if sp else 0) + (E * z + N * z) * G * 4 + cnt * 4 + bits
+
+
+def _fits(smem: int, blocks: int) -> bool:
+    """Whether `blocks` blocks of `smem` shared bytes fit one SM."""
+    return smem <= _SMEM_LIMIT and blocks * (smem + _SMEM_RESERVED) <= _SMEM_PER_SM
 
 
 def pick_launch_shape(graph: TannerGraph, smem: Callable[[int], int],
@@ -206,8 +234,7 @@ def pick_launch_shape(graph: TannerGraph, smem: Callable[[int], int],
     evenly."""
     code = graph.code
     words = (32, 16, 8, 4, 2, 1)
-    G = next((g for g in words if smem(g) <= _SMEM_LIMIT
-              and blocks * (smem(g) + _SMEM_RESERVED) <= _SMEM_PER_SM), None)
+    G = next((g for g in words if _fits(smem(g), blocks)), None)
     G = G or next((g for g in words if smem(g) <= _SMEM_LIMIT), None)
     if G is None:
         raise ValueError(f"{code.name}: one codeword's state exceeds a "
@@ -264,19 +291,35 @@ def sp_launch_shape(graph: TannerGraph, smem: Callable[[int], int],
 
 def launch_shape(graph: TannerGraph, ucn: bool, deploy: bool = False,
                  code: bool = False, early_stop: bool = False,
-                 sp: bool = False, track: bool = False) -> Tuple[int, int]:
+                 sp: bool = False, track: bool = False,
+                 lut_iters: int = 0) -> Tuple[int, int]:
     """(G, threads) of the decode kernel (`pick_launch_shape`): for the code
     state (`code`) `_CODE_BLOCKS` blocks of up to `_CODE_THREADS` per SM,
-    `_EARLY_STOP_BLOCKS` under the genie early stop, `_DEPLOY_BLOCKS` of up
+    `_EARLY_STOP_BLOCKS` under the genie early stop (G lanes a block,
+    `lut_iters` output-byte tables staged), `_DEPLOY_BLOCKS` of up
     to `_DEPLOY_THREADS` under the syndrome stop; for SP (`sp`)
     `sp_launch_shape`, under the early stop one block of up to
     `_SP_THREADS`; for the other float states one block of up to 1024.
     `track`: the fixed T writing the syndrome flags (`_smem_bytes`)."""
     c = graph.code
     smem = lambda g: _smem_bytes(c.N, c.M, c.z, graph.E, g, ucn, deploy, code, sp,
-                                 track)
+                                 track, early_stop, lut_iters)
     if sp and not early_stop:
         return sp_launch_shape(graph, smem)
+    if code and early_stop:
+        # G lanes: the words a block of the loop's state held at the early
+        # stop's blocks per SM (8 on wman, 2 on 5G z 64), where they fit;
+        # more lanes would leave each word fewer threads, and a step waits
+        # for its slowest lane
+        if graph.E * c.z > 0xFFFF:
+            raise ValueError(f"{c.name}: the early stop's 16-bit slot table takes "
+                             f"at most 65535 edge slots, not {graph.E * c.z}")
+        G, threads = pick_launch_shape(
+            graph, lambda g: _smem_bytes(c.N, c.M, c.z, graph.E, g, ucn, code=True),
+            _EARLY_STOP_BLOCKS, _CODE_THREADS)
+        while G > 1 and not _fits(smem(G), _EARLY_STOP_BLOCKS):
+            G //= 2
+        return G, threads
     if code and deploy:
         blocks, top = _DEPLOY_BLOCKS, _DEPLOY_THREADS
     elif code:
@@ -284,6 +327,20 @@ def launch_shape(graph: TannerGraph, ucn: bool, deploy: bool = False,
     else:
         blocks, top = 1, _SP_THREADS if sp else 1024
     return pick_launch_shape(graph, smem, blocks, top)
+
+
+def word_stop_lut_iters(graph: TannerGraph, T: int, cn_mode: int) -> int:
+    """The output-byte tables the code state's early stop stages: all T
+    iterations' for no or scalar CN weights (sharing 0 or 3), where they
+    keep the G and the blocks per SM of the layout without them; else 0,
+    and phase B forms a check's two bytes itself."""
+    if cn_mode not in (0, 3):
+        return 0
+    c = graph.code
+    size = lambda g, n: _smem_bytes(c.N, c.M, c.z, graph.E, g, False, code=True,
+                                    early_stop=True, lut_iters=n)
+    G = launch_shape(graph, False, code=True, early_stop=True)[0]
+    return T if _fits(size(G, T), _EARLY_STOP_BLOCKS) else 0
 
 
 def _graph_table(graph: TannerGraph) -> np.ndarray:
@@ -679,6 +736,42 @@ def decode_deploy_plain(graph: TannerGraph, tables: PlainTables,
     return app_out, wrong, nerr, iters, run
 
 
+# ----- the early stop's engagement pair -------------------------------------------
+
+_ENGAGED: set = set()  # the cards whose early stop counted under a profiler
+
+
+def word_stop_counters(reset: bool = False) -> Dict[str, int]:
+    """The code state's early-stop engagement pair, summed over the cards
+    that launched it under a profiler: ``lane_steps`` (each block's lanes
+    times its loop entries, idle lanes included) and ``words`` (the words
+    it decoded); `reset` sets the pairs back to 0.  Synchronises with those
+    cards."""
+    out = {"lane_steps": 0, "words": 0}
+    if not _ENGAGED:
+        return out
+    lib, _ = load_library()
+    pair = (ctypes.c_longlong * 2)()
+    for index in sorted(_ENGAGED):
+        with torch.cuda.device(index):
+            torch.cuda.synchronize()
+            rc = lib.fused_nms_word_stop_counters(pair, int(reset))
+        if rc != 0:
+            raise RuntimeError(f"fused_nms_word_stop_counters failed: CUDA error {rc}")
+        out["lane_steps"] += pair[0]
+        out["words"] += pair[1]
+    return out
+
+
+def _engage(dev: torch.device) -> None:
+    """Record that the early stop counts on `dev`, and let
+    `utils.profiling.snapshot()` read the pair (under the early stop's
+    kernel name)."""
+    _ENGAGED.add(torch.cuda.current_device() if dev.index is None else dev.index)
+    profiling.add_counter(kernel_name(EARLY_STOP, False), word_stop_counters,
+                          lambda: word_stop_counters(reset=True))
+
+
 # ----- the wrapper -------------------------------------------------------------------
 
 class FusedNMSKernel:
@@ -706,23 +799,36 @@ class FusedNMSKernel:
         self._graph_tabs: Dict[torch.device, torch.Tensor] = {}
         self.code = cfg.decoding_type == QMS  # the code-domain state
 
+    def _lut_iters(self, mode: int) -> int:
+        """The output-byte tables the code state's early stop stages
+        (`word_stop_lut_iters`); 0 for every other kernel."""
+        if not (self.code and mode == EARLY_STOP):
+            return 0
+        return word_stop_lut_iters(self.graph, self.T, self.spec.sharing[0])
+
     def launch_shape(self, mode: int) -> Tuple[int, int, int]:
         """(G, threads, shared bytes per block) of the kernel in `mode` (at
-        a fixed T under ``cfg.track_syndrome``, with the syndrome flags)."""
-        deploy = mode == DEPLOY
+        a fixed T under ``cfg.track_syndrome``, with the syndrome flags;
+        under the code state's early stop G is the lanes of a block)."""
+        deploy, es = mode == DEPLOY, mode == EARLY_STOP
         sp = self.cfg.decoding_type == SP
         track = mode == FIXED and self.cfg.track_syndrome
+        lut = self._lut_iters(mode)
         G, threads = launch_shape(self.graph, self.spec.ucn_enabled, deploy, self.code,
-                                  mode == EARLY_STOP, sp, track)
+                                  es, sp, track, lut)
         return G, threads, _smem_bytes(self.N, self.M, self.z, self.E, G,
                                        self.spec.ucn_enabled, deploy, self.code, sp,
-                                       track)
+                                       track, es, lut)
 
     @property
     def group(self) -> int:
-        """G, the words of one block of the stats kernel (the early-stop
-        kernel's under ``cfg.early_stop``): the granularity of the genie
-        early stop."""
+        """The granularity of the genie early stop (``cfg.early_stop``): 1
+        under QMS, whose early-stop kernel stops each word at its own first
+        correct iteration; for the float states G, the words of one block of
+        the early-stop kernel, which stop together (without the early stop,
+        the fixed-T kernel's G)."""
+        if self.cfg.early_stop and self.code:
+            return 1
         return self.launch_shape(EARLY_STOP if self.cfg.early_stop else FIXED)[0]
 
     def resident_blocks(self, mode: int) -> int:
@@ -734,17 +840,25 @@ class FusedNMSKernel:
                                              int(self.code), threads, smem)
 
     def decode_stats(self, stacked: Stacked, llr: torch.Tensor,
-                     labels: Optional[torch.Tensor] = None):
+                     labels: Optional[torch.Tensor] = None, app: bool = True):
         """llr: [N*z, B] float32.  The CUDA kernel (fixed T, or the genie
         early stop under ``cfg.early_stop``) for a tensor on the card, the
         plain version for a tensor on the CPU.  `labels` and the fourth
-        output under ``cfg.track_syndrome`` as in `decode_stats_plain`."""
+        output under ``cfg.track_syndrome`` as in `decode_stats_plain`.
+        Under the early stop the rows after a stop read 0 and the APP is
+        that of the stop, so the last row's counts (FER_last, BER_last of
+        `evaluate` and of a boosted decode) count each word at its stop:
+        under QMS its own first correct iteration (`group` 1), for the
+        float states its block's.  `app` False: the first output is None (on
+        the card the code state's early stop then writes no APP; a caller
+        that only counts, as the simulator, needs none)."""
         if llr.device.type == "cpu":
-            return self.decode_stats_plain(stacked, llr, labels=labels)
+            out = self.decode_stats_plain(stacked, llr, labels=labels)
+            return out if app else (None, *out[1:])
         if llr.device.type != "cuda":
             raise ValueError(f"unsupported device {llr.device}")
         return self._launch(stacked, llr,
-                            EARLY_STOP if self.cfg.early_stop else FIXED, labels)
+                            EARLY_STOP if self.cfg.early_stop else FIXED, labels, app)
 
     def decode_deploy(self, stacked: Stacked, llr: torch.Tensor,
                       labels: Optional[torch.Tensor] = None):
@@ -800,7 +914,7 @@ class FusedNMSKernel:
         return w, check_weights(self.graph, self.spec, kind, w, device)
 
     def _launch(self, stacked: Stacked, llr: torch.Tensor, mode: int,
-                labels: Optional[torch.Tensor] = None):
+                labels: Optional[torch.Tensor] = None, want_app: bool = True):
         cfg, spec = self.cfg, self.spec
         sp = cfg.decoding_type == SP
         if sp:
@@ -818,7 +932,9 @@ class FusedNMSKernel:
         tab = self.graph_table(dev)
         deploy = mode == DEPLOY
         rows = () if deploy else (self.T,)
-        app = torch.empty((Nz, B), dtype=torch.float32, device=dev)
+        # the code state's early stop writes no APP that is not wanted
+        skip_app = not want_app and self.code and mode == EARLY_STOP
+        app = None if skip_app else torch.empty((Nz, B), dtype=torch.float32, device=dev)
         err = torch.empty(rows + (B,), dtype=torch.bool, device=dev)
         nerr = torch.empty(rows + (B,), dtype=torch.int32, device=dev)
         outs = (app, err, nerr)
@@ -838,6 +954,10 @@ class FusedNMSKernel:
         G, threads, smem = self.launch_shape(mode)
         ptr = lambda x: None if x is None else x.data_ptr()
         iters, fail = outs[3:] if deploy else (None, None)
+        # the code state's early stop counts its lane-steps under a profiler
+        engage = self.code and mode == EARLY_STOP and profiling.active()
+        if engage:
+            _engage(dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.fused_nms_launch(
@@ -848,7 +968,8 @@ class FusedNMSKernel:
                 u, uinv, clipc, qshift,
                 spec.sharing[0], int(spec.ucn_enabled), spec.sharing[2],
                 int(cfg.neural_mode == "offset"), dim_cn, dim_vn, mode,
-                int(sp), int(self.code), stream)
+                int(sp), int(self.code), int(self._lut_iters(mode) > 0), int(engage),
+                stream)
         if rc != 0:
             raise RuntimeError(f"fused_nms_launch ({kernel_name(mode, sp)}) "
                                f"failed: CUDA error {rc}")
@@ -856,4 +977,4 @@ class FusedNMSKernel:
             self.captured[kernel_name(mode, sp)] += 1
         else:
             self.launches[kernel_name(mode, sp)] += 1
-        return outs
+        return outs if want_app else (None, *outs[1:])

@@ -297,7 +297,7 @@ class FERSimulator:
                                 res.wrong.sum(dtype=torch.int64),
                                 res.undetected.sum(dtype=torch.int64),
                                 res.iters.sum(dtype=torch.int64)])
-        res = self.decoder.apply(params, llr, collect="stats")
+        res = self.decoder.apply(params, llr, collect="counts")  # no APP: counted only
         return torch.stack([res.bit_errors[-1].sum(dtype=torch.int64),
                             res.err_flags[-1].sum(dtype=torch.int64),
                             res.uncor_mask.sum(dtype=torch.int64)])

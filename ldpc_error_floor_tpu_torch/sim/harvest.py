@@ -85,7 +85,7 @@ class UncorHarvester:
         sig = torch.full((self.local_batch,), sigma, dtype=torch.float32,
                          device=self.decoder.device)
         llr = self.channel.sample(generator, sig)
-        mask = self.decoder.apply(params, llr, collect="stats").uncor_mask
+        mask = self.decoder.apply(params, llr, collect="counts").uncor_mask
         idx = torch.nonzero_static(mask, size=self.cap,
                                    fill_value=self.local_batch - 1)[:, 0]
         return mask.sum(dtype=torch.int64), llr[:, idx]

@@ -22,6 +22,11 @@
   "device_ms"}}`` (``device_ms`` None for a span no event pair timed),
   waiting for pairs still on the card.  `reset()` empties it; `trace`
   does so on entry, so the table holds that block's spans.
+* `add_counter(name, read, clear)` registers counters that the program
+  keeps on the card and writes only while a profiler is active (`active()`;
+  the early-stop kernel's lane-steps and words, `ops/fused_decoder.py`).
+  `snapshot()` holds their values, ``{name: {key: int}}``, once one is not
+  0, beside the spans; `reset()` sets them back to 0.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import collections
 import contextlib
 import os
 import time
-from typing import Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.autograd.profiler as _autograd_profiler
@@ -63,6 +68,20 @@ class _Row:
 
 
 _TABLE: Dict[str, _Row] = {}
+_COUNTERS: Dict[str, Tuple[Callable[[], Dict[str, int]], Callable[[], None]]] = {}
+
+
+def active() -> bool:
+    """Whether a `torch.profiler` is active (all that a span reads without
+    one)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def add_counter(name: str, read: Callable[[], Dict[str, int]],
+                clear: Callable[[], None]) -> None:
+    """Let `snapshot()` hold the counters `read()` returns under `name`,
+    and `reset()` call `clear()`."""
+    _COUNTERS[name] = (read, clear)
 
 
 class _Span:
@@ -107,25 +126,32 @@ def annotate(name: str, device: Optional[torch.device] = None):
     the profiler's trace and a row of `snapshot()` (given the work's CUDA
     `device`, its card time too, between CUDA events on that device's
     current stream)."""
-    if not _autograd_profiler._is_profiler_enabled:
+    if not active():
         return _NOTHING
     return _Span(name, device)
 
 
 def snapshot() -> Dict[str, dict]:
     """Every span recorded since the last `reset`: its count, host-clock
-    ms and card ms (None where no event pair timed it)."""
+    ms and card ms (None where no event pair timed it); and the values of
+    each registered counter of which one is not 0."""
     out = {}
     for name, row in _TABLE.items():
         row.fold(wait=True)
         out[name] = {"count": row.count, "host_ms": row.host_s * 1e3,
                      "device_ms": row.device_ms if row.timed else None}
+    for name, (read, _) in _COUNTERS.items():
+        values = read()
+        if any(values.values()):
+            out[name] = values
     return out
 
 
 def reset() -> None:
-    """Empty the span table."""
+    """Empty the span table and set the registered counters to 0."""
     _TABLE.clear()
+    for _, clear in _COUNTERS.values():
+        clear()
 
 
 @contextlib.contextmanager

@@ -287,3 +287,19 @@ def test_save_proto_json_byte_equal_to_jax(tmp_path, meta):
     jax_save_proto_json(proto, str(theirs), meta=meta)
     assert ours.read_bytes() == theirs.read_bytes()
     np.testing.assert_array_equal(load_proto_matrix(str(ours)), proto)
+
+
+@pytest.mark.parametrize("early_stop", [False, True])
+def test_counts_are_the_stats_without_the_app(early_stop):
+    """collect='counts' (the simulator's and the harvester's) gives the
+    flags and counts of collect='stats' with no final APP."""
+    _, _, code, graph, params, bits, llr = _inputs(MACKAY, (3, 0, 3), 2, 4.0, 6, 64, seed=2)
+    spec = WeightSpec(sharing=(3, 0, 3), n_iters=6)
+    dec = NMSDecoder(code, DecoderConfig(early_stop=early_stop), spec, graph=graph,
+                     device="cpu")
+    p, x = params_from_numpy(params, device="cpu"), torch.from_numpy(llr)
+    stats, counts = dec.decode(p, x), dec.decode(p, x, collect="counts")
+    assert stats.app_last is not None and counts.app_last is None
+    assert torch.equal(stats.err_flags, counts.err_flags)
+    assert torch.equal(stats.bit_errors, counts.bit_errors)
+    assert torch.equal(stats.uncor_mask, counts.uncor_mask)

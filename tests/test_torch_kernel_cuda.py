@@ -11,9 +11,11 @@ sign bit of every APP, zeros included: under QMS the kernels keep their
 state in integer codes and must give back the float sums' signed zeros);
 MS and MS_RAW counters integer-equal and APPs within atol 1e-4 / rtol
 1e-5.  The genie early stop is held to the plain version grouped as the
-kernel groups words (G per block), and its genie-failure mask to the
-fixed-T kernel's exactly; under QMS both are checked on every grid, with
-batches that are not a multiple of G, small and large.  The syndrome stop's per-word outputs are integer-equal to its
+kernel groups words (under QMS each word alone, B2's stop per word; G per
+block for the float states), and its genie-failure mask to the fixed-T
+kernel's exactly; under QMS both are checked on every grid, with batches
+that are not a multiple of G, small and large, and B2 on the benchmark's
+two codes with its engagement pair (words and lane-steps).  The syndrome stop's per-word outputs are integer-equal to its
 plain version.  SP (tanhf/atanhf are not PyTorch's, and the plain version's
 cumprod may associate differently on the card): APPs within atol 1e-3 /
 rtol 1e-4, counters equal on at least 99.9% of words.  The training pair:
@@ -186,15 +188,102 @@ def test_fixed_and_early_stop_every_grid_on_card(case):
             app_p, err_p, nerr_p = kern.decode_stats_plain(stacked, llr)
             torch.cuda.synchronize()
             assert kern.launches == {"fused_nms_early_stop" if es else "fused_nms_stats": 1}
-            assert B % kern.group
+            assert B % kern.launch_shape(EARLY_STOP if es else FIXED)[0]
             assert torch.equal(err, err_p) and torch.equal(nerr, nerr_p)
             _assert_app(app, app_p, dec)
-            if es and snr == 5.0:  # most blocks stop within a few iterations
-                G = kern.group
+            if es and snr == 5.0:  # most stops within a few iterations
+                G = kern.group  # 1 under QMS: each word's own stop
                 still = torch.cumprod(err.int(), dim=0).bool()
                 still = torch.cat([still, still.new_zeros((T, -B % G))], dim=1)
                 iters = 1 + still.view(T, -1, G).any(dim=2)[:-1].sum(dim=0)
                 assert float(iters.float().mean()) < T / 2
+
+
+G5_64 = "5G_LDPC_R0.50_n_dec1280_n1024_k512_z64_s513_640"
+# (code, sharing, T, target_node, SNR dB where most words stop early): B2,
+# the code state's genie stop per word, on the benchmark's two codes
+WORD_STOP_CASES = [
+    (WMAN, (3, 3, 3), 10, 0, 5.0),
+    (G5_64, (2, 2, 2), 12, 10, 3.0),
+]
+
+
+def _own_iterations(err):
+    """[B] each word's own iterations to its genie stop (its first correct
+    iteration plus one; T for a word wrong at every iteration), from its
+    flags [T, B]."""
+    still = torch.cumprod(err.int(), dim=0).bool()
+    return 1 + still[:-1].sum(dim=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WORD_STOP_CASES, ids=lambda c: c[0][:6])
+def test_word_stop_equals_plain_at_group_one_on_card(case):
+    """B2 on wman (3,3,3) with UCN and 5G z 64 (2,2,2) under a
+    systematic target: 1001 words (fewer than the card's lanes), 20001 at
+    the SNR where most words stop within a few iterations (the lanes take
+    new words across many tiles) and 1001 random codewords as labels, each
+    in one launch, bit-equal to `decode_stats_plain(group=1)`: counters,
+    the APP of each word's own stop with its signs, the rows after it 0;
+    also on LLRs off the QMS grid and signed zeros, which the kernel does
+    not keep as codes."""
+    dev = _cuda()
+    code_name, sharing, T, target, snr = case
+    for B, snr_b, kind in ((1001, 2.5, "zero"), (20001, snr, "zero"), (1001, snr, "labels"),
+                           (1001, snr, "off_grid")):
+        kern, stacked, llr = _setup(dev, code_name, sharing, 2, snr_b, T=T, B=B,
+                                    target=target, early_stop=True)
+        assert kern.group == 1
+        labels = None
+        if kind == "labels":
+            bits, llr = _codewords(dev, kern, snr_b, B)
+            labels = bits[: kern.target * kern.z]
+        if kind == "off_grid":  # LLRs off the QMS grid, and signed zeros
+            llr[:, ::3] *= 1.013
+            llr[::5, 1::4] = -0.0
+            llr[::7, 2::4] = 0.0
+        out = kern.decode_stats(stacked, llr, labels)
+        ref = kern.decode_stats_plain(stacked, llr, group=1, labels=labels)
+        torch.cuda.synchronize()
+        assert kern.launches == {"fused_nms_early_stop": 1}
+        for x, y in zip(out[1:], ref[1:]):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+        _assert_app(out[0], ref[0], 2)
+        own = _own_iterations(out[1])
+        rows = torch.arange(T, device=dev)[:, None]
+        assert not bool(out[1][rows >= own[None]].any())
+        assert int(own.min()) < T and (B == 1001 or float(own.float().mean()) < 0.75 * T)
+
+
+@pytest.mark.cuda
+def test_word_stop_counts_lane_steps_on_card(monkeypatch):
+    """Under a profiler's flag B2 adds its words and lane-steps to the
+    engagement pair that `utils.profiling.snapshot()` reads: words equal
+    to B; lane-steps at least each word's own iterations plus one (the step
+    that finds it correct, or the T-th step's statistics) and at most that
+    plus T + 2 steps of every lane the launch holds (a lane idles at the
+    launch's end from the step after its last word's stop, at most until
+    the slowest word of its block is written).  With no profiler nothing is
+    counted."""
+    from ldpc_error_floor_tpu_torch.utils import profiling
+    dev = _cuda()
+    T, B = 10, 20001
+    kern, stacked, llr = _setup(dev, WMAN, (3, 3, 3), 2, 5.0, T=T, B=B, early_stop=True)
+    profiling.reset()
+    kern.decode_stats(stacked, llr)
+    assert "fused_nms_early_stop" not in profiling.snapshot()
+    monkeypatch.setattr(torch.autograd.profiler, "_is_profiler_enabled", True)
+    err = kern.decode_stats(stacked, llr)[1]
+    monkeypatch.setattr(torch.autograd.profiler, "_is_profiler_enabled", False)
+    pair = profiling.snapshot()["fused_nms_early_stop"]
+    G = kern.launch_shape(EARLY_STOP)[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lanes = min(-(-B // G), kern.resident_blocks(EARLY_STOP) * sms) * G
+    least = int((_own_iterations(err) + 1).sum())
+    assert pair["words"] == B
+    assert least <= pair["lane_steps"] <= least + lanes * (T + 2)
+    profiling.reset()
+    assert "fused_nms_early_stop" not in profiling.snapshot()
 
 
 @pytest.mark.cuda

@@ -384,7 +384,9 @@ def test_decode_launch_shapes_hold_to_the_kernel_layout(name):
     syndrome flags) and
     the output-byte table padded to 16 bytes, the lifted slot table, int16
     totals (each with its bit's decision), C->V bytes; for SP the lifted
-    slot table before the float state."""
+    slot table before the float state; the code state's early stop (the
+    genie stop per word) its own: no weights, the lanes' control ints, the
+    lifted slot table, totals and C->V bytes."""
     assert (_CODE_THREADS, _CODE_BLOCKS, _EARLY_STOP_BLOCKS, _DEPLOY_THREADS,
             _DEPLOY_BLOCKS) == (
         _cuh_constant("kCodeThreads"), _cuh_constant("kCodeBlocks"),
@@ -419,20 +421,29 @@ def test_decode_launch_shapes_hold_to_the_kernel_layout(name):
                     top, blocks = 1024, 1
                 assert G in (1, 2, 4, 8, 16, 32) and threads % 32 == 0
                 assert threads % G == 0 and threads <= top
-                smem = _smem_bytes(N, M, z, E, G, ucn, deploy, code_state, sp, track)
+                smem = _smem_bytes(N, M, z, E, G, ucn, deploy, code_state, sp, track, es)
                 cnt = (4 if deploy or track else 2) * G
                 bits = N * z * G if ucn or deploy or track else 0
-                if code_state:  # the decisions ride in bit 0 of the totals
+                if code_state and es:  # lanes of the genie stop per word
+                    assert smem == (_table_bytes(N, M, E) + -(-4 * (8 * G + 16) // 16) * 16
+                                    + 4 * E * z + 5 * N * z * G + E * z * G)
+                elif code_state:  # the decisions ride in bit 0 of the totals
                     assert smem == (head + -(-4 * (cnt + _LUT_INTS) // 16) * 16
                                     + 8 * E * z + 2 * N * z * G + E * z * G)
                 else:
                     assert smem == (head + (8 * E * z if sp else 0)
                                     + 4 * (E + N) * z * G + 4 * cnt + bits)
                 fits = lambda s, n: s <= _SMEM_LIMIT and n * (s + _SMEM_RESERVED) <= _SMEM_PER_SM
+                loop = lambda g: _smem_bytes(N, M, z, E, g, ucn, code=True)
                 size = lambda g: _smem_bytes(N, M, z, E, g, ucn, deploy, code_state, sp,
-                                             track)
+                                             track, es)
                 if sp and not es:  # the fastest shape measured, not the most words
                     assert fits(smem, 1)
+                elif code_state and es and fits(loop(1), blocks):  # lanes: the loop's
+                    # words at these blocks, halved while they do not fit
+                    G_loop = next(g for g in (32, 16, 8, 4, 2, 1) if fits(loop(g), blocks))
+                    assert G <= G_loop and fits(smem, blocks)
+                    assert G == G_loop or not fits(size(2 * G), blocks)
                 elif fits(size(1), blocks):
                     assert fits(smem, blocks)
                     assert G == 32 or not fits(size(2 * G), blocks)
@@ -442,8 +453,14 @@ def test_decode_launch_shapes_hold_to_the_kernel_layout(name):
         kern = FusedNMSKernel(graph, DecoderConfig(decoding_type=2), spec)
         es = FusedNMSKernel(graph, DecoderConfig(decoding_type=2, early_stop=True), spec)
         assert kern.code and kern.group == launch_shape(graph, ucn, False, True)[0]
-        assert es.group == launch_shape(graph, ucn, False, True, True)[0]
-        assert es.launch_shape(fused_decoder.EARLY_STOP)[0] == es.group <= kern.group
+        # each word stops alone; the launch keeps `launch_shape`'s G lanes
+        lut = fused_decoder.word_stop_lut_iters(graph, 2, 3)
+        G_es = launch_shape(graph, ucn, False, True, True, lut_iters=lut)[0]
+        assert es.group == 1
+        assert es.launch_shape(fused_decoder.EARLY_STOP) == (
+            G_es, launch_shape(graph, ucn, False, True, True, lut_iters=lut)[1],
+            _smem_bytes(N, M, z, E, G_es, ucn, code=True, early_stop=True, lut_iters=lut))
+        assert G_es <= kern.group
         assert kern.launch_shape(fused_decoder.DEPLOY) == (
             *launch_shape(graph, ucn, True, True),
             _smem_bytes(N, M, z, E, launch_shape(graph, ucn, True, True)[0], ucn, True, True))
@@ -455,6 +472,43 @@ def test_decode_launch_shapes_hold_to_the_kernel_layout(name):
                 G, threads, _smem_bytes(N, M, z, E, G, ucn, deploy, False, True))
     assert not FusedNMSKernel(graph, DecoderConfig(decoding_type=1),
                               WeightSpec(sharing=(3, 0, 3), n_iters=2)).code
+
+
+G5_64 = "5G_LDPC_R0.50_n_dec1280_n1024_k512_z64_s513_640"
+
+
+@pytest.mark.parametrize("name, sharing, T, shape, lut", [
+    (WMAN, (3, 3, 3), 20, (8, 384), 20), (WMAN, (3, 3, 3), 30, (8, 384), 0),
+    (G5_64, (2, 2, 2), 50, (2, 320), 0)])
+def test_word_stop_layout_keeps_the_early_stop_shape(name, sharing, T, shape, lut):
+    """The code state's early stop (the genie stop per word) on wman (base20;
+    boosted30, whose output-byte tables of 30 iterations do not fit) and 5G z 64
+    (per-check weights: no tables): the G lanes, threads and four blocks per
+    SM that the early stop had before it stopped words one by one; the
+    output-byte tables of every iteration staged where they keep that
+    shape; and `_smem_bytes` equal to the .cuh's `word_stop_layout`."""
+    graph = TannerGraph(get_code(name))
+    code = graph.code
+    N, M, z, E = code.N, code.M, code.z, graph.E
+    spec = WeightSpec(sharing=sharing, n_iters=T)
+    es = FusedNMSKernel(graph, DecoderConfig(decoding_type=2, early_stop=True), spec)
+    G, threads, smem = es.launch_shape(fused_decoder.EARLY_STOP)
+    assert (G, threads) == shape and es.group == 1
+    assert fused_decoder.word_stop_lut_iters(graph, T, sharing[0]) == lut
+    assert _EARLY_STOP_BLOCKS * (smem + _SMEM_RESERVED) <= _SMEM_PER_SM
+    src = (Path(fused_decoder.__file__).parent.parent / "csrc" / "fused_nms_kernel.cuh").read_text()
+    body = re.search(r"WordStopLayout word_stop_layout\(.*?WordStopLayout L;(.*?)return L;",
+                     src, re.S).group(1)
+    names = {"N": N, "M": M, "z": z, "E": E, "G": G, "lut_iters": lut,
+             "kLutInts": 2 * _cuh_constant("kLutRow"), "table_bytes": _table_bytes,
+             "kWordStopCtl": _cuh_constant("kWordStopCtl")}
+    for line in body.strip().split(";"):
+        if line.strip():
+            field, expr = line.split("=", 1)
+            names[field.strip().replace(".", "_")] = eval(expr.replace("L.", "L_"), {}, names)
+    assert smem == names["L_bytes"]
+    assert smem == _smem_bytes(N, M, z, E, G, True, code=True, early_stop=True,
+                               lut_iters=lut)
 
 
 @pytest.mark.parametrize("name, shape", [

@@ -115,6 +115,24 @@ def test_trace_starts_an_empty_table_and_reset_empties_it(tmp_path):
     assert snapshot() == {}
 
 
+def test_counters_join_the_snapshot_once_not_zero(monkeypatch):
+    """A counter the program keeps on the card (`add_counter`: the early
+    stop's lane-steps and words) is in `snapshot()` beside the spans once
+    one of its values is not 0, and `reset()` sets it back to 0."""
+    values = {"lane_steps": 0, "words": 0}
+    monkeypatch.setattr(profiling, "_COUNTERS", {})
+    profiling.reset()
+    profiling.add_counter("fused_nms_early_stop", lambda: dict(values),
+                          lambda: values.update(lane_steps=0, words=0))
+    assert snapshot() == {}
+    values.update(lane_steps=28, words=10)
+    with trace(None), annotate("ldpc.test"):
+        pass
+    assert snapshot() == {"fused_nms_early_stop": {"lane_steps": 28, "words": 10}}
+    profiling.reset()
+    assert values == {"lane_steps": 0, "words": 0} and snapshot() == {}
+
+
 def test_epoch_of_one_step_records_each_train_span_once(tmp_path):
     code = get_code(MACKAY)
     graph = TannerGraph(code)
