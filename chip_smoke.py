@@ -28,6 +28,12 @@ exits non-zero:
    - genie early stop (B2): flags, counts and QMS APPs equal to the plain
      version grouped as the kernel groups words; the genie-failure mask
      equal to the fixed-T kernel's; base20 at T=20 and boosted30 at T=30;
+   - B2 over a host read of 8 batches of 65536 (base20 at 5.5 and 4.0 dB,
+     the 5G rate-1/2 z 64 code with its iter50 weights at 3.0 dB, T=50):
+     one launch, its totals (bit errors and frames wrong at the last
+     iteration, frames wrong at every iteration) equal to the plain
+     version's rows of each batch reduced and summed, on the channel's
+     LLRs and with every 97th word's made positive (wrong throughout);
    - syndrome stop (B3): wrong/bit errors/iters/detected_fail integer-equal
      and QMS APPs bit-equal; against the stats kernel: wrong and bit errors
      equal its row iters-1, genie failures within wrong, detected_fail
@@ -95,11 +101,12 @@ exits non-zero:
    `tests/test_torch_reference_trace.py`; the worst error per trace is
    printed;
 4. end to end, each path driven through `FERSimulator.run_point` with the
-   launch counts (the decode kernel's and the sampler's, one launch of
-   each per batch) set to 0 just before and read just after (wman_N0576_R34_z24,
+   launch counts (the sampler's, one launch per batch; the decode
+   kernel's, one per batch, but B2's, the QMS early stop, one per host
+   read) set to 0 just before and read just after (wman_N0576_R34_z24,
    QMS q_bit 5, sharing (3,3,3), 4.0 dB, seed 0, 2^20 frames in batches of
    65536, `inner_steps` K = 8: each host read one replay of a CUDA graph of
-   8 batches; the launch counts are the batches'):
+   8 batches: 16 launches of S1, 16 of B1 or B3, 2 of B2):
    - base20, fixed T=20: FER_genie in [1.5e-4, 2.7e-4] and exactly 211 genie
      errors; plain min-sum (all-ones weights) at least 2x worse, exactly
      846;
@@ -189,8 +196,8 @@ exits non-zero:
    - an NCCL world of one (`data_mesh()`): base20 with the early stop and
      with the syndrome stop through `FERSimulator(mesh=...)` at 4.0 dB,
      seed 0, 2^20 frames at 65536, K = 8: exactly 211 genie errors and
-     3.18807 mean iterations, 16 launches each; warm frames/s of the
-     early-stop path with and without the mesh, in turns; a traced warm
+     3.18807 mean iterations, 2 launches of B2 and 16 of B3; warm frames/s
+     of the early-stop path with and without the mesh, in turns; a traced warm
      point (`build/host_loop/mesh_run_point/`): the all-reduce's time per
      host read, on the card and on the host;
    - the base block through `run_training(mesh=...)` (3 steps at 32768,
@@ -223,7 +230,7 @@ exits non-zero:
      32768 / W; W ranks of this script (``--nccl-rank r W port dir``) on
      the W cards: base20's two paths at seed 0 equal to the rank
      generators' sums (at W = 1: 211 genie errors and 3.18807 mean
-     iterations), 16 launches of B2 or B3 and of S1 each, warm frames/s
+     iterations), 2 launches of B2 or 16 of B3, 16 of S1, warm frames/s
      (the point again on the same generator) in total and per card, and
      the all-reduce's ms per host read in a traced warm point; each
      command's seconds from spawn to exit.  ``chip_smoke.py --launcher``
@@ -279,6 +286,7 @@ LAUNCH_TIMEOUT_S = 300    # each command through the launcher, and each NCCL ran
 TRAIN_STEPS = 100         # steps of an epoch of the launcher's train command
 TRACE_ATTEMPTS = 3        # a trace with no activity of the card is taken again
 G5 = "5G_LDPC_R0.50_n_dec640_n512_k256_z32_s257_320"  # punctured and shortened rows
+G5_64 = "5G_LDPC_R0.50_n_dec1280_n1024_k512_z64_s513_640"  # the benchmark's 5G code
 SAMPLER_ODD_B = 1001      # the sampler's ragged batch (B % 4 != 0)
 SAMPLER_TYPES = ((2, 6), (2, 5), (2, -5), (2, 4), (2, 3), (1, 5), (3, 5), (0, 5))
 #                          (decoding type, q_bit): QMS on every grid, MS, MS_RAW, SP
@@ -1077,6 +1085,7 @@ def launcher_phase(dev) -> dict:
             # W ranks of this script on the W cards: launches, the all-reduce
             ranks = run_nccl_ranks(W, os.path.join(tmp, f"nccl_W{W}"))
             n_batches = MAX_FRAMES // MAIN_B
+            n_reads = n_batches // K_MAIN  # B2: one launch a host read
             # warm: the same point again on one simulator and generator (a
             # curve of the CLI gives each point a generator and a capture)
             res["warm_frames_per_sec"] = ranks[0]["warm_frames_per_sec"]
@@ -1100,7 +1109,8 @@ def launcher_phase(dev) -> dict:
                 check(all(rk[label] == want for rk in ranks),
                       f"NCCL ranks at W = {W}, {label}: {[rk[label] for rk in ranks]} "
                       f"against the per-rank sum {want}")
-                check(all(rk[label + "_launches"] == {kname: n_batches, awgn_llr.KERNEL: n_batches}
+                n_b = n_reads if label == "early_stop" else n_batches
+                check(all(rk[label + "_launches"] == {kname: n_b, awgn_llr.KERNEL: n_batches}
                           for rk in ranks),
                       f"NCCL ranks at W = {W}, {label}: launches "
                       f"{[rk[label + '_launches'] for rk in ranks]}")
@@ -1172,7 +1182,7 @@ def main() -> int:
 
         def _chunk(self, params, generator, sigma):
             with torch.no_grad():
-                return self._steps(params, generator, sigma)
+                return self._local_step(params, generator, sigma)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1391,6 +1401,47 @@ def main() -> int:
               f"{cid}: deploy outputs differ from the stats kernel's row iters-1")
         check(row["genie_not_wrong"] == 0 and row["fail_not_wrong"] == 0,
               f"{cid}: genie failures not within wrong, or detected_fail without wrong")
+
+    # B2 over a host read, as the simulator runs it: one launch over K_MAIN
+    # batches of MAIN_B words whose totals (no rows) equal exactly the plain
+    # version's rows (each batch alone, a stop per word) reduced and summed
+    read_cases = [  # (id, code, sharing, T, target, weights, SNR)
+        ("m_wman_333_read_base20", WMAN, (3, 3, 3), T_MAIN, 0, "base20", DEEP_SNR),
+        ("n_wman_333_read_base20", WMAN, (3, 3, 3), T_MAIN, 0, "base20", 4.0),
+        ("o_5g64_222_read_iter50", G5_64, (2, 2, 2), 50, 10, "iter50", 3.0),
+    ]
+    g_read = torch.Generator(device=dev).manual_seed(21)
+    for cid, cname, sharing, T, target, wkind, snr in read_cases:
+        graph = graph_of(cname)
+        code = graph.code
+        spec = WeightSpec(sharing=sharing, n_iters=T)
+        stacked = (case_weights(spec, graph, wkind) if wkind == "base20" else stack_weights(
+            spec, load_params(spec, graph, f"{cname}_{wkind}", device=dev)))
+        es = FusedNMSKernel(graph, DecoderConfig(target_node=target, early_stop=True), spec)
+        ch = AWGNChannel(code, device=dev)
+        sig = torch.full((MAIN_B,), float(code.snr_sigmas([snr])[0]), device=dev)
+        llr = torch.empty((K_MAIN, code.n_full, MAIN_B), device=dev)
+        for k in range(K_MAIN):
+            ch.sample(g_read, sig, out=llr[k])
+        row = {"phase": "kernel_vs_plain", "kernel": "fused_nms_early_stop_read", "case": cid,
+               "K": K_MAIN, "B": MAIN_B, "T": T, "snr_db": snr}
+        # the channel's LLRs, then the same with every 97th word's made
+        # positive (bit 1 everywhere: wrong at every iteration)
+        for variant in ("noise", "forced"):
+            if variant == "forced":
+                llr[:, :, 5::97] = llr[:, :, 5::97].abs()
+            es.launches.clear()
+            got = es.decode_read_totals(stacked, llr).tolist()
+            want = es.read_totals_of_rows(stacked, llr, plain=True).tolist()
+            row[variant] = {"totals": got, "plain_totals": want}
+            check(es.launches == {"fused_nms_early_stop": 1},
+                  f"{cid} {variant}: launches {es.launches}")
+            check(got == want, f"{cid} {variant}: the read's totals {got} differ from the "
+                               f"plain version's {want}")
+        check(row["forced"]["totals"][2] >= K_MAIN * (MAIN_B // 97),
+              f"{cid}: forced words not counted, {row['forced']}")
+        emit(row)
+        del llr
 
     sp_cases = [  # (id, code, sharing, T, B, weights, SNR); (i) is the BP path's
         ("i_wman_000_sp_bp", WMAN, (0, 0, 0), 20, MAIN_B, "ones", 4.0),
@@ -1857,8 +1908,12 @@ def main() -> int:
               "genie_errors": round(pt.fer_genie * pt.frames) if pt.fer_genie == pt.fer_genie else None,
               "kernel_launches": launches, "sampler_launches": sampler})
         check(pt.frames == MAX_FRAMES, f"{label}: {pt.frames} frames, wanted {MAX_FRAMES}")
-        check(sum(launches.values()) == MAX_FRAMES // MAIN_B and len(launches) == 1,
-              f"{label}: launches {launches} for {MAX_FRAMES // MAIN_B} batches")
+        # B2 (QMS, the early stop): one launch a host read; else one a batch
+        cfg = sim.decoder.cfg
+        per = sim.inner_steps if cfg.early_stop and cfg.decoding_type == 2 else 1
+        check(sum(launches.values()) == MAX_FRAMES // (MAIN_B * per) and len(launches) == 1,
+              f"{label}: launches {launches} for {MAX_FRAMES // MAIN_B} batches, "
+              f"{per} a launch")
         check(sampler == {awgn_llr.KERNEL: MAX_FRAMES // MAIN_B},
               f"{label}: sampler launches {sampler} for {MAX_FRAMES // MAIN_B} batches")
         main_launches.setdefault(awgn_llr.KERNEL, sampler)
@@ -1930,7 +1985,7 @@ def main() -> int:
               "jax_frames": jax_ref[1], "two_sample_binomial_p": pval,
               "kernel_launches": launches, "sampler_launches": sampler})
         check(p.frames == frames, f"{label}: {p.frames} frames")
-        check(launches == {"fused_nms_early_stop": frames // MAIN_B},
+        check(launches == {"fused_nms_early_stop": frames // (MAIN_B * sim.inner_steps)},
               f"{label}: launches {launches}")
         check(sampler == {awgn_llr.KERNEL: frames // MAIN_B},
               f"{label}: sampler launches {sampler}")
@@ -2542,7 +2597,7 @@ def main() -> int:
         launches = dict(sim.decoder.kernel.launches)
         mesh_row[label] = {**point_counts(p, wman.n_full), "cold_frames_per_sec":
                            p.frames_per_sec, "kernel_launches": launches}
-        check(launches == {kname: MAX_FRAMES // MAIN_B},
+        check(launches == {kname: n_reads if label == "early_stop" else MAX_FRAMES // MAIN_B},
               f"mesh {label}: launches {launches}")
     anchor = round(pt_es.fer_genie * pt_es.frames)  # the early-stop path without the mesh
     check(mesh_row["early_stop"]["genie_errors"] == anchor,
@@ -2657,8 +2712,8 @@ def main() -> int:
             check(all(rk[label] == want for rk in ranks),
                   f"two ranks, {label}: {[rk[label] for rk in ranks]} against the per-rank "
                   f"sum {want}")
-            check(all(sum(rk[label + "_launches"].values()) == MAX_FRAMES // MAIN_B
-                      for rk in ranks), f"two ranks, {label}: launches "
+            n_b = MAX_FRAMES // MAIN_B // (K_MAIN if label == "early_stop" else 1)
+            check(all(sum(rk[label + "_launches"].values()) == n_b for rk in ranks), f"two ranks, {label}: launches "
                                         f"{[rk[label + '_launches'] for rk in ranks]}")
         # the harvest: both rank generators in step, at the rank's batch
         h = UncorHarvester(local_sims[0][1].decoder, local_sims[0][1].channel,

@@ -70,28 +70,35 @@ class AWGNChannel:
         return torch.randn((self.code.n_full, batch), generator=generator,
                            dtype=torch.float32, device=self.device)
 
-    def sample(self, generator: torch.Generator,
-               sigma_lanes: torch.Tensor) -> torch.Tensor:
-        """Sample a batch of channel LLRs [N*z, B]; sigma_lanes is [B]."""
-        return self.llr(self._noise(generator, sigma_lanes.shape[0]), sigma_lanes)
+    def sample(self, generator: torch.Generator, sigma_lanes: torch.Tensor,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Sample a batch of channel LLRs [N*z, B]; sigma_lanes is [B].
+        `out`: the [N*z, B] tensor to write them into (as in `llr`)."""
+        return self.llr(self._noise(generator, sigma_lanes.shape[0]), sigma_lanes,
+                        out=out)
 
     def sample_codewords(self, generator: torch.Generator,
                          sigma_lanes: torch.Tensor, bits: torch.Tensor,
-                         fold: bool = False) -> torch.Tensor:
+                         fold: bool = False,
+                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Channel LLRs [N*z, B] for codeword bits [N*z, B] in {0, 1}; with
         `fold`, sign-folded to the zero word (``llr * (1 - 2*bits)``)."""
         return self.llr(self._noise(generator, sigma_lanes.shape[0]), sigma_lanes,
-                        bits, fold)
+                        bits, fold, out)
 
     def llr(self, noise: torch.Tensor, sigma_lanes: torch.Tensor,
-            bits: Optional[torch.Tensor] = None, fold: bool = False) -> torch.Tensor:
+            bits: Optional[torch.Tensor] = None, fold: bool = False,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The LLRs of `noise` [N*z, B]: one launch of the kernel for a
-        tensor on the card, `llr_plain` for a tensor on the CPU."""
+        tensor on the card, `llr_plain` for a tensor on the CPU; written
+        into `out` where one is given (the kernel writes there itself), else
+        into a new tensor."""
         if noise.device.type == "cpu":
-            return self.llr_plain(noise, sigma_lanes, bits, fold)
+            llr = self.llr_plain(noise, sigma_lanes, bits, fold)
+            return llr if out is None else out.copy_(llr)
         if bits is not None:
             bits = bits.to(torch.float32)
-        out = awgn_llr.launch(self.llr_params, noise, sigma_lanes, bits, fold)
+        out = awgn_llr.launch(self.llr_params, noise, sigma_lanes, bits, fold, out)
         if torch.cuda.is_current_stream_capturing():
             self.captured[awgn_llr.KERNEL] += 1
         else:

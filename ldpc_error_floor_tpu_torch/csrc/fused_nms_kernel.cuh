@@ -1017,7 +1017,8 @@ fused_nms_kernel(const float* __restrict__ llr,
 //     device counter (`g_word_stop_claim`) as the tile ahead becomes its
 //     current one.  The launch's last block to exit sets the counter back to 0, so
 //     the next launch on the stream starts from word 0 with no other kernel
-//     (two launches of one instance must not overlap on two streams);
+//     (two launches of one counter, kExtra's, must not overlap on two
+//     streams);
 //   - a lane is blockDim.x / G consecutive threads (48 on wman: two of every
 //     three warps hold one lane alone) and its state is its own run of
 //     shared memory, [G][rows] and not the loop's [rows][G]: a lane whose
@@ -1046,12 +1047,27 @@ fused_nms_kernel(const float* __restrict__ llr,
 //     memory at every step.  So a word's APP and LLRs cost no step of their
 //     own, and the steps read no LLR from device memory;
 //   - the graph table, the lifted slot table and the output-byte tables are
-//     staged once per block, not once per G words.
+//     staged once per block, not once per G words;
+//   - the instance with kRead takes a whole host read of K batches, `llr`
+//     [K][N*z][B] (`words` = K*B; word w is column w % B of batch w / B,
+//     so a tile may straddle two batches), and `totals` (an int64 triple,
+//     zero-filled by the caller) in place of the rows and the APP, and
+//     writes neither: a word that ends at t = T still wrong (it was wrong
+//     at every iteration, or it would have stopped) adds its bit errors and
+//     itself to its block's shared totals, and each block adds them to the
+//     triple at its exit: [bit errors at the last iteration, frames wrong
+//     there, frames wrong at every iteration], the simulator's genie
+//     counters, which are the reductions of the rows (a word that was ever
+//     correct has stopped, so its last row is 0).  A read drains once, not
+//     once per batch, and no kernel reduces its rows.  The instances
+//     without kRead (one batch, its rows and APP) compile as they did
+//     before it.
 // Under a profiler (`engage`) each block adds, at its exit, its lane-steps
 // (G times its loop entries, idle lanes included) and its words to the
 // device pair `g_word_stop_engage` (utils.profiling.snapshot() reads it).
 
 __device__ unsigned int g_word_stop_claim[2][2];  // [kExtra]: next tile, blocks done
+                                                  // (a read uses kExtra 0's)
 __device__ unsigned long long g_word_stop_engage[2];  // lane-steps, words
 
 constexpr int kWordStopCtl = 16;  // the block's ints of the word stop's control
@@ -1106,14 +1122,15 @@ __device__ void stage_lifted16(const int* __restrict__ tab, ushort2* dst, int E,
 // staged already; *src: the tile buffer (bit 8) and column of the word's
 // codes, and bit 16 set where they are not all codes.  When the current
 // tile is used up the tile ahead becomes current and the block claims the
-// next tile of G words from `claim`, to be staged by the next phase A.  -1 where the launch has no word left.  blk (see the
+// next tile of G words from `claim`, to be staged by the next phase A.  -1
+// where the launch's `words` are all taken.  blk (see the
 // kernel): [0] next unstarted word, [1] end of the current tile, [2] set
 // once a claim found no word, [6] base of the tile ahead (-1: none), [7] its
 // end, [8] the current tile's buffer, [9] the tile ahead is to be staged,
 // [10 + buffer] its words whose LLRs are not all codes, [12] base of the
 // current tile.
 __device__ __forceinline__ int claim_words(bool want, int* blk, unsigned* claim,
-                                           int G, int B, int* src) {
+                                           int G, int words, int* src) {
   const unsigned need = __ballot_sync(0xffffffffu, want);
   if (!need) return -1;
   const int lane = threadIdx.x;
@@ -1132,7 +1149,7 @@ __device__ __forceinline__ int claim_words(bool want, int* blk, unsigned* claim,
   }
   if (w >= 0) *src = (buf << 8) | col | ((blk[10 + buf] >> col & 1) << 16);
   const bool promote = nw >= avail && abase >= 0;
-  int base = B;
+  int base = words;
   if (promote && !blk[2]) {
     if (lane == 0) base = (int)atomicAdd(claim, (unsigned)G);
     base = __shfl_sync(0xffffffffu, base, 0);
@@ -1146,9 +1163,9 @@ __device__ __forceinline__ int claim_words(bool want, int* blk, unsigned* claim,
       blk[12] = abase;
       blk[1] = blk[7];
       blk[0] = min(abase + nw - avail, blk[1]);
-      if (base < B) {  // into the old current tile's buffer
+      if (base < words) {  // into the old current tile's buffer
         blk[6] = base;
-        blk[7] = min(base + G, B);
+        blk[7] = min(base + G, words);
         blk[9] = 1;
         blk[10 + cur] = 0;
       } else {
@@ -1160,20 +1177,32 @@ __device__ __forceinline__ int claim_words(bool want, int* blk, unsigned* claim,
   return want ? w : -1;
 }
 
+// The offset of word w's first LLR in a read's `llr` [K][N*z][B]: column
+// w % B of batch w / B.
+__device__ __forceinline__ size_t word_col(int w, int B, int Nz) {
+  const int k = w / B;
+  return (size_t)k * Nz * B + (w - k * B);
+}
+
 // All threads: the LLRs of the G words [base, end) as int8 codes of u where
 // each is one exactly (-128: -0), into the tile buffer `xt` [N*z][G]; bit w
 // of `off` set where word w's are not all codes.  A warp reads 32 / G rows
 // of the tile's consecutive words, so each sector is read once for its G
-// words (four loads in flight).
+// words (four loads in flight).  kRead: `llr` is a read's, and each thread
+// finds its word's column once (a tile may straddle two batches).
+template <bool kRead>
 __device__ __forceinline__ void stage_tile(const float* __restrict__ llr, int base,
                                            int end, int B, int Nz, int G,
                                            const Msg& ms, signed char* xt, int* off) {
   const int lgG = __ffs(G) - 1, w = threadIdx.x & (G - 1);  // blockDim.x % G == 0
   const bool in = base + w < end;
+  const float* col = kRead ? llr + word_col(base + w, B, Nz) : llr;
   bool odd = false;
 #pragma unroll 4
   for (int e = threadIdx.x; e < Nz << lgG; e += blockDim.x) {
-    const float x = in ? __ldg(llr + (size_t)(e >> lgG) * B + base + w) : 0.0f;
+    const float x = in ? __ldg(kRead ? col + (size_t)(e >> lgG) * B
+                                     : llr + (size_t)(e >> lgG) * B + base + w)
+                       : 0.0f;
     const int cx = __float2int_rn(x * ms.uinv);
     odd = odd || !(cx >= -127 && cx <= 127 && __int2float_rn(cx) * ms.u == x);
     xt[e] = (signed char)(cx == 0 && __float_as_int(x) < 0 ? -128 : cx);
@@ -1199,7 +1228,9 @@ __device__ __forceinline__ void copy_codes(const signed char* xt, int src, int N
   if (k == 0 && (src >> 16 & 1)) atomicOr(flag, 1);
 }
 
-template <int kExtra>
+// kRead: a host read (`totals`, `read_words`; see above); the parameters
+// it adds come last, so the instances without it read theirs as before.
+template <int kExtra, bool kRead = false>
 __global__ void __launch_bounds__(LaunchBound<kEarlyStop, false, true>::threads,
                                   LaunchBound<kEarlyStop, false, true>::blocks)
 fused_nms_kernel_word_stop(const float* __restrict__ llr,
@@ -1214,9 +1245,12 @@ fused_nms_kernel_word_stop(const float* __restrict__ llr,
                            int target, Msg ms, int cn_mode, int ucn,
                            int vn_mode, int offset_mode, int dim_cn, int dim_vn,
                            WordStopLayout L, int engage,
-                           const uint8_t* __restrict__ lab) {
+                           const uint8_t* __restrict__ lab,
+                           unsigned long long* __restrict__ totals, int read_words) {
+  static_assert(!kRead || kExtra == 0, "a read takes no labels");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int Nz = N * z, Mz = M * z, Ez = E * z;
+  const int words = kRead ? read_words : B;
   // a lane's rows are its own run of shared memory: the graph's rows
   // unshifted (lg 0)
   const Graph gr = stage_table(tab, reinterpret_cast<int*>(smem_raw), N, M,
@@ -1228,7 +1262,9 @@ fused_nms_kernel_word_stop(const float* __restrict__ llr,
   int* lrun = ldone + G;    // phase B runs for lane g this step
   int* lflag = lrun + G;    // bit 0: its word's LLRs are not all codes; bit 1: ldone's
   int* lsrc = lflag + G;    // where its next word's codes are (claim_words)
-  int* blk = lsrc + G;      // claim_words' and: [3] alive, [4] steps, [5] words
+  int* blk = lsrc + G;      // claim_words' and: [3] alive, [4] steps, [5] words,
+                            // [13] bit errors and [14] words wrong at every
+                            // iteration (the totals)
   unsigned short* lut = reinterpret_cast<unsigned short*>(smem_raw + L.lut);
   ushort2* ltab = reinterpret_cast<ushort2*>(smem_raw + L.ltab);
   unsigned* claim = g_word_stop_claim[kExtra];
@@ -1270,26 +1306,26 @@ fused_nms_kernel_word_stop(const float* __restrict__ llr,
   if (tid == 0) {  // the first tile, staged as the tile ahead
     for (int k = 0; k < kWordStopCtl; ++k) blk[k] = 0;
     const int base = (int)atomicAdd(claim, (unsigned)G);
-    blk[6] = base < B ? base : -1;
-    blk[7] = min(base + G, B);
-    blk[2] = base >= B;
+    blk[6] = base < words ? base : -1;
+    blk[7] = min(base + G, words);
+    blk[2] = base >= words;
   }
   __syncthreads();
   if (blk[6] >= 0)
-    stage_tile(llr, blk[6], blk[7], B, Nz, G, ms, xt + Nz * G, blk + 11);
+    stage_tile<kRead>(llr, blk[6], blk[7], B, Nz, G, ms, xt + Nz * G, blk + 11);
   __syncthreads();
   if (tid < 32) {
     int src = -1;
-    const int w = claim_words(tid < G, blk, claim, G, B, &src);
-    const int words = __popc(__ballot_sync(0xffffffffu, w >= 0));
+    const int w = claim_words(tid < G, blk, claim, G, words, &src);
+    const int taken = __popc(__ballot_sync(0xffffffffu, w >= 0));
     if (tid < G) {
       lw[tid] = w;
       lt[tid] = 0;
       lsrc[tid] = src;
     }
     if (tid == 0) {
-      blk[3] = words > 0;
-      blk[5] = words;
+      blk[3] = taken > 0;
+      blk[5] = taken;
     }
   }
   __syncthreads();
@@ -1304,7 +1340,7 @@ fused_nms_kernel_word_stop(const float* __restrict__ llr,
     // ---- phase A: per lifted bit ------------------------------------------
     if (blk[9]) {  // all threads: the tile ahead, claimed at the last step
       const int ahead = blk[8] ^ 1;
-      stage_tile(llr, blk[6], blk[7], B, Nz, G, ms, xt + ahead * Nz * G, blk + 10 + ahead);
+      stage_tile<kRead>(llr, blk[6], blk[7], B, Nz, G, ms, xt + ahead * Nz * G, blk + 10 + ahead);
     }
     int wrong = 0;
     if (live) {
@@ -1313,7 +1349,8 @@ fused_nms_kernel_word_stop(const float* __restrict__ llr,
                             ? __ldg(w_vn + (size_t)t * dim_vn) : 1.0f;
       for (Rows it = rows0; it.row < Nz; it.next()) {
         const int row = it.row, j = it.q;
-        const float x = off ? __ldg(llr + (size_t)row * B + b)
+        const float x = off ? __ldg(kRead ? llr + word_col(b, B, Nz) + (size_t)row * B
+                                          : llr + (size_t)row * B + b)
                             : llr_of_code(xc_g[row], ms.u);
         int Sc = 0;
         int dec = 0;  // the hard decision that phase B's parity reads
@@ -1359,6 +1396,10 @@ fused_nms_kernel_word_stop(const float* __restrict__ llr,
             ended = true;
             run = false;
             if (tl < T) done = bl;  // its APP and rows are due
+            if (kRead && n > 0) {  // ends at T, wrong at every iteration
+              atomicAdd(blk + 13, n);
+              atomicAdd(blk + 14, 1);
+            }
           }
         }
         cnt[(p ^ 1) * G + tid] = 0;
@@ -1371,7 +1412,7 @@ fused_nms_kernel_word_stop(const float* __restrict__ llr,
       }
       if (tid == 0) blk[9] = 0;
       int src = -1;
-      const int w = claim_words(ended, blk, claim, G, B, &src);
+      const int w = claim_words(ended, blk, claim, G, words, &src);
       const unsigned got = __ballot_sync(0xffffffffu, w >= 0);
       if (ended) {
         lw[tid] = w;
@@ -1386,8 +1427,8 @@ fused_nms_kernel_word_stop(const float* __restrict__ llr,
       }
     }
     __syncthreads();
-    if (kl == 0 && app_cur) {  // the lane's row t-1 (its count stays until
-      const int n = cnt[p * G + g];  // the next statistics)
+    if (!kRead && kl == 0 && app_cur) {  // the lane's row t-1 (its count
+      const int n = cnt[p * G + g];       // stays until the next statistics)
       err_out[(size_t)(t - 1) * B + b] = n > 0;
       nerr_out[(size_t)(t - 1) * B + b] = n;
     }
@@ -1440,7 +1481,7 @@ fused_nms_kernel_word_stop(const float* __restrict__ llr,
       // stage the LLR codes of the lane's next word
       const int bd = ldone[g];
       if (bd >= 0) {
-        for (int r = t + kl; r < T; r += tpl) {
+        for (int r = t + kl; !kRead && r < T; r += tpl) {
           err_out[(size_t)r * B + bd] = 0;
           nerr_out[(size_t)r * B + bd] = 0;
         }
@@ -1466,6 +1507,11 @@ fused_nms_kernel_word_stop(const float* __restrict__ llr,
     if (engage) {
       atomicAdd(&g_word_stop_engage[0], (unsigned long long)blk[4] * G);
       atomicAdd(&g_word_stop_engage[1], (unsigned long long)blk[5]);
+    }
+    if (kRead && blk[14] > 0) {
+      atomicAdd(totals, (unsigned long long)blk[13]);
+      atomicAdd(totals + 1, (unsigned long long)blk[14]);
+      atomicAdd(totals + 2, (unsigned long long)blk[14]);
     }
     __threadfence();
     if (atomicAdd(claim + 1, 1u) == gridDim.x - 1) {  // the launch's last block
@@ -1530,27 +1576,22 @@ int launch(const void* llr, const void* w_cn, const void* w_ucn,
   return (int)cudaGetLastError();
 }
 
-// One launch of fused_nms_kernel_word_stop<kExtra> (lab: kExtra's, else
-// null) on `stream`: at most the blocks that the card holds at once, G
-// lanes each.  `lut`: the output-byte tables of all T iterations are staged
-// (no or scalar CN weights only).  `engage`: add the launch's lane-steps
-// and words to `g_word_stop_engage`.  `app` null: write no APP (a caller
-// that only counts).  Returns -2 when `smem` is not the
-// layout's size, else the first CUDA error of the queries and the launch
-// (0 = launched).
-template <int kExtra>
-int launch_word_stop(const void* llr, const void* w_cn, const void* w_ucn,
-                     const void* w_vn, const void* tab, void* app, void* err,
-                     void* nerr, int N, int M, int z, int E, int T, int B, int G,
-                     int threads, int smem, int target, Msg ms, int cn_mode, int ucn,
-                     int vn_mode, int offset_mode, int dim_cn, int dim_vn, int lut,
-                     int engage, cudaStream_t stream, const void* lab) {
-  const WordStopLayout L = word_stop_layout(N, M, z, E, G, lut ? T : 0);
-  if (smem != L.bytes || (lut && cn_mode != 0 && cn_mode != 3)) return -2;
-  auto* kern = fused_nms_kernel_word_stop<kExtra>;
-  // the blocks the card holds at once, per card and shape: asked once (a
-  // CUDA graph captures a launch per batch, and the query costs more than
-  // the launch)
+// One launch of fused_nms_kernel_word_stop<kExtra, kRead> (lab: kExtra's,
+// else null; `totals` and `words`: kRead's) on `stream`: at most the
+// blocks that the card holds at once, G lanes each.  Returns the first CUDA
+// error of the queries and the launch (0 = launched).
+template <int kExtra, bool kRead>
+int launch_word_stop_as(const float* llr, const float* w_cn, const float* w_ucn,
+                        const float* w_vn, const int* tab, float* app, uint8_t* err,
+                        int* nerr, int N, int M, int z, int E, int T, int B, int G,
+                        int threads, int smem, int target, Msg ms, int cn_mode, int ucn,
+                        int vn_mode, int offset_mode, int dim_cn, int dim_vn,
+                        const WordStopLayout& L, int engage, cudaStream_t stream,
+                        const uint8_t* lab, unsigned long long* totals, int words) {
+  auto* kern = fused_nms_kernel_word_stop<kExtra, kRead>;
+  // the blocks the card holds at once, per instance, card and shape: asked
+  // once (a CUDA graph captures a launch per batch or read, and the query
+  // costs more than the launch)
   static int known[64][3];  // [card]: threads, smem, blocks
   int dev = 0;
   cudaError_t st = cudaFuncSetAttribute(
@@ -1568,14 +1609,46 @@ int launch_word_stop(const void* llr, const void* w_cn, const void* w_ucn,
     k[1] = smem;
     k[0] = threads;
   }
-  const int tiles = (B + G - 1) / G, resident = k[2];
+  const int tiles = (words + G - 1) / G, resident = k[2];
   const int blocks = tiles < resident ? tiles : resident;
   kern<<<blocks, threads, smem, stream>>>(
-      (const float*)llr, (const float*)w_cn, (const float*)w_ucn,
-      (const float*)w_vn, (const int*)tab, (float*)app, (uint8_t*)err,
-      (int*)nerr, N, M, z, E, T, B, G, target, ms, cn_mode, ucn, vn_mode,
-      offset_mode, dim_cn, dim_vn, L, engage, (const uint8_t*)lab);
+      llr, w_cn, w_ucn, w_vn, tab, app, err, nerr, N, M, z, E, T, B, G, target, ms,
+      cn_mode, ucn, vn_mode, offset_mode, dim_cn, dim_vn, L, engage, lab, totals,
+      words);
   return (int)cudaGetLastError();
+}
+
+// One launch of B2.  `lut`: the output-byte tables of all T iterations are
+// staged (no or scalar CN weights only).  `engage`: add the launch's
+// lane-steps and words to `g_word_stop_engage`.  `app` null: write no APP
+// (a caller that only counts).  `words`: B for one batch, whose rows (and
+// APP) it writes; with `totals`, K*B for a read of K batches (the kRead
+// instance), which takes no rows, APP or labels.  Returns -2 when `smem`
+// is not the layout's size, -3 for a read that breaks those rules, else
+// that of launch_word_stop_as.
+template <int kExtra>
+int launch_word_stop(const void* llr, const void* w_cn, const void* w_ucn,
+                     const void* w_vn, const void* tab, void* app, void* err,
+                     void* nerr, void* totals, int N, int M, int z, int E, int T, int B,
+                     int words, int G, int threads, int smem, int target, Msg ms,
+                     int cn_mode, int ucn, int vn_mode, int offset_mode, int dim_cn,
+                     int dim_vn, int lut, int engage, cudaStream_t stream,
+                     const void* lab) {
+  const WordStopLayout L = word_stop_layout(N, M, z, E, G, lut ? T : 0);
+  if (smem != L.bytes || (lut && cn_mode != 0 && cn_mode != 3)) return -2;
+#define WORD_STOP_ARGS                                                        \
+  (const float*)llr, (const float*)w_cn, (const float*)w_ucn, (const float*)w_vn, \
+      (const int*)tab, (float*)app, (uint8_t*)err, (int*)nerr, N, M, z, E, T, B, G, \
+      threads, smem, target, ms, cn_mode, ucn, vn_mode, offset_mode, dim_cn,     \
+      dim_vn, L, engage, stream, (const uint8_t*)lab, (unsigned long long*)totals, \
+      words
+  if (totals == nullptr)
+    return words == B ? launch_word_stop_as<kExtra, false>(WORD_STOP_ARGS) : -3;
+  if constexpr (kExtra == 0)
+    if (!app && !err && !nerr && !lab && B > 0 && words % B == 0)
+      return launch_word_stop_as<0, true>(WORD_STOP_ARGS);
+#undef WORD_STOP_ARGS
+  return -3;
 }
 
 }  // namespace

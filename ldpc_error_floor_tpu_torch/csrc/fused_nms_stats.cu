@@ -44,8 +44,13 @@
 // power of two).  The code state's early stop (`launch_word_stop`) also
 // takes `lut` (the output-byte tables of every iteration staged) and
 // `engage` (count its lane-steps and words); the others ignore both.
+// `words` is B, except for a host read of K batches through the code
+// state's early stop: `llr` [K][N*z][B], `words` K*B, its genie counters
+// added to `totals` (int64 [3]) and no rows or APP written; every other
+// launch takes a null `totals`.
 // Returns cudaGetLastError() after the launch (0 = launched), -1 for an
-// unknown instance, -2 for a shared-memory size that is not the layout's.
+// unknown instance, -2 for a shared-memory size that is not the layout's,
+// -3 for `words` or `totals` that the launch does not take.
 #define FUSED_NMS_INSTANCES(X)                                                \
   X(0, kFixed, false, false, 0)                                               \
   X(1, kFixed, true, false, 0)                                                \
@@ -83,12 +88,15 @@ static int launch_instance(const void* llr, const void* w_cn, const void* w_ucn,
                            int E, int T, int B, int G, int threads, int smem,
                            int target, Msg ms, int cn_mode, int ucn, int vn_mode,
                            int offset_mode, int dim_cn, int dim_vn, int lut, int engage,
-                           cudaStream_t stream, const void* lab, void* synd) {
+                           int words, void* totals, cudaStream_t stream, const void* lab,
+                           void* synd) {
   if constexpr (kMode == kEarlyStop && kCode)
-    return launch_word_stop<kExtra>(llr, w_cn, w_ucn, w_vn, tab, app, err, nerr, N, M,
-                                    z, E, T, B, G, threads, smem, target, ms, cn_mode,
-                                    ucn, vn_mode, offset_mode, dim_cn, dim_vn, lut,
-                                    engage, stream, lab);
+    return launch_word_stop<kExtra>(llr, w_cn, w_ucn, w_vn, tab, app, err, nerr, totals,
+                                    N, M, z, E, T, B, words, G, threads, smem, target,
+                                    ms, cn_mode, ucn, vn_mode, offset_mode, dim_cn,
+                                    dim_vn, lut, engage, stream, lab);
+  else if (words != B || totals != nullptr)
+    return -3;
   else
     return launch<kMode, kSP, kCode, kSPChunks, kExtra>(
         llr, w_cn, w_ucn, w_vn, tab, app, err, nerr, iters, fail, nullptr, nullptr, N,
@@ -104,7 +112,7 @@ extern "C" int fused_nms_launch(
     float qstep, float qinv, float qclip, float clip_llr, float u, float uinv,
     int clipc, int qshift, int cn_mode, int ucn, int vn_mode, int offset_mode,
     int dim_cn, int dim_vn, int mode, int sp, int code, int lut, int engage,
-    void* stream) {
+    int words, void* totals, void* stream) {
   const Msg ms{dec_type, qinv, qstep, qclip, clip_llr, u, uinv, clipc, qshift};
   switch (instance(mode, sp, code, synd != nullptr ? 2 : (lab != nullptr ? 1 : 0))) {
 #define FUSED_NMS_LAUNCH(ID, MODE, SP, CODE, EXTRA)                           \
@@ -112,8 +120,8 @@ extern "C" int fused_nms_launch(
     return launch_instance<MODE, SP, CODE, EXTRA>(                            \
         llr, w_cn, w_ucn, w_vn, tab, app, err, nerr, iters, fail, N, M, z, E, \
         T, B, G, threads, smem, target, ms, cn_mode, ucn, vn_mode,            \
-        offset_mode, dim_cn, dim_vn, lut, engage, (cudaStream_t)stream, lab,  \
-        synd);
+        offset_mode, dim_cn, dim_vn, lut, engage, words, totals,              \
+        (cudaStream_t)stream, lab, synd);
     FUSED_NMS_INSTANCES(FUSED_NMS_LAUNCH)
 #undef FUSED_NMS_LAUNCH
   }

@@ -10,8 +10,9 @@ iteration whose hard decisions satisfy every check (`DeployResult`).
 ``collect='apps'`` returns the per-iteration APP stack on the target
 columns and the last iteration's APP over every bit, differentiable with
 respect to the weights (training); `NMSDecoder.apply` is `decode` with that
-default, as in the JAX package.  The work goes to
-`ops.fused_decoder.FusedNMSKernel` and, for 'apps',
+default, as in the JAX package.  `NMSDecoder.read_totals` decodes the K
+batches of a simulator's host read and returns only its genie counters.
+The work goes to `ops.fused_decoder.FusedNMSKernel` and, for 'apps',
 `ops.fused_train.FusedTrainKernel`: hand-written CUDA kernels for a tensor
 on the card, their plain PyTorch versions for a tensor on the CPU, with the
 semantics of the JAX scan decoder (labels and ``track_syndrome`` included)
@@ -160,6 +161,16 @@ class NMSDecoder:
         app, err, nerr, *synd = self.kernel.decode_stats(stacked, llr, labels,
                                                          app=collect == "stats")
         return DecodeResult(app, err, nerr, None, *synd)
+
+    def read_totals(self, params: Params, llr_read: torch.Tensor) -> torch.Tensor:
+        """The genie counters of K batches ``llr_read [K, N*z, B]`` against
+        the all-zero word, int64 [3] on its device: bit errors and frames
+        wrong at the last iteration, frames wrong at every iteration, summed
+        over the K*B words, as 'counts' rows reduce to them
+        (`FusedNMSKernel.decode_read_totals`)."""
+        if llr_read.device.type != self.device.type:
+            raise ValueError(f"llr on {llr_read.device}, decoder on {self.device}")
+        return self.kernel.decode_read_totals(stack_weights(self.spec, params), llr_read)
 
     def apply(self, params: Params, llr: torch.Tensor,
               labels: Optional[torch.Tensor] = None, collect: str = "apps"):

@@ -72,10 +72,12 @@ def llr_params(code: Code, decoding_type: int, q_bit: int, clip_llr: float) -> L
 
 
 def launch(prm: LLRParams, noise: torch.Tensor, sigma: torch.Tensor,
-           bits: Optional[torch.Tensor] = None, fold: bool = False) -> torch.Tensor:
+           bits: Optional[torch.Tensor] = None, fold: bool = False,
+           out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One launch on the card: LLRs [R, B] float32 from noise [R, B] and
-    sigma [B] (and codeword bits [R, B]), on the current stream; raises for
-    inputs the kernel does not take and for a failed launch."""
+    sigma [B] (and codeword bits [R, B]), on the current stream, into `out`
+    (a new tensor when None); raises for inputs the kernel does not take
+    and for a failed launch."""
     if noise.device.type != "cuda":
         raise ValueError(f"the awgn_llr kernel runs on the card, not {noise.device}")
     if noise.dtype != torch.float32 or noise.dim() != 2 or not noise.is_contiguous():
@@ -90,7 +92,12 @@ def launch(prm: LLRParams, noise: torch.Tensor, sigma: torch.Tensor,
                          f"on {noise.device}")
     if fold and bits is None:
         raise ValueError("the fold needs the codeword bits")
-    out = torch.empty_like(noise)
+    if out is None:
+        out = torch.empty_like(noise)
+    elif (out.dtype != torch.float32 or out.shape != noise.shape or not out.is_contiguous()
+          or out.device != noise.device):
+        raise ValueError(f"out must be a contiguous float32 [{R}, {B}] tensor "
+                         f"on {noise.device}")
     lib, _ = load_library()
     with torch.cuda.device(noise.device):
         rc = lib.awgn_llr_launch(

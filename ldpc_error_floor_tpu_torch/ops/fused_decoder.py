@@ -18,7 +18,11 @@ codeword), as the JAX scan decoder does (its Pallas path ignores labels):
   iterations read 0 and the APP is that of the stop (`group`);
 * `decode_deploy` returns ``(app [N*z, B], wrong [B] bool, bit_errors [B]
   int32, iters [B] int32, detected_fail [B] bool)``, each word frozen at
-  its first iteration whose hard decisions satisfy H*x = 0.
+  its first iteration whose hard decisions satisfy H*x = 0;
+* `decode_read_totals` takes a host read of K batches, ``llr [K, N*z, B]``,
+  and returns the simulator's three genie counters summed over its words
+  (int64 [3]): under QMS with the early stop, on the card, one launch of B2
+  that writes no rows and no APP and totals them itself.
 
 A tensor on the card goes to `csrc/fused_nms_stats.cu` (built with nvcc at
 first use, bound with ctypes); a failed build or launch raises.  Labels
@@ -154,8 +158,8 @@ def load_library() -> Tuple[ctypes.CDLL, str]:
     lib, log = build_library(_SRC)
     fn = lib.fused_nms_launch
     fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 11
-                   + [ctypes.c_float] * 6 + [ctypes.c_int] * 13
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_float] * 6 + [ctypes.c_int] * 14
+                   + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     occ = lib.fused_nms_resident_blocks
     occ.argtypes = [ctypes.c_int] * 5
@@ -860,6 +864,44 @@ class FusedNMSKernel:
         return self._launch(stacked, llr,
                             EARLY_STOP if self.cfg.early_stop else FIXED, labels, app)
 
+    def decode_read_totals(self, stacked: Stacked, llr_read: torch.Tensor) -> torch.Tensor:
+        """llr_read: [K, N*z, B] float32, the K batches of one host read
+        (the all-zero word).  Returns int64 [3] on its device: bit errors
+        and frames wrong at the last iteration, frames wrong at every
+        iteration, summed over its K*B words (`read_totals_of_rows`).  Under
+        the code state's genie early stop on the card, one launch of B2 over
+        the K*B words that writes no rows and no APP: a word that ends at T
+        still wrong adds its bit errors and itself (a word that was ever
+        correct has stopped, so its last row is 0, and both frame counts
+        are these words).  Otherwise, and on the CPU, `read_totals_of_rows`."""
+        self._check_read(llr_read)
+        if llr_read.device.type == "cuda" and self.code and self.cfg.early_stop:
+            return self._launch(stacked, llr_read, EARLY_STOP, read=True)
+        return self.read_totals_of_rows(stacked, llr_read)
+
+    def read_totals_of_rows(self, stacked: Stacked, llr_read: torch.Tensor,
+                            plain: bool = False) -> torch.Tensor:
+        """The totals of `decode_read_totals` from rows, on any device: each
+        batch of the read decoded alone (`decode_stats`, or with `plain`
+        `decode_stats_plain`), its rows reduced to [bit errors of the last
+        row, frames wrong there, frames wrong at every row] and summed."""
+        self._check_read(llr_read)
+        acc = None
+        for llr in llr_read:
+            _, err, nerr = (self.decode_stats_plain(stacked, llr) if plain
+                            else self.decode_stats(stacked, llr, app=False))[:3]
+            counts = torch.stack([nerr[-1].sum(dtype=torch.int64),
+                                  err[-1].sum(dtype=torch.int64),
+                                  err.all(dim=0).sum(dtype=torch.int64)])
+            acc = counts if acc is None else acc + counts
+        return acc
+
+    def _check_read(self, llr_read: torch.Tensor) -> None:
+        Nz = self.N * self.z
+        if llr_read.dim() != 3 or llr_read.shape[1] != Nz:
+            raise ValueError(f"a read's llr must be [K, {Nz}, B], not "
+                             f"{tuple(llr_read.shape)}")
+
     def decode_deploy(self, stacked: Stacked, llr: torch.Tensor,
                       labels: Optional[torch.Tensor] = None):
         """llr: [N*z, B] float32.  The syndrome-stop kernel for a tensor on
@@ -914,17 +956,22 @@ class FusedNMSKernel:
         return w, check_weights(self.graph, self.spec, kind, w, device)
 
     def _launch(self, stacked: Stacked, llr: torch.Tensor, mode: int,
-                labels: Optional[torch.Tensor] = None, want_app: bool = True):
+                labels: Optional[torch.Tensor] = None, want_app: bool = True,
+                read: bool = False):
+        """One launch in `mode`; `read`: B2 over a host read [K, N*z, B],
+        returning its int64 totals (`decode_read_totals`)."""
         cfg, spec = self.cfg, self.spec
         sp = cfg.decoding_type == SP
         if sp:
             check_sp_degree(self.graph)
         Nz = self.N * self.z
-        if (llr.dtype != torch.float32 or llr.dim() != 2 or llr.shape[0] != Nz
+        if (llr.dtype != torch.float32 or llr.dim() != 2 + read or llr.shape[-2] != Nz
                 or not llr.is_contiguous()):
-            raise ValueError(f"llr must be a contiguous float32 [{Nz}, B] tensor")
+            raise ValueError(f"llr must be a contiguous float32 "
+                             f"[{'K, ' * read}{Nz}, B] tensor")
         dev = llr.device
-        B = llr.shape[1]
+        B = llr.shape[-1]
+        words = llr.shape[0] * B if read else B
         bits = _label_bits(labels, self.target * self.z, llr)
         w_cn, dim_cn = self._weights(stacked, "cn", dev)
         w_vn, dim_vn = self._weights(stacked, "vn", dev)
@@ -932,12 +979,19 @@ class FusedNMSKernel:
         tab = self.graph_table(dev)
         deploy = mode == DEPLOY
         rows = () if deploy else (self.T,)
-        # the code state's early stop writes no APP that is not wanted
+        # the code state's early stop writes no APP that is not wanted, and
+        # over a read no rows either: its totals
         skip_app = not want_app and self.code and mode == EARLY_STOP
-        app = None if skip_app else torch.empty((Nz, B), dtype=torch.float32, device=dev)
-        err = torch.empty(rows + (B,), dtype=torch.bool, device=dev)
-        nerr = torch.empty(rows + (B,), dtype=torch.int32, device=dev)
-        outs = (app, err, nerr)
+        totals = app = err = nerr = None
+        if read:
+            totals = torch.zeros(3, dtype=torch.int64, device=dev)
+            outs = totals
+        else:
+            if not skip_app:
+                app = torch.empty((Nz, B), dtype=torch.float32, device=dev)
+            err = torch.empty(rows + (B,), dtype=torch.bool, device=dev)
+            nerr = torch.empty(rows + (B,), dtype=torch.int32, device=dev)
+            outs = (app, err, nerr)
         if deploy:
             outs += (torch.empty(B, dtype=torch.int32, device=dev),
                      torch.empty(B, dtype=torch.bool, device=dev))
@@ -969,7 +1023,7 @@ class FusedNMSKernel:
                 spec.sharing[0], int(spec.ucn_enabled), spec.sharing[2],
                 int(cfg.neural_mode == "offset"), dim_cn, dim_vn, mode,
                 int(sp), int(self.code), int(self._lut_iters(mode) > 0), int(engage),
-                stream)
+                words, ptr(totals), stream)
         if rc != 0:
             raise RuntimeError(f"fused_nms_launch ({kernel_name(mode, sp)}) "
                                f"failed: CUDA error {rc}")
@@ -977,4 +1031,4 @@ class FusedNMSKernel:
             self.captured[kernel_name(mode, sp)] += 1
         else:
             self.launches[kernel_name(mode, sp)] += 1
-        return outs if want_app else (None, *outs[1:])
+        return outs if want_app or read else (None, *outs[1:])

@@ -16,13 +16,18 @@ and decodes the sign-folded LLRs against the zero word.
 Each step samples a batch on the device, decodes it and reduces it to a
 few counters there.  `inner_steps` = K steps make one chunk, whose counters
 are summed on the device; the host reads them once per chunk (JAX runs the
-K steps under one `lax.scan` in one jitted dispatch).  On the card a chunk
-is one replay of a CUDA graph that holds the K steps, captured once for
-each parameter set, generator, SNR and configuration (`_GraphedChunk`); on
-the CPU the K steps run in a loop.  One chunk is kept in flight: chunk k+1
-is enqueued before the host waits for chunk k's counters, which are copied
-to pinned memory behind an event, so the card never idles on the host's
-read.  `run_point(ckpt_path=...)` keeps an atomic JSON checkpoint of the
+K steps under one `lax.scan` in one jitted dispatch).  Under the genie stop
+the chunk's K batches are sampled in turn into one read buffer [K, N*z, B]
+and decoded by one call that returns only the chunk's counters
+(`NMSDecoder.read_totals`: on the card, under QMS with the early stop, one
+launch of the early-stop kernel over the K*B words, which writes no
+per-word rows); under the syndrome stop each batch is decoded alone.  On
+the card a chunk is one replay of a CUDA graph that holds its K steps,
+captured once for each parameter set, generator, SNR and configuration
+(`_GraphedChunk`); on the CPU the same steps run eagerly.  One chunk is
+kept in flight: chunk k+1 is enqueued before the host waits for chunk k's
+counters, which are copied to pinned memory behind an event, so the card
+never idles on the host's read.  `run_point(ckpt_path=...)` keeps an atomic JSON checkpoint of the
 counters and the generator state, so a killed point resumes where it was
 counted.
 
@@ -272,51 +277,64 @@ class FERSimulator:
         self.inner_steps = min(inner_steps,
                                max(1, (2 ** 31 - 1) // max(batch * nbits, 1)))
         self._graphed: Optional[_GraphedChunk] = None
+        self._llr_read: Optional[torch.Tensor] = None
 
-    def _sample(self, generator: torch.Generator, sigma: float) -> torch.Tensor:
+    def _sample(self, generator: torch.Generator, sigma: float,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One batch's LLRs [N*z, local batch], into `out` where given."""
         sig = torch.full((self.local_batch,), sigma, dtype=torch.float32,
                          device=self.device)
         if self.codewords == "zero":
-            return self.channel.sample(generator, sig)
+            return self.channel.sample(generator, sig, out=out)
         # random codewords, decoded as sign-folded LLRs against the zero
         # word (exact for continuous channels; under QMS zero-LLR ties
         # follow the zero-word semantics, as in the JAX package)
         bits = self._encoder.random_codewords(generator, self.local_batch)
-        return self.channel.sample_codewords(generator, sig, bits, fold=True)
+        return self.channel.sample_codewords(generator, sig, bits, fold=True, out=out)
+
+    def _read_buffer(self) -> torch.Tensor:
+        """The LLRs of one chunk under the genie stop, [K, N*z, local
+        batch] float32: made once for its shape and kept across points, so
+        that no capture allocates it in its graph's pool."""
+        shape = (self.inner_steps, self.decoder.N * self.decoder.z, self.local_batch)
+        if self._llr_read is None or tuple(self._llr_read.shape) != shape:
+            self._llr_read = None
+            self._llr_read = torch.empty(shape, dtype=torch.float32, device=self.device)
+        return self._llr_read
 
     def _local_step(self, params: Params, generator: torch.Generator,
                     sigma: float) -> torch.Tensor:
-        """One batch's counters on the device: [bit errors, frames wrong
-        (at the last iteration / at each frame's stop), frames wrong at
-        every iteration] (genie), or [bit errors, frames wrong, undetected,
-        iterations] (syndrome)."""
-        llr = self._sample(generator, sigma)
-        if self.stop == "syndrome":
-            res = self.decoder.apply(params, llr, collect="deploy")
-            return torch.stack([res.bit_errors.sum(dtype=torch.int64),
-                                res.wrong.sum(dtype=torch.int64),
-                                res.undetected.sum(dtype=torch.int64),
-                                res.iters.sum(dtype=torch.int64)])
-        res = self.decoder.apply(params, llr, collect="counts")  # no APP: counted only
-        return torch.stack([res.bit_errors[-1].sum(dtype=torch.int64),
-                            res.err_flags[-1].sum(dtype=torch.int64),
-                            res.uncor_mask.sum(dtype=torch.int64)])
-
-    def _steps(self, params: Params, generator: torch.Generator,
-               sigma: float) -> torch.Tensor:
-        """K steps of `_local_step`, their counters summed on the device."""
-        acc = self._local_step(params, generator, sigma)
-        for _ in range(self.inner_steps - 1):
-            acc = acc + self._local_step(params, generator, sigma)
+        """This rank's counters of one chunk of K batches, on the device:
+        [bit errors, frames wrong at the last iteration, frames wrong at
+        every iteration] (genie), or [bit errors, frames wrong at each
+        frame's stop, undetected, iterations] (syndrome).  Under the genie
+        stop the K batches are sampled in turn into the read buffer, the
+        same draws from `generator` as K steps of one batch, and decoded by
+        one `NMSDecoder.read_totals` call; under the syndrome stop each
+        batch is decoded alone and the counters summed."""
+        if self.stop == "genie":
+            llr = self._read_buffer()
+            for k in range(self.inner_steps):
+                self._sample(generator, sigma, out=llr[k])
+            return self.decoder.read_totals(params, llr)
+        acc = None
+        for _ in range(self.inner_steps):
+            res = self.decoder.apply(params, self._sample(generator, sigma),
+                                     collect="deploy")
+            counts = torch.stack([res.bit_errors.sum(dtype=torch.int64),
+                                  res.wrong.sum(dtype=torch.int64),
+                                  res.undetected.sum(dtype=torch.int64),
+                                  res.iters.sum(dtype=torch.int64)])
+            acc = counts if acc is None else acc + counts
         return acc
 
     def _chunk(self, params: Params, generator: torch.Generator,
                sigma: float) -> torch.Tensor:
         """One chunk's counters on the device: on the card one replay of
-        the CUDA graph of `_steps`, on the CPU `_steps` itself."""
+        the CUDA graph of `_local_step`, on the CPU `_local_step` itself."""
         with torch.no_grad():
             if self.device.type == "cpu":
-                return self._steps(params, generator, sigma)
+                return self._local_step(params, generator, sigma)
             key = (float(sigma), self.batch, self.inner_steps, self.stop,
                    self.codewords)
             g = self._graphed
@@ -354,7 +372,7 @@ class FERSimulator:
 
     def _capture(self, key: tuple, params: Params, generator: torch.Generator,
                  sigma: float) -> _GraphedChunk:
-        """Capture `_steps` as a CUDA graph that draws from `generator`.
+        """Capture `_local_step` as a CUDA graph that draws from `generator`.
 
         Nothing runs while a graph is captured: a replay draws from the
         generator's state at the replay, exactly the numbers K eager steps
@@ -362,10 +380,13 @@ class FERSimulator:
         first copies from the host (the weights' row index, the kernel's
         graph table, the encoder's first product) is made before the
         capture, which allows no host copy; the capture itself must not
-        synchronise, and raises if a step does."""
+        synchronise, and raises if a step does.  The read buffer is made
+        before it too, outside the graph's pool."""
         kernel = self.decoder.kernel
         stack_weights(self.decoder.spec, params)
         kernel.graph_table(self.device)
+        if self.stop == "genie":
+            self._read_buffer()
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
         if self.codewords == "random":
@@ -382,7 +403,7 @@ class FERSimulator:
         with torch.cuda.stream(stream):
             graph.capture_begin()
             try:
-                out = self._steps(params, generator, sigma)
+                out = self._local_step(params, generator, sigma)
             finally:
                 graph.capture_end()
         torch.cuda.current_stream(self.device).wait_stream(stream)

@@ -144,10 +144,10 @@ class _Injected:
         self.batches = list(batches)
         self.calls = 0
 
-    def sample(self, generator, sigma_lanes):
-        llr = self.batches[self.calls % len(self.batches)]
+    def sample(self, generator, sigma_lanes, out=None):
+        llr = torch.from_numpy(self.batches[self.calls % len(self.batches)])
         self.calls += 1
-        return torch.from_numpy(llr)
+        return llr if out is None else out.copy_(llr)
 
 
 def test_fer_simulator_syndrome_matches_summed_deploy_counters():

@@ -15,7 +15,11 @@ kernel groups words (under QMS each word alone, B2's stop per word; G per
 block for the float states), and its genie-failure mask to the fixed-T
 kernel's exactly; under QMS both are checked on every grid, with batches
 that are not a multiple of G, small and large, and B2 on the benchmark's
-two codes with its engagement pair (words and lane-steps).  The syndrome stop's per-word outputs are integer-equal to its
+two codes with its engagement pair (words and lane-steps); B2 over a host
+read of K batches, one launch whose totals equal the reductions of K
+launches' rows (two reads in a row, a ragged batch at K = 1 and K = 2),
+its pair counting K*B words, and a replayed chunk running it once beside K
+sampler launches and no reduction.  The syndrome stop's per-word outputs are integer-equal to its
 plain version.  SP (tanhf/atanhf are not PyTorch's, and the plain version's
 cumprod may associate differently on the card): APPs within atol 1e-3 /
 rtol 1e-4, counters equal on at least 99.9% of words.  The training pair:
@@ -253,6 +257,97 @@ def test_word_stop_equals_plain_at_group_one_on_card(case):
         rows = torch.arange(T, device=dev)[:, None]
         assert not bool(out[1][rows >= own[None]].any())
         assert int(own.min()) < T and (B == 1001 or float(own.float().mean()) < 0.75 * T)
+
+
+# (code, sharing, T, target_node, weights, SNR dB): B2 over a host read, on
+# the benchmark's two configurations
+READ_CASES = [
+    (WMAN, (3, 3, 3), 20, 0, f"{WMAN}_base20", 5.5),
+    (G5_64, (2, 2, 2), 50, 10, f"{G5_64}_iter50", 3.0),
+]
+
+
+def _read_setup(dev, case):
+    """B2's wrapper, its stacked weights and a sampler of reads [K, N*z, B]
+    in which every 97th word is made wrong at every iteration (its LLRs
+    made positive: bit 1 everywhere)."""
+    from ldpc_error_floor_tpu_torch.models import load_params, stack_weights
+    code_name, sharing, T, target, weights, snr = case
+    code = get_code(code_name)
+    graph = TannerGraph(code)
+    spec = WeightSpec(sharing=sharing, n_iters=T)
+    kern = FusedNMSKernel(graph, DecoderConfig(target_node=target, early_stop=True), spec)
+    stacked = stack_weights(spec, load_params(spec, graph, weights, device=dev))
+    ch = AWGNChannel(code, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    sigma = float(code.snr_sigmas([snr])[0])
+
+    def read(K, B):
+        llr = torch.empty((K, code.n_full, B), device=dev)
+        for k in range(K):
+            ch.sample(gen, torch.full((B,), sigma, device=dev), out=llr[k])
+        llr[:, :, 5::97] = llr[:, :, 5::97].abs()
+        return llr
+    return kern, stacked, read
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", READ_CASES, ids=lambda c: c[0][:6])
+def test_read_totals_equal_batch_rows_on_card(case):
+    """B2 over a host read [K, N*z, B] in one launch, its totals int64
+    [bit errors and frames wrong at the last iteration, frames wrong at
+    every iteration], equal the reductions of the rows of K launches of one
+    batch each on the same LLRs, at K = 3 and B = 4096, and at K = 1 with a
+    batch that is no multiple of G (one ragged tile), and at K = 2 with that
+    batch (tiles that straddle two batches); two reads in a row give the
+    same (the claim counter set back by each launch's last block)."""
+    dev = _cuda()
+    kern, stacked, read = _read_setup(dev, case)
+    assert 1001 % kern.launch_shape(EARLY_STOP)[0]
+    for K, B in ((3, 4096), (1, 1001), (2, 1001)):
+        llr = read(K, B)
+        want = kern.read_totals_of_rows(stacked, llr)
+        kern.launches.clear()
+        got = [kern.decode_read_totals(stacked, llr) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert kern.launches == {"fused_nms_early_stop": 2}
+        assert all(g.dtype == torch.int64 and g.tolist() == want.tolist() for g in got)
+        assert int(want[2]) >= K * (B // 97) and int(want[1]) == int(want[2])
+
+
+@pytest.mark.cuda
+def test_read_counts_its_words_on_card(monkeypatch):
+    """Under a profiler's flag B2 over a read of K batches adds K*B words
+    to the engagement pair, and at least each word's step that finds it
+    correct or at T."""
+    from ldpc_error_floor_tpu_torch.utils import profiling
+    dev = _cuda()
+    kern, stacked, read = _read_setup(dev, READ_CASES[0])
+    K, B = 3, 4096
+    llr = read(K, B)
+    profiling.reset()
+    monkeypatch.setattr(torch.autograd.profiler, "_is_profiler_enabled", True)
+    kern.decode_read_totals(stacked, llr)
+    monkeypatch.setattr(torch.autograd.profiler, "_is_profiler_enabled", False)
+    pair = profiling.snapshot()["fused_nms_early_stop"]
+    assert pair["words"] == K * B and pair["lane_steps"] >= 2 * K * B
+    profiling.reset()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 4])
+def test_graph_chunk_runs_b2_once_on_card(K):
+    """Under QMS with the early stop a replayed chunk runs B2 once over its
+    K batches and the sampler K times, and its counters are B2's totals."""
+    dev = _cuda()
+    sim, params, sigma = _graph_sim(dev, GRAPH_PATHS[1], K)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for n in (1, 2):
+        out = sim._chunk(params, gen, sigma)
+        assert sim.decoder.kernel.launches == {"fused_nms_early_stop": n}
+        assert sim.channel.launches == {"awgn_llr": n * K}
+        assert out.dtype == torch.int64 and tuple(out.shape) == (3,)
+    assert int(out[1]) == int(out[2]) > 0
 
 
 @pytest.mark.cuda
@@ -863,7 +958,8 @@ def _graph_sim(dev, path, K, B=1000, mesh=None):
 def test_graph_replay_equals_eager_steps_on_card(path, K):
     """One replay of the captured K steps counts what K eager steps count
     from the same generator state, leaves the generator where they leave
-    it, and counts its K launches once per replay (none at the capture)."""
+    it, and counts its launches once per replay (none at the capture): K,
+    or one of B2 over the whole read under the early stop."""
     dev = _cuda()
     sim, params, sigma = _graph_sim(dev, path, K)
     kern = sim.decoder.kernel
@@ -874,13 +970,14 @@ def test_graph_replay_equals_eager_steps_on_card(path, K):
     launches = dict(kern.launches)
     gen.set_state(s0)
     with torch.no_grad():
-        eager = [sim._steps(params, gen, sigma) for _ in range(2)]
+        eager = [sim._local_step(params, gen, sigma) for _ in range(2)]
     torch.cuda.synchronize()
     assert [g.tolist() for g in graphed] == [e.tolist() for e in eager]
     assert graphed[0].tolist() != graphed[1].tolist()  # two chunks, two draws
     assert torch.equal(gen.get_state(), s_graph)
-    assert sum(launches.values()) == 2 * K and len(launches) == 1
-    assert sum(kern.launches.values()) == 4 * K and not kern.captured
+    per = 1 if path[0] == "early_stop" else K
+    assert sum(launches.values()) == 2 * per and len(launches) == 1
+    assert sum(kern.launches.values()) == 4 * per and not kern.captured
 
 
 @pytest.mark.cuda
@@ -895,7 +992,7 @@ def test_k_step_call_does_not_synchronise_on_card():
     try:
         sim._chunk(params, gen, sigma)
         with torch.no_grad():
-            sim._steps(params, gen, sigma)
+            sim._local_step(params, gen, sigma)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
@@ -930,7 +1027,7 @@ def test_changed_sigma_or_params_capture_a_new_graph_on_card():
     b = sim._chunk(params, gen, sigma).clone()
     with torch.no_grad():
         gen.set_state(s)
-        c = sim._steps(params, gen, sigma)
+        c = sim._local_step(params, gen, sigma)
     assert sim._graphed is g
     assert b.tolist() == c.tolist() and a.tolist() != b.tolist()
 

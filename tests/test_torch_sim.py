@@ -1,5 +1,7 @@
 """The port's FER simulator: counters equal to the JAX decoder's on the same
-injected LLR batches, the stop rules, and `cli simulate --device cpu`."""
+injected LLR batches, the stop rules, a chunk's read composition under the
+genie early stop against its batches decoded one at a time, and `cli
+simulate --device cpu`."""
 
 import json
 
@@ -15,7 +17,8 @@ from ldpc_error_floor_tpu.models import NMSDecoder as JaxDecoder
 from ldpc_error_floor_tpu.models import WeightSpec as JaxSpec
 from ldpc_error_floor_tpu.models import load_params as jax_load_params
 from ldpc_error_floor_tpu_torch import cli
-from ldpc_error_floor_tpu_torch.codes import TannerGraph, get_code
+from ldpc_error_floor_tpu_torch.channel import AWGNChannel
+from ldpc_error_floor_tpu_torch.codes import Encoder, TannerGraph, get_code
 from ldpc_error_floor_tpu_torch.models import (DecoderConfig, NMSDecoder,
                                                WeightSpec, init_weights,
                                                load_params)
@@ -24,6 +27,7 @@ from ldpc_error_floor_tpu_torch.sim import FERSimulator
 torch.set_num_threads(1)
 
 WMAN = "wman_N0576_R34_z24"
+G5_64 = "5G_LDPC_R0.50_n_dec1280_n1024_k512_z64_s513_640"
 
 
 class _Injected:
@@ -35,10 +39,10 @@ class _Injected:
         self.batches = list(batches)
         self.calls = 0
 
-    def sample(self, generator, sigma_lanes):
-        llr = self.batches[self.calls % len(self.batches)]
+    def sample(self, generator, sigma_lanes, out=None):
+        llr = torch.from_numpy(self.batches[self.calls % len(self.batches)])
         self.calls += 1
-        return torch.from_numpy(llr)
+        return llr if out is None else out.copy_(llr)
 
 
 def _decoder(code, sharing, T):
@@ -105,6 +109,52 @@ def test_run_point_stop_rules():
     assert pt.frames == 20
     with pytest.raises(ValueError, match="below one simulation chunk"):
         sim.run_point(params, 3.0, gen, max_frames=3)
+
+
+@pytest.mark.parametrize("code_name,sharing,target,weights,snr", [
+    (WMAN, (3, 3, 3), 0, f"{WMAN}_base20", 3.0),
+    (G5_64, (2, 2, 2), 10, f"{G5_64}_iter50", 3.5),
+])
+@pytest.mark.parametrize("codewords", ["zero", "random"])
+def test_read_composition_equals_batches_decoded_alone(code_name, sharing, target,
+                                                       weights, snr, codewords):
+    """Under the genie early stop a chunk samples its K batches into one read
+    buffer and decodes them by one `read_totals` call: its counters equal
+    those of K batches sampled and decoded one at a time, each reduced from
+    its rows (bit errors and frames wrong at the last row, frames wrong at
+    every row) and summed, from the same generator state, and the generator
+    ends where theirs does.  A word ever correct stops, so the two frame
+    counts agree."""
+    K, B, T = 3, 24, 5
+    code = get_code(code_name)
+    graph = TannerGraph(code)
+    spec = WeightSpec(sharing=sharing, n_iters=T)
+    dec = NMSDecoder(code, DecoderConfig(target_node=target, early_stop=True), spec,
+                     graph=graph, device="cpu")
+    params = load_params(spec, graph, weights, device="cpu")
+    ch = AWGNChannel(code, device="cpu")
+    sim = FERSimulator(dec, ch, batch=B, codewords=codewords, inner_steps=K)
+    sigma = float(np.float32(code.snr_sigmas([snr])[0]))
+    gen = torch.Generator().manual_seed(7)
+    got = sim._chunk(params, gen, sigma)
+    after = gen.get_state()
+    gen.manual_seed(7)
+    encoder = Encoder(graph, device="cpu")
+    want = torch.zeros(3, dtype=torch.int64)
+    for _ in range(K):
+        sig = torch.full((B,), sigma)
+        if codewords == "zero":
+            llr = ch.sample(gen, sig)
+        else:
+            bits = encoder.random_codewords(gen, B)
+            llr = ch.sample_codewords(gen, sig, bits, fold=True)
+        res = dec.decode(params, llr, collect="counts")
+        want += torch.stack([res.bit_errors[-1].sum(dtype=torch.int64),
+                             res.err_flags[-1].sum(dtype=torch.int64),
+                             res.uncor_mask.sum(dtype=torch.int64)])
+    assert got.dtype == torch.int64 and got.tolist() == want.tolist()
+    assert 0 < int(got[2]) < K * B and int(got[1]) == int(got[2])
+    assert torch.equal(gen.get_state(), after)
 
 
 def test_cli_simulate_prints_one_json_line_per_snr(capsys):

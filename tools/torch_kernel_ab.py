@@ -35,7 +35,12 @@ process; it builds that tree's kernels, makes the inputs from fixed seeds
   noted; the labelled instances of B1, B2 (T=30), B3 and B1-SP on 65536
   random codewords (the port's `Encoder`, BPSK of the encoded word) as
   labels, and B1 with `track_syndrome` on the zero word (a tree whose
-  decoder refuses them records the refusal under ``refused``);
+  decoder refuses them records the refusal under ``refused``); a host
+  read of 8 batches of 65536 (base20 at 5.5 dB; the 5G rate-1/2 z 64 code
+  with its 50-iteration weights at 3.0 dB, T=50, target 10): B2 once over
+  the read, totals only (`decode_read_totals`), against 8 launches of B2
+  whose rows are reduced (`read_totals_of_rows`), as the simulator reduced
+  them before (a tree without them records the refusal);
   `FERSimulator.run_point` frames/s on the base20 fixed-T, base20
   early-stop, boosted30 early-stop, base20 syndrome-stop and BP fixed-T
   paths (4.0 dB, 2^20 frames, seed 0); and the deep anchor: base20 with
@@ -92,6 +97,8 @@ import warnings
 from pathlib import Path
 
 WMAN = "wman_N0576_R34_z24"
+G5_64 = "5G_LDPC_R0.50_n_dec1280_n1024_k512_z64_s513_640"
+READ_K = 8  # batches of a host read
 TRAIN_B = 32768
 DECODE_B = 65536
 STEPS = 5  # train steps per timed epoch
@@ -100,7 +107,7 @@ SP_CODES = {  # B1-SP beyond wman: the name in times_ms, and whether B4-SP runs 
     "BCH_63_51": ("BCH", True),
     "Polar_64_48": ("Polar", True),
     "MACKAY_N96_K48": ("MacKay", False),
-    "5G_LDPC_R0.50_n_dec1280_n1024_k512_z64_s513_640": ("5G50z64", False),
+    G5_64: ("5G50z64", False),
     "5G_LDPC_R0.73_n_dec2304_n2112_k1536_z72_s1537_1584": ("5G73z72", False),
 }
 
@@ -472,6 +479,32 @@ def decode_runs(out: dict, gen) -> None:
             out.setdefault("refused", {})[name] = str(e)
             continue
         out["digests"][name] = [digest(o) for o in fn()]
+
+    # a host read of READ_K batches: B2 once over it, totals only, against a
+    # launch of B2 a batch whose rows are reduced (a generator of its own)
+    g_rd = torch.Generator(device=dev).manual_seed(6)
+    g5 = get_code(G5_64)
+    g5_graph = TannerGraph(g5)
+    spec50 = WeightSpec(sharing=(2, 2, 2), n_iters=50)
+    st50 = stack_weights(spec50, load_params(spec50, g5_graph, f"{G5_64}_iter50",
+                                             device=dev))
+    reads = {  # name: (code, kernel, weights, SNR dB)
+        "b2_read20_5.5dB": (wman, es20, st20, 5.5),
+        "b2_read50_5G_3.0dB": (g5, K(g5_graph, DecoderConfig(target_node=10,
+                                                             early_stop=True), spec50),
+                               st50, 3.0),
+    }
+    for name, (code, kern, st, snr) in reads.items():
+        if not hasattr(kern, "decode_read_totals"):
+            out.setdefault("refused", {})[name] = "no decode_read_totals"
+            continue
+        sig = torch.full((DECODE_B,), float(code.snr_sigmas([snr])[0]), device=dev)
+        ch = AWGNChannel(code, device=dev)
+        x = torch.stack([ch.sample(g_rd, sig) for _ in range(READ_K)])
+        for label, fn in (("_batches", kern.read_totals_of_rows), ("", kern.decode_read_totals)):
+            out["times_ms"][name + label] = time_ms(lambda fn=fn: fn(st, x), 5)
+            out["digests"][name + label] = [digest(fn(st, x))]
+        del x
 
     out["run_point"] = {}
     bp = init_weights(spec_bp, graph, device=dev)
